@@ -3,6 +3,8 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel; skips where there is no card")
 
 
 class _FakeStrategies:
