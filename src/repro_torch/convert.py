@@ -8,21 +8,30 @@ whose rows past ``vocab`` are padding, masked by ``n_valid = vocab``.
 the port; `make_serving_table` builds a table of the same shape and
 distribution, N(0, 0.02), without the model zoo (torch cannot reproduce
 ``jax.random``, so its values differ from the JAX package's).
+`quantized_from_jax` carries the JAX package's quantized table artifacts
+(int8/int4 codes and scales, pq codes and codebook) into the port, for
+``quantized=`` of `bounded_me_decode` and `CascadeExecutor`.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 
-__all__ = ["serving_table_from_jax", "make_serving_table"]
+__all__ = ["serving_table_from_jax", "make_serving_table",
+           "quantized_from_jax"]
 
 #: init_params' embedding scale
 _EMBED_STD = 0.02
+
+#: (table artifact dtype, aux artifact dtype) of each quantized tier
+_ARTIFACT_DTYPES = {"int8": (np.int8, np.float32),
+                    "int4": (np.int8, np.float32),
+                    "pq": (np.uint8, np.float32)}
 
 
 def serving_table_from_jax(params_np: Mapping[str, np.ndarray],
@@ -46,3 +55,25 @@ def make_serving_table(cfg: ArchConfig, seed: int = 0, device="cuda"
                                 dtype=np.float32)
     table *= np.float32(_EMBED_STD)
     return torch.from_numpy(table).to(device), cfg.vocab
+
+
+def quantized_from_jax(artifacts_np: Sequence[np.ndarray], precision: str
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's table artifacts of a quantized tier, as tensors
+    on the CPU: ``(V8, vscale)`` for int8, ``(P4, vscale)`` for int4,
+    ``(codes, codebook)`` for pq — e.g. ``_quantize_table``'s output or a
+    store's ``quantized()``, converted to numpy.  Layouts are shared, so
+    nothing is re-laid; dtypes are checked, not cast."""
+    if precision not in _ARTIFACT_DTYPES:
+        raise ValueError(f"no quantized artifacts for precision "
+                         f"{precision!r} (expected 'int8', 'int4' or 'pq')")
+    Vq, vaux = (np.asarray(a) for a in artifacts_np)
+    want = _ARTIFACT_DTYPES[precision]
+    if (Vq.dtype, vaux.dtype) != want:
+        raise TypeError(f"{precision} artifacts must be {want[0].__name__} "
+                        f"and {want[1].__name__}, got {Vq.dtype} and "
+                        f"{vaux.dtype}")
+    if Vq.ndim != 4 or vaux.ndim != (4 if precision == "pq" else 2):
+        raise ValueError(f"{precision} artifacts have shapes {Vq.shape} "
+                         f"and {vaux.shape}")
+    return torch.from_numpy(Vq.copy()), torch.from_numpy(vaux.copy())

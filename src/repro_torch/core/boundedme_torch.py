@@ -19,9 +19,11 @@ Adaptations versus the paper's per-arm algorithm (as in the JAX package):
     here: callers draw it (the serving engine from a seeded
     ``torch.Generator``) or hand in the JAX package's.
 
-This slice ports the fp32, non-adaptive decode path.  The quantized
-tiers (int8, int4, pq) and adaptive early exit raise
-``NotImplementedError``; ROADMAP.md lists them.
+The decode path runs every tier of the JAX package: fp32, int8 and int4
+(quantized table cells, int8 queries), pq (codes against a per-block
+codebook, f32 queries), each with or without adaptive early exit.  On
+the quantized tiers and with early exit the returned scores are made
+exact by an fp32 rescore of the candidates, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,12 +37,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import bounds
-from repro_torch.core.schedule import Schedule, flatten_schedule, make_schedule
+from repro_torch.core.quantize import (measured_quant_err, pq_encode,
+                                       pq_train, quantize_blocks,
+                                       quantize_tiles, quantize_tiles_int4)
+from repro_torch.core.schedule import (Schedule, cert_coeffs,
+                                       flatten_schedule, make_schedule)
 from repro_torch.kernels import ops
 
 __all__ = ["BlockedPlan", "make_plan", "choose_pull_mode", "resolve_device",
-           "tile_table", "schedule_operands", "decode_tiled",
-           "bounded_me_decode"]
+           "tile_table", "quantize_table", "measured_plan_quant_err",
+           "make_measured_plan", "schedule_operands", "cert_operand",
+           "decode_operands", "decode_tiled", "bounded_me_decode"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,14 +299,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_fp32_decode(plan: BlockedPlan) -> None:
-    if plan.precision != "fp32":
-        raise NotImplementedError(
-            f"precision={plan.precision!r} is not ported yet: the int8, "
-            f"int4 and pq tiers of the fused cascade are ROADMAP queue 2 "
-            f"item 1 (and queue 1 item 3(c)); only 'fp32' runs")
-
-
 def _pad_operands(V: Optional[torch.Tensor], Q: Optional[torch.Tensor],
                   plan: BlockedPlan
                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -342,6 +341,103 @@ def tile_table(V, plan: BlockedPlan, device="cuda") -> torch.Tensor:
     return _tile_major(Vp, plan)
 
 
+def quantize_table(V4: torch.Tensor, plan: BlockedPlan) -> Tuple:
+    """The plan's table artifacts ``(Vq, vaux)`` from a `tile_table` table.
+
+    ``(V8, vscale)`` for int8, ``(P4 packed, vscale)`` for int4,
+    ``(codes, codebook)`` for pq (codebook trained by the deterministic
+    `pq_train`, so repeated calls agree).  A static table is quantized
+    once and handed to every dispatch (``quantized=``); per-cell
+    quantization makes that equal to quantizing at every call.
+    """
+    if plan.precision == "int8":
+        return quantize_tiles(V4)
+    if plan.precision == "int4":
+        return quantize_tiles_int4(V4)
+    if plan.precision == "pq":
+        cb = pq_train(V4, n_codes=plan.pq_codes, subdims=plan.pq_subdims)
+        return pq_encode(V4, cb), cb
+    raise ValueError(f"no table quantizer for precision {plan.precision!r}")
+
+
+def measured_plan_quant_err(V, *, precision: str, tile: int = 8,
+                            block: int = 512, pq_subdims: int = 8,
+                            pq_codes: int = 16, n_queries: int = 32,
+                            seed: int = 0, safety: float = 2.0,
+                            queries=None, device="cuda") -> float:
+    """Calibrate the measured per-pull error bound for a (table, geometry).
+
+    Pads and tiles ``V`` as the cascade will (``block`` is the effective
+    pull width: pass ``coord_block`` when calibrating a coord plan),
+    builds the tier's artifacts and returns
+    `repro_torch.core.quantize.measured_quant_err` over the calibration
+    queries — ``queries`` (n_q, n_blocks, block) when given, else
+    ``n_queries`` standard-normal draws from ``seed`` (not the JAX
+    package's draws).  The result is the ``quant_err=`` that `make_plan`
+    feeds to ``make_schedule``.
+    """
+    dev = resolve_device(device)
+    V = torch.as_tensor(V, dtype=torch.float32).to(dev)
+    n, N = V.shape
+    block = min(block, N)
+    if precision == "int4" and block % 2 != 0:
+        raise ValueError(f"precision='int4' needs an even pull width, "
+                         f"got block={block}")
+    if precision == "pq" and block % pq_subdims != 0:
+        raise ValueError(f"precision='pq' needs pull width divisible by "
+                         f"pq_subdims, got block={block}, "
+                         f"pq_subdims={pq_subdims}")
+    if precision not in ("int8", "int4", "pq"):
+        raise ValueError(f"no measured error model for precision "
+                         f"{precision!r} (expected 'int8', 'int4' or 'pq')")
+    # geometry-only fp32 plan: same padding and tiling as the real one
+    geo = make_plan(n, N, tile=tile, block=block, precision="fp32")
+    V4 = tile_table(V, geo, dev)
+    quant = quantize_table(V4, dataclasses.replace(
+        geo, precision=precision, pq_subdims=pq_subdims, pq_codes=pq_codes))
+    return measured_quant_err(V4, quant, precision=precision,
+                              queries=queries, n_queries=n_queries,
+                              seed=seed, safety=safety)
+
+
+def make_measured_plan(V, K: int = 1, eps: float = 0.1, delta: float = 0.05,
+                       value_range: float = 1.0, tile: int = 8,
+                       block: int = 512, range_mode: str = "clt",
+                       precision: str = "pq", bound: str = "hoeffding",
+                       pull_mode: str = "row", coord_block: int = 128,
+                       pq_subdims: int = 8, pq_codes: int = 16,
+                       n_queries: int = 32, seed: int = 0,
+                       safety: float = 2.0, device="cuda") -> BlockedPlan:
+    """`make_plan` with a measured (not worst-case) quantization bias.
+
+    Calibrates `measured_plan_quant_err` on ``V`` at the plan's pull
+    width and passes it as ``quant_err``.  ``pull_mode='hybrid'``
+    measures at each candidate width, prices both plans with their own
+    bound and keeps the `choose_pull_mode` winner.
+    """
+    n, N = V.shape
+    if precision == "fp32":
+        raise ValueError("precision='fp32' has no quantization error to "
+                         "measure; use make_plan")
+    kwargs = dict(K=K, eps=eps, delta=delta, value_range=value_range,
+                  tile=tile, block=block, range_mode=range_mode,
+                  precision=precision, bound=bound, coord_block=coord_block,
+                  pq_subdims=pq_subdims, pq_codes=pq_codes)
+    if pull_mode == "hybrid":
+        mkwargs = dict(kwargs, n_queries=n_queries, seed=seed,
+                       safety=safety, device=device)
+        row_plan = make_measured_plan(V, pull_mode="row", **mkwargs)
+        coord_plan = make_measured_plan(V, pull_mode="coord", **mkwargs)
+        winner = choose_pull_mode(row_plan, coord_plan)
+        return row_plan if winner == "row" else coord_plan
+    width = coord_block if pull_mode == "coord" else block
+    qerr = measured_plan_quant_err(V, precision=precision, tile=tile,
+                                   block=width, pq_subdims=pq_subdims,
+                                   pq_codes=pq_codes, n_queries=n_queries,
+                                   seed=seed, safety=safety, device=device)
+    return make_plan(n, N, pull_mode=pull_mode, quant_err=qerr, **kwargs)
+
+
 @functools.lru_cache(maxsize=32)
 def schedule_operands(sched: Schedule, final_coverage: bool,
                        device: torch.device):
@@ -359,6 +455,13 @@ def schedule_operands(sched: Schedule, final_coverage: bool,
             flat.t_final, flat.n_final)
 
 
+@functools.lru_cache(maxsize=32)
+def cert_operand(sched: Schedule, device: torch.device) -> torch.Tensor:
+    """Device copy of `cert_coeffs`, built once per (plan, device)."""
+    return torch.as_tensor(cert_coeffs(sched), dtype=torch.float32,
+                           device=device)
+
+
 def _check_perm(perm, n_blocks: int, device: torch.device) -> torch.Tensor:
     p = torch.as_tensor(perm)
     host = p.detach().cpu().numpy()
@@ -369,32 +472,87 @@ def _check_perm(perm, n_blocks: int, device: torch.device) -> torch.Tensor:
     return p.to(device=device, dtype=torch.int64)
 
 
-def _fused_call(V4: torch.Tensor, Qb: torch.Tensor, perm: torch.Tensor, *,
+def decode_operands(plan: BlockedPlan, *, final_exact: bool,
+                    adaptive: bool, device: torch.device):
+    """Device copies of what every dispatch of ``plan`` reads besides the
+    table and the queries, built once per (plan, device) and cached.
+
+    Returns ``(slotcode, rounds_meta, bpos, t_final, n_final, cert)``
+    (`schedule_operands`; ``cert`` is `cert_operand` with ``adaptive``,
+    else None).  ``final_exact`` appends coverage steps that complete
+    every final survivor to all ``n_blocks`` columns — on the fp32 tier
+    without early exit only: elsewhere the caller's fp32 rescore of the
+    candidates makes the scores exact and the schedule stays at its
+    sampling pulls.
+    """
+    cover = final_exact and plan.precision == "fp32" and not adaptive
+    return (*schedule_operands(plan.schedule, bool(cover), device),
+            cert_operand(plan.schedule, device) if adaptive else None)
+
+
+def _fused_call(Vq: torch.Tensor, Qin: torch.Tensor, perm: torch.Tensor, *,
                 plan: BlockedPlan, final_exact: bool, k_out: int,
-                n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                n_valid: int, vscale=None, qscale=None, codebook=None,
+                adaptive: bool = False):
     """Dispatch the whole cascade as exactly one fused-cascade launch.
 
-    ``final_exact`` appends coverage steps that complete every final
-    survivor to all ``n_blocks`` columns, so the returned block means are
-    exact.  All queries of the batch share ``perm``.
+    All queries of the batch share ``perm``; see `decode_operands` for
+    what ``final_exact`` does inside the cascade.
     """
-    slotcode, rmeta, bpos, t_final, n_final = schedule_operands(
-        plan.schedule, bool(final_exact), V4.device)
-    cols = perm[bpos].to(torch.int32).expand(Qb.shape[0], -1).contiguous()
+    slotcode, rmeta, bpos, t_final, n_final, cert = decode_operands(
+        plan, final_exact=final_exact, adaptive=adaptive, device=Vq.device)
+    cols = perm[bpos].to(torch.int32).expand(Qin.shape[0], -1).contiguous()
     return ops.fused_cascade_batched(
-        V4, Qb, slotcode, rmeta, cols, n_arms=plan.n, K=plan.K,
-        t_final=t_final, n_final=n_final, k_out=k_out, n_valid=n_valid)
+        Vq, Qin, slotcode, rmeta, cols, n_arms=plan.n, K=plan.K,
+        t_final=t_final, n_final=n_final, k_out=k_out, n_valid=n_valid,
+        vscale=vscale, qscale=qscale, codebook=codebook,
+        packed_int4=plan.precision == "int4", cert=cert, k_cert=plan.K,
+        track_var=adaptive and plan.schedule.bound == "bernstein")
+
+
+def _rescore_rows(V4: torch.Tensor, Qp: torch.Tensor, ids: torch.Tensor,
+                  n_valid: int, plan: BlockedPlan
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact fp32 rescore + descending re-sort of cascade candidates.
+
+    Gathers each candidate's padded row from the tile-major table and
+    dots it with the zero-padded query, so the product equals the
+    unpadded one and dividing by the true ``N`` lands on (q . v)/N.
+    Rows at or past ``n_valid`` are pinned to -inf and never re-enter
+    the top-K; ties keep the cascade's order.
+    """
+    R = plan.tile
+    safe = ids.long().clamp(0, V4.shape[0] * R - 1)
+    rows = V4[safe // R, :, safe % R, :]                 # (B, k, nb, C)
+    scores = torch.einsum("bkc,bc->bk", rows.reshape(*ids.shape, -1), Qp)
+    scores = torch.where(ids < n_valid, scores / float(plan.N),
+                         torch.full_like(scores, -torch.inf))
+    vals, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    return torch.gather(ids, 1, pos), vals
+
+
+def _check_quantized(quantized, V4: torch.Tensor, plan: BlockedPlan
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if plan.precision == "fp32":
+        raise ValueError("pre-quantized operands need a quantized plan "
+                         "(precision 'int8', 'int4' or 'pq')")
+    Vq, vaux = (torch.as_tensor(t).to(V4.device) for t in quantized)
+    if tuple(Vq.shape[:3]) != tuple(V4.shape[:3]):
+        raise ValueError(f"quantized table shape {tuple(Vq.shape)} does "
+                         f"not match the tiled table {tuple(V4.shape)}")
+    return Vq.contiguous(), vaux.contiguous()
 
 
 def decode_tiled(V4: torch.Tensor, Q, perm, *, plan: BlockedPlan,
                  final_exact: bool = True, k_out: Optional[int] = None,
-                 n_valid: Optional[int] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 n_valid: Optional[int] = None, quantized=None,
+                 adaptive: bool = False):
     """`bounded_me_decode` on a table already laid out by `tile_table`.
 
-    Runs on ``V4``'s device; ``Q`` and ``perm`` are moved there.
+    Runs on ``V4``'s device; ``Q``, ``perm`` and ``quantized`` are moved
+    there.  On a quantized plan without ``quantized`` the table is
+    quantized here, at every call (`quantize_table`).
     """
-    _check_fp32_decode(plan)
     if k_out is None:
         k_out = plan.K
     if not plan.K <= k_out <= plan.k_out_cap:
@@ -408,18 +566,34 @@ def decode_tiled(V4: torch.Tensor, Q, perm, *, plan: BlockedPlan,
     _, Qp = _pad_operands(None, Q, plan)
     Qb = Qp.reshape(Q.shape[0], plan.n_blocks, plan.block).contiguous()
     perm = _check_perm(perm, plan.n_blocks, dev)
-    ids, vals = _fused_call(V4, Qb, perm, plan=plan, final_exact=final_exact,
-                            k_out=k_out, n_valid=n_valid)
-    # undo the zero-padding rescale so scores estimate (q . v)/N
-    scale = torch.tensor((plan.n_blocks * plan.block) / plan.N,
-                         dtype=torch.float32, device=dev)
-    return ids, vals * scale
+    quantized_plan = plan.precision != "fp32"
+    if quantized is not None:
+        Vq, vaux = _check_quantized(quantized, V4, plan)
+    elif quantized_plan:
+        Vq, vaux = quantize_table(V4, plan)
+    kw = dict(plan=plan, final_exact=final_exact, k_out=k_out,
+              n_valid=n_valid, adaptive=adaptive)
+    if plan.precision == "pq":          # pq queries stay f32 (LUT walk)
+        out = _fused_call(Vq, Qb, perm, codebook=vaux, **kw)
+    elif quantized_plan:
+        Q8, qscale = quantize_blocks(Qb)    # per query: (B, n_blocks)
+        out = _fused_call(Vq, Q8, perm, vscale=vaux, qscale=qscale, **kw)
+    else:
+        out = _fused_call(V4, Qb, perm, **kw)
+    ids, vals = out[0], out[1]
+    if final_exact and (quantized_plan or adaptive):
+        ids, vals = _rescore_rows(V4, Qp, ids, n_valid, plan)
+    else:
+        # undo the zero-padding rescale so scores estimate (q . v)/N
+        vals = vals * torch.tensor((plan.n_blocks * plan.block) / plan.N,
+                                   dtype=torch.float32, device=dev)
+    return (ids, vals, out[2]) if adaptive else (ids, vals)
 
 
 def bounded_me_decode(V, Q, perm, *, plan: BlockedPlan,
                       final_exact: bool = True, k_out: Optional[int] = None,
-                      n_valid: Optional[int] = None, adaptive: bool = False,
-                      device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+                      n_valid: Optional[int] = None, quantized=None,
+                      adaptive: bool = False, device="cuda"):
     """Batched-decode BoundedME: one dispatch for a whole (B, N) batch.
 
     The serving hot path.  All queries share the block permutation
@@ -433,26 +607,35 @@ def bounded_me_decode(V, Q, perm, *, plan: BlockedPlan,
       perm: the shared block permutation (explicit: torch cannot
         reproduce ``jax.random.permutation``).
       plan: static :class:`BlockedPlan` from :func:`make_plan`; must match
-        ``V``'s (n, N).  Only ``precision='fp32'`` is ported.
-      final_exact: complete every final survivor to full coverage inside
-        the cascade, so returned scores are exact mean products (q . v)/N
-        instead of block-mean estimates.
+        ``V``'s (n, N).  Its ``precision`` picks the pull tier: 'fp32',
+        'int8' and 'int4' (int8 queries, W4A8 for int4), or 'pq' (f32
+        queries against a per-block codebook).
+      final_exact: make the returned scores exact mean products (q . v)/N
+        instead of block-mean estimates — by in-cascade coverage on the
+        fp32 tier, by an fp32 rescore of the ``k_out`` candidates on the
+        quantized tiers and with ``adaptive``.
       k_out: candidates returned per query (default ``plan.K``), with
         ``plan.K <= k_out <= plan.k_out_cap``.
       n_valid: rows >= n_valid never win a ranking (default ``plan.n``).
-      adaptive: not ported yet (ROADMAP queue 1 item 3(d)); raises.
+      quantized: optional table artifacts matching the plan's tier —
+        ``(V8, vscale)`` for int8, ``(P4, vscale)`` nibble-packed for int4,
+        ``(codes, codebook)`` for pq, in the tile-major layout of
+        `quantize_table` (the JAX package's, through
+        `repro_torch.convert.quantized_from_jax`).  Without them the
+        table is quantized in the call.  Queries are quantized per call.
+      adaptive: certify early exit per query at round ends under the
+        plan's ``bound`` radius family; a certified query's remaining
+        pulls are skipped and a third output reports its rounds.
       device: where the cascade runs.  The default ``"cuda"`` launches
         the CUDA kernel and raises when there is no card; ``"cpu"`` runs
         the plain PyTorch version.
 
     Returns:
       ``(ids (B, k_out) int32, scores (B, k_out) float32)`` sorted by
-      descending score.  Entries past the live rows carry ``-inf`` scores.
+      descending score, and with ``adaptive`` also ``rounds_used (B,)
+      int32``.  Entries past the live rows carry ``-inf`` scores.
     """
-    if adaptive:
-        raise NotImplementedError("adaptive early exit is not ported yet "
-                                  "(ROADMAP queue 1 item 3(d))")
-    _check_fp32_decode(plan)
     V4 = tile_table(V, plan, device)
     return decode_tiled(V4, Q, perm, plan=plan, final_exact=final_exact,
-                        k_out=k_out, n_valid=n_valid)
+                        k_out=k_out, n_valid=n_valid, quantized=quantized,
+                        adaptive=adaptive)

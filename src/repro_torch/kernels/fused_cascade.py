@@ -1,4 +1,4 @@
-"""The fused BoundedME cascade kernel (fp32 tier): build, binding, wrapper.
+"""The fused BoundedME cascade kernel: build, binding, wrapper.
 
 The kernel is hand-written CUDA C++ in ``csrc/fused_cascade.cu``; its
 source note says what it replaces (``fused_cascade_batched_pallas`` of
@@ -26,14 +26,22 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["build", "fused_cascade_batched_cuda", "launch_counts",
-           "reset_launch_counts", "SOURCE"]
+__all__ = ["build", "fused_cascade_batched_cuda", "resolve_tier", "TIERS",
+           "launch_counts", "reset_launch_counts", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_cascade.cu"
 _BUILD_DIR = SOURCE.parent.parent / "build"
 
-#: launches per kernel wrapper; each wrapper adds one where it launches
-_launches: Dict[str, int] = {"fused_cascade_batched": 0}
+#: pull tiers, in the CUDA entry point's tier-code order
+TIERS = ("fp32", "int8", "int4", "pq")
+
+#: launches per kernel wrapper, and of this kernel per tier (``"int8"``, or
+#: ``"int8+adaptive"`` with early exit); each wrapper adds one where it
+#: launches its kernel
+_launches: Dict[str, int] = dict.fromkeys(
+    ["fused_cascade_batched"]
+    + [f"fused_cascade_batched[{t}{a}]" for t in TIERS
+       for a in ("", "+adaptive")], 0)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -91,9 +99,9 @@ def _lib() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_cascade_batched_f32.argtypes = (
-        [p] * 11 + [i] * 10 + [ctypes.c_longlong, i, i, p])
-    lib.fused_cascade_batched_f32.restype = i
+    lib.fused_cascade_batched.argtypes = (
+        [i] * 3 + [p] * 18 + [i] * 15 + [ctypes.c_longlong, p])
+    lib.fused_cascade_batched.restype = i
     lib.fused_cascade_error_string.argtypes = [i]
     lib.fused_cascade_error_string.restype = ctypes.c_char_p
     return lib
@@ -103,16 +111,43 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, int(x) - 1).bit_length()
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
            device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, V4 on {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+    if isinstance(shape, int):
+        if t.dim() != shape:
+            raise ValueError(f"{name} must have {shape} dims, got "
+                             f"{tuple(t.shape)}")
+    elif tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def resolve_tier(Cs: int, vscale, qscale, codebook, packed_int4: bool
+                 ) -> Tuple[str, int]:
+    """The pull tier of a cascade call and its true block width ``C``.
+
+    ``Cs`` is the stored table's last dim; ``C`` (the denominators'
+    width) is ``2 * Cs`` for nibble-packed int4, ``S * w`` from the
+    codebook's shape for pq, ``Cs`` otherwise — as
+    ``_resolve_qkind`` of the JAX package decides.
+    """
+    if codebook is not None:
+        if vscale is not None or qscale is not None or packed_int4:
+            raise ValueError("codebook (pq) excludes vscale/qscale/"
+                             "packed_int4")
+        return "pq", codebook.shape[1] * codebook.shape[3]
+    if (vscale is not None) != (qscale is not None):
+        raise ValueError("vscale and qscale must be passed together")
+    if packed_int4:
+        if vscale is None:
+            raise ValueError("packed_int4 needs vscale/qscale (W4A8)")
+        return "int4", 2 * Cs
+    return ("int8" if vscale is not None else "fp32"), Cs
 
 
 def fused_cascade_batched_cuda(V4: torch.Tensor, Qb: torch.Tensor,
@@ -121,35 +156,57 @@ def fused_cascade_batched_cuda(V4: torch.Tensor, Qb: torch.Tensor,
                                cols: torch.Tensor, *, n_arms: int, K: int,
                                t_final: int, n_final: int,
                                k_out: Optional[int] = None,
-                               n_valid: Optional[int] = None
-                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+                               n_valid: Optional[int] = None,
+                               vscale: Optional[torch.Tensor] = None,
+                               qscale: Optional[torch.Tensor] = None,
+                               codebook: Optional[torch.Tensor] = None,
+                               packed_int4: bool = False,
+                               cert: Optional[torch.Tensor] = None,
+                               k_cert: int = 1, track_var: bool = False):
     """Launch the fused cascade on CUDA tensors (one launch per batch).
 
-    Operands as in `repro_torch.kernels.ops.fused_cascade_batched`:
-    ``V4 (n_tiles, n_blocks, R, C)`` and ``Qb (B, n_blocks, C)`` float32,
-    ``slotcode (S,)``, ``rounds_meta (n_rounds + 1, 3)`` and ``cols (B,
-    S)`` int32 (`repro_torch.core.schedule.FlatSchedule.packed`), all
-    contiguous on one CUDA device.  Returns ``(ids (B, k_out) int32,
-    vals (B, k_out) float32)``, vals being unscaled block means.
+    Operands as in `repro_torch.kernels.ops.fused_cascade_batched`, all
+    contiguous on one CUDA device; the tier follows from them
+    (`resolve_tier`).  Returns ``(ids (B, k_out) int32, vals (B, k_out)
+    float32)``, vals being unscaled block means, and with ``cert`` also
+    ``rounds_used (B,) int32``.
     """
     if not V4.is_cuda:
         raise ValueError(f"the CUDA kernel needs CUDA tensors, V4 is on "
                          f"{V4.device}")
     dev = V4.device
-    _check("V4", V4, torch.float32, 4, dev)
-    _check("Qb", Qb, torch.float32, 3, dev)
-    _check("slotcode", slotcode, torch.int32, 1, dev)
+    tier, C = resolve_tier(V4.shape[-1], vscale, qscale, codebook,
+                           packed_int4)
+    _check("V4", V4, {"fp32": torch.float32, "pq": torch.uint8}.get(
+        tier, torch.int8), 4, dev)
+    n_tiles, n_blocks, R, Cs = V4.shape
+    B, S = cols.shape
+    _check("Qb", Qb, torch.int8 if tier in ("int8", "int4")
+           else torch.float32, (B, n_blocks, C), dev)
+    _check("slotcode", slotcode, torch.int32, (S,), dev)
     _check("rounds_meta", rounds_meta, torch.int32, 2, dev)
     _check("cols", cols, torch.int32, 2, dev)
-    n_tiles, n_blocks, R, C = V4.shape
-    B, S = cols.shape
-    if Qb.shape != (B, n_blocks, C):
-        raise ValueError(f"Qb shape {tuple(Qb.shape)} != {(B, n_blocks, C)}")
-    if slotcode.shape[0] != S:
-        raise ValueError(f"slotcode has {slotcode.shape[0]} steps, cols {S}")
     if rounds_meta.shape[1] != 3 or rounds_meta.shape[0] < 1:
         raise ValueError(f"rounds_meta must be (n_rounds + 1, 3), got "
                          f"{tuple(rounds_meta.shape)}")
+    n_rounds = rounds_meta.shape[0] - 1
+    n_codes = 0
+    if tier in ("int8", "int4"):
+        _check("vscale", vscale, torch.float32, (n_tiles, n_blocks), dev)
+        _check("qscale", qscale, torch.float32, (B, n_blocks), dev)
+    elif tier == "pq":
+        n_codes = codebook.shape[2]
+        _check("codebook", codebook, torch.float32,
+               (n_blocks, Cs, n_codes, C // Cs), dev)
+        if not 1 <= n_codes <= 256:
+            raise ValueError(f"pq codebook has {n_codes} codes, not in "
+                             f"[1, 256]")
+    if cert is not None:
+        _check("cert", cert, torch.float32, (n_rounds + 1, 2), dev)
+        if k_cert < 1:
+            raise ValueError(f"k_cert must be >= 1, got {k_cert}")
+    elif track_var:
+        raise ValueError("track_var needs cert (adaptive mode)")
     if not 1 <= R <= 32:
         raise ValueError(f"tile rows R={R} outside [1, 32]")
     if not 1 <= n_final <= n_tiles:
@@ -160,27 +217,41 @@ def fused_cascade_batched_cuda(V4: torch.Tensor, Qb: torch.Tensor,
                          f"{n_final * R}]")
     n_valid = n_arms if n_valid is None else int(n_valid)
     P = _next_pow2(max(n_tiles, n_final * R, 1))
-    vec = int(R == 8 and C in (128, 256, 512)
-              and V4.data_ptr() % 16 == 0 and Qb.data_ptr() % 16 == 0)
+    aligned = V4.data_ptr() % 16 == 0 and Qb.data_ptr() % 16 == 0
+    vec = int(aligned and {"fp32": R == 8 and C in (128, 256, 512),
+                           "int8": C % 16 == 0, "int4": Cs % 16 == 0,
+                           "pq": False}[tier])
     ids = torch.empty((B, k_out), dtype=torch.int32, device=dev)
     vals = torch.empty((B, k_out), dtype=torch.float32, device=dev)
+    rused = torch.empty((B,), dtype=torch.int32, device=dev)
     acc = torch.empty((B, n_tiles, R), dtype=torch.float32, device=dev)
+    acc2 = torch.empty_like(acc) if track_var else None
     surv = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
     tmp = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
     keys = torch.empty((B, P), dtype=torch.int64, device=dev)
+    lut = (torch.empty((B, n_blocks * Cs * n_codes), dtype=torch.float32,
+                       device=dev) if tier == "pq" else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_cascade_batched_f32(
-            V4.data_ptr(), Qb.data_ptr(), slotcode.data_ptr(),
+        rc = lib.fused_cascade_batched(
+            TIERS.index(tier), int(cert is not None), int(track_var),
+            V4.data_ptr(), Qb.data_ptr(), ptr(vscale), ptr(qscale),
+            ptr(codebook), ptr(cert), slotcode.data_ptr(),
             rounds_meta.data_ptr(), cols.data_ptr(), ids.data_ptr(),
-            vals.data_ptr(), acc.data_ptr(), surv.data_ptr(), tmp.data_ptr(),
-            keys.data_ptr(), B, n_tiles, n_blocks, R, C, S,
-            rounds_meta.shape[0] - 1, int(t_final), int(n_final), k_out,
-            n_valid, P, vec, stream)
+            vals.data_ptr(), rused.data_ptr(), acc.data_ptr(), ptr(acc2),
+            surv.data_ptr(), tmp.data_ptr(), keys.data_ptr(), ptr(lut),
+            B, n_tiles, n_blocks, R, C, Cs, S, n_rounds, int(t_final),
+            int(n_final), k_out, n_codes, int(k_cert), P, vec, n_valid,
+            stream)
     if rc != 0:
         msg = lib.fused_cascade_error_string(rc).decode()
         raise RuntimeError(f"fused_cascade_batched launch failed: {msg} "
                            f"(cudaError {rc})")
     _launches["fused_cascade_batched"] += 1
-    return ids, vals
+    adaptive = "+adaptive" if cert is not None else ""
+    _launches[f"fused_cascade_batched[{tier}{adaptive}]"] += 1
+    return (ids, vals, rused) if cert is not None else (ids, vals)

@@ -8,12 +8,14 @@ raises.  Every kernel counts its launches (`launch_counts`), which take
 the place of the JAX package's ``count_pallas_calls``.
 
 The entry points are generic in the feature-tile width ``C``: 'row' and
-'coord' plans differ only in the geometry of the operands.
+'coord' plans differ only in the geometry of the operands.  The launch
+counts also break the fused cascade down by tier
+(``fused_cascade_batched[int8]``, ``fused_cascade_batched[pq+adaptive]``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -44,23 +46,46 @@ def fused_cascade_batched(V4: torch.Tensor, Qb: torch.Tensor,
                           cols: torch.Tensor, *, n_arms: int, K: int,
                           t_final: int, n_final: int,
                           k_out: Optional[int] = None,
-                          n_valid: Optional[int] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          n_valid: Optional[int] = None,
+                          vscale: Optional[torch.Tensor] = None,
+                          qscale: Optional[torch.Tensor] = None,
+                          codebook: Optional[torch.Tensor] = None,
+                          packed_int4: bool = False,
+                          cert: Optional[torch.Tensor] = None,
+                          k_cert: int = 1, track_var: bool = False):
     """The whole BoundedME cascade of a query batch in one dispatch.
 
-    ``V4 (n_tiles, n_blocks, R, C)`` float32 tile-major table, ``Qb (B,
+    ``V4 (n_tiles, n_blocks, R, Cs)`` tile-major table, ``Qb (B,
     n_blocks, C)`` blocked queries, ``slotcode (S,)`` / ``rounds_meta
     (n_rounds + 1, 3)`` from `FlatSchedule.packed`, ``cols (B, S)`` the
     column block each step pulls (``perm[flat.bpos]``), all int32.
     ``k_out`` (default K) widens the final extraction, ``K <= k_out <=
     n_final * R``; rows ``>= n_valid`` (default ``n_arms``) never win a
-    ranking.  Returns ``(ids (B, k_out) int32, vals (B, k_out) float32)``
-    sorted by descending score, vals being unscaled block means; entries
-    past the live rows carry ``-inf``.
+    ranking.
+
+    The tier follows from the operands, as in the JAX package's
+    ``fused_cascade_batched``: float32 ``V4`` and ``Qb`` (fp32); int8
+    ``V4`` and ``Qb`` with ``vscale (n_tiles, n_blocks)`` and ``qscale
+    (B, n_blocks)`` float32 (int8); the same with ``V4``'s last dim
+    nibble-packed to C/2 and ``packed_int4=True`` (int4, W4A8); uint8 pq
+    codes ``V4 (..., S)`` with float32 ``Qb`` and ``codebook (n_blocks,
+    S, n_codes, w)`` (pq).  ``cert (n_rounds + 1, 2)`` float32 from
+    `cert_coeffs` turns on adaptive early exit, certifying the top
+    ``k_cert`` rows, with the M2 accumulator of the 'bernstein' radii
+    when ``track_var``.
+
+    Returns ``(ids (B, k_out) int32, vals (B, k_out) float32)`` sorted by
+    descending score, vals being unscaled block means; entries past the
+    live rows carry ``-inf``.  With ``cert`` a third output ``rounds_used
+    (B,) int32`` counts the rounds each query pulled in.
     """
     kw = dict(n_arms=n_arms, K=K, t_final=t_final, n_final=n_final,
-              k_out=k_out, n_valid=n_valid)
-    if on_cuda(V4, Qb, slotcode, rounds_meta, cols):
+              k_out=k_out, n_valid=n_valid, vscale=vscale, qscale=qscale,
+              codebook=codebook, packed_int4=packed_int4, cert=cert,
+              k_cert=k_cert, track_var=track_var)
+    tensors = [t for t in (V4, Qb, slotcode, rounds_meta, cols, vscale,
+                           qscale, codebook, cert) if t is not None]
+    if on_cuda(*tensors):
         return fused_cascade_batched_cuda(V4, Qb, slotcode, rounds_meta,
                                           cols, **kw)
     return ref.fused_cascade_batched_ref(V4, Qb, slotcode, rounds_meta,

@@ -6,10 +6,21 @@ and shares no code with it.  It walks the flat schedule round by round,
 vectorised over survivors and queries, never step by step: within a
 round the survivor list is fixed and each tile receives only its own
 pulls, so the round's k-th pulls of all slots form one batched gather and
-``einsum``, taken in k order — each tile still sums its column blocks in
+product, taken in k order — each tile still sums its column blocks in
 schedule order.  Eliminations are a stable descending sort of the masked
 tile-max means cut at ``n_keep`` (highest score first, lowest slot on
 ties), which is the order the kernel's extraction writes survivors in.
+
+Pull tiers, as in ``fused_cascade_batched_pallas`` of the JAX package:
+fp32 (an fp32 dot), int8 and int4 (an exact integer dot — taken in
+float64, which holds it exactly — then ``raw * (vscale * qscale)`` as two
+rounded float32 ops; int4 first unpacks its half-split nibbles), and pq
+(a per-query LUT of query-vs-codeword products, then one lookup per row
+and subspace, summed over subspaces in order).  With ``cert`` the
+adaptive early exit runs too: per-query ``active``/``t_stop``/
+``rounds_used`` lanes, certification of the post-elimination survivors at
+every round end, frozen accumulators once certified, and the running M2
+accumulator for the 'bernstein' radii when ``track_var``.
 
 The CPU tests use it as the port's implementation on CPU tensors, and
 ``chip_smoke.py`` holds the kernel against it on the card.
@@ -17,16 +28,18 @@ The CPU tests use it as the port's implementation on CPU tensors, and
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.quantize import pq_lut, unpack_int4
 from repro_torch.core.schedule import END_BIT, PULL_BIT, SLOT_MASK
+from repro_torch.kernels.fused_cascade import resolve_tier
 
 __all__ = ["fused_cascade_batched_ref"]
 
-#: gathered elements per chunk (x4 bytes): bounds the round-1 working set
+#: gathered elements per chunk: bounds the round-1 working set
 _CHUNK_ELEMS = 1 << 26
 
 
@@ -52,14 +65,50 @@ def _occurrence_rank(slots: np.ndarray) -> np.ndarray:
     return rank
 
 
-def _pull_round(acc, surv, V4, Qb, cols, code, steps, pulled):
-    B = Qb.shape[0]
-    R, C = V4.shape[2], V4.shape[3]
-    dev = V4.device
+class _Pull:
+    """One tier's pull arithmetic over gathered (B, m) (tile, column) pairs."""
+
+    def __init__(self, tier, V4, Qb, vscale, qscale, codebook):
+        self.tier, self.V4, self.Qb = tier, V4, Qb
+        self.vscale, self.qscale = vscale, qscale
+        if tier == "pq":
+            self.lut = pq_lut(Qb, codebook)     # (B, n_blocks, S, n_codes)
+            self.sidx = torch.arange(V4.shape[3], device=V4.device)
+
+    def elems(self, B: int) -> int:
+        """Gathered 4-byte words per pulled (query, slot) pair."""
+        R, Cs = self.V4.shape[2], self.V4.shape[3]
+        # int tiers dot in float64; pq gathers through 64-bit indices
+        per = {"fp32": Cs, "int8": 2 * Cs, "int4": 4 * Cs, "pq": 8 * Cs}
+        return B * R * per[self.tier]
+
+    def __call__(self, tiles, cc):
+        bi = torch.arange(tiles.shape[0], device=tiles.device)[:, None]
+        slab = self.V4[tiles, cc]                           # (B, m, R, Cs)
+        if self.tier == "fp32":
+            return torch.einsum("bmrc,bmc->bmr", slab, self.Qb[bi, cc])
+        if self.tier == "pq":
+            b4, c4 = bi[..., None, None], cc[..., None, None]
+            picked = self.lut[b4, c4, self.sidx, slab.long()]  # (B,m,R,S)
+            part = picked[..., 0]
+            for s in range(1, picked.shape[-1]):
+                part = part + picked[..., s]
+            return part
+        if self.tier == "int4":
+            slab = unpack_int4(slab)
+        raw = torch.einsum("bmrc,bmc->bmr", slab.to(torch.float64),
+                           self.Qb[bi, cc].to(torch.float64))
+        s = self.vscale[tiles, cc] * self.qscale[bi, cc]    # (B, m)
+        return raw.to(torch.float32) * s[..., None]
+
+
+def _pull_round(acc, acc2, surv, cols, code, steps, pull, active, pulled):
+    B = surv.shape[0]
+    dev = acc.device
     bi = torch.arange(B, device=dev)[:, None]
     slots = (code[steps] & SLOT_MASK).astype(np.int64)
     rank = _occurrence_rank(slots)
-    chunk = max(1, _CHUNK_ELEMS // (B * R * C))
+    chunk = max(1, _CHUNK_ELEMS // pull.elems(B))
     for k in range(int(rank.max(initial=-1)) + 1):
         sel = rank == k            # slots are distinct within one rank
         st = torch.as_tensor(steps[sel], device=dev)
@@ -67,10 +116,19 @@ def _pull_round(acc, surv, V4, Qb, cols, code, steps, pulled):
         for lo in range(0, st.numel(), chunk):
             tiles = surv[:, sl[lo:lo + chunk]]                  # (B, m)
             cc = cols[:, st[lo:lo + chunk]].long()              # (B, m)
-            part = torch.einsum("bmrc,bmc->bmr", V4[tiles, cc], Qb[bi, cc])
-            acc[bi, tiles] += part
+            part = pull(tiles, cc)                              # (B, m, R)
+            sq = part * part if acc2 is not None else None
+            for a, p in ((acc, part), (acc2, sq)):
+                if a is None:
+                    continue
+                new = a[bi, tiles] + p
+                if active is not None:   # certified queries stay frozen
+                    new = torch.where(active[:, None, None], new,
+                                      a[bi, tiles])
+                a[bi, tiles] = new
             if pulled is not None:
-                pulled[tiles.reshape(-1), cc.reshape(-1)] = True
+                on = (slice(None) if active is None else active)
+                pulled[tiles[on].reshape(-1), cc[on].reshape(-1)] = True
 
 
 def _masked_means(acc, tiles, denom, R, n_valid):
@@ -83,55 +141,124 @@ def _masked_means(acc, tiles, denom, R, n_valid):
                        torch.full_like(means, -torch.inf))
 
 
+def _certify(acc, acc2, tiles, denom, C, a_l, b_l, R, n_valid, k_cert):
+    """Per query: do the top-``k_cert`` survivor rows by mean have lower
+    bounds at or above every other survivor row's upper bound?
+
+    Rows are enumerated slot-major, as the kernel does, and the top rows
+    are taken in (mean descending, position ascending) order; with fewer
+    than ``k_cert`` rows the predicate fires trivially.
+    """
+    B = tiles.shape[0]
+    bi = torch.arange(B, device=acc.device)[:, None]
+    rows = tiles[..., None] * R + torch.arange(R, device=acc.device)
+    valid = rows < n_valid
+    mu = acc[bi, tiles] / denom                             # (B, T, R)
+    if acc2 is not None:
+        denom_c = denom * torch.tensor(float(C), dtype=torch.float32,
+                                       device=acc.device)
+        v = acc2[bi, tiles] / denom_c - mu * mu
+        rad = a_l * torch.sqrt(torch.clamp_min(v, 0.0)) + b_l
+    else:
+        rad = torch.full_like(mu, float(b_l))
+    neg = torch.full_like(mu, -torch.inf)
+    M = torch.where(valid, mu, neg).reshape(B, -1)
+    U = torch.where(valid, mu + rad, neg).reshape(B, -1)
+    L = torch.where(valid, mu - rad, neg).reshape(B, -1)
+    kc = min(int(k_cert), M.shape[1])
+    pos = torch.sort(M, dim=1, descending=True, stable=True)[1][:, :kc]
+    minlb = torch.gather(L, 1, pos).amin(1)
+    if kc < k_cert:                    # a padding row was taken: -inf
+        minlb = torch.full_like(minlb, -torch.inf)
+    U = U.scatter(1, pos, -torch.inf)
+    return minlb >= U.amax(1)
+
+
 def fused_cascade_batched_ref(V4: torch.Tensor, Qb: torch.Tensor,
                               slotcode: torch.Tensor,
                               rounds_meta: torch.Tensor, cols: torch.Tensor,
                               *, n_arms: int, K: int, t_final: int,
                               n_final: int, k_out: Optional[int] = None,
                               n_valid: Optional[int] = None,
-                              pulled: Optional[torch.Tensor] = None
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+                              vscale: Optional[torch.Tensor] = None,
+                              qscale: Optional[torch.Tensor] = None,
+                              codebook: Optional[torch.Tensor] = None,
+                              packed_int4: bool = False,
+                              cert: Optional[torch.Tensor] = None,
+                              k_cert: int = 1, track_var: bool = False,
+                              pulled: Optional[torch.Tensor] = None):
     """The fused cascade over a query batch, in plain PyTorch.
 
     Operands and results as in
     `repro_torch.kernels.fused_cascade.fused_cascade_batched_cuda`; runs
     on the operands' device.  ``pulled``, an optional ``(n_tiles,
     n_blocks)`` bool tensor, is set wherever any query pulls a cell: the
-    union of bytes the batch reads (``chip_smoke.py`` bounds the kernel's
+    union of cells the batch reads (``chip_smoke.py`` bounds the kernel's
     time with it).
     """
-    n_tiles, n_blocks, R, C = V4.shape
-    B = Qb.shape[0]
+    tier, C = resolve_tier(V4.shape[3], vscale, qscale, codebook,
+                           packed_int4)
+    n_tiles, n_blocks, R, _ = V4.shape
+    B = cols.shape[0]
     dev = V4.device
     k_out = K if k_out is None else int(k_out)
     n_valid = n_arms if n_valid is None else int(n_valid)
     if not 1 <= k_out <= n_final * R:
         raise ValueError(f"k_out={k_out} outside [1, n_final*R="
                          f"{n_final * R}]")
+    if track_var and cert is None:
+        raise ValueError("track_var needs cert (adaptive mode)")
     code = slotcode.cpu().numpy().astype(np.int64)
     meta = rounds_meta.cpu().numpy().astype(np.int64)
-    Qb = Qb.float()
+    adaptive = cert is not None
+    if adaptive:
+        cert_np = cert.cpu().numpy().astype(np.float32)
+        n_rounds = meta.shape[0] - 1
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+        t_stop = torch.full((B,), int(t_final), dtype=torch.int32,
+                            device=dev)
+        rounds_used = torch.full((B,), n_rounds, dtype=torch.int32,
+                                 device=dev)
+    else:
+        active = None
+    pull = _Pull(tier, V4, Qb if tier != "fp32" else Qb.float(), vscale,
+                 qscale, codebook)
     acc = torch.zeros((B, n_tiles, R), dtype=torch.float32, device=dev)
+    acc2 = torch.zeros_like(acc) if track_var else None
     surv = torch.arange(n_tiles, device=dev).repeat(B, 1)
     rnd = 0
     for steps, ends_round in _segments(code):
         if steps.size:
-            _pull_round(acc, surv, V4, Qb, cols, code, steps, pulled)
+            _pull_round(acc, acc2, surv, cols, code, steps, pull, active,
+                        pulled)
         if not ends_round:
             continue
         t_cum, T, keep = (int(x) for x in meta[rnd])
-        rnd += 1
         denom = torch.tensor(float(t_cum * C), dtype=torch.float32,
                              device=dev)
         tiles = surv[:, :T]
         score = _masked_means(acc, tiles, denom, R, n_valid).amax(-1)
         order = torch.sort(score, dim=1, descending=True, stable=True)[1]
         surv[:, :keep] = torch.gather(tiles, 1, order[:, :keep])
-    denom = torch.tensor(float(max(1, t_final) * C), dtype=torch.float32,
-                         device=dev)
+        if adaptive:
+            fire = active & _certify(
+                acc, acc2, surv[:, :keep], denom, C,
+                torch.tensor(cert_np[rnd, 0], device=dev),
+                torch.tensor(cert_np[rnd, 1], device=dev), R, n_valid,
+                k_cert)
+            rounds_used = torch.where(fire, rnd + 1, rounds_used)
+            t_stop = torch.where(fire, t_cum, t_stop)
+            active = active & ~fire
+        rnd += 1
+    if adaptive:   # normalise by each query's actual pull count
+        denom = (t_stop.clamp_min(1) * C).to(torch.float32)[:, None, None]
+    else:
+        denom = torch.tensor(float(max(1, t_final) * C), dtype=torch.float32,
+                             device=dev)
     tiles = surv[:, :n_final]
     flat = _masked_means(acc, tiles, denom, R, n_valid).reshape(B, -1)
     vals, pos = torch.sort(flat, dim=1, descending=True, stable=True)
     pos = pos[:, :k_out]
     ids = torch.gather(tiles, 1, pos // R) * R + pos % R
-    return ids.to(torch.int32), vals[:, :k_out].contiguous()
+    out = (ids.to(torch.int32), vals[:, :k_out].contiguous())
+    return (*out, rounds_used) if adaptive else out

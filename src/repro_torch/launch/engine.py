@@ -3,19 +3,19 @@
 The PyTorch counterpart of ``repro.launch.engine`` for a static table on
 one device:
 
-  * :class:`CascadeExecutor` — owns the table (re-laid tile-major once),
-    the calibrated (eps, delta) plan and the cached schedule operands;
-    `dispatch` serves a padded lane buffer with ONE fused-cascade launch
-    and returns host arrays plus the measured seconds.
+  * :class:`CascadeExecutor` — owns the table (re-laid tile-major once,
+    and on the int8, int4 and pq tiers quantized once), the calibrated
+    (eps, delta) plan and the cached schedule operands; `dispatch` serves
+    a padded lane buffer with ONE fused-cascade launch and returns host
+    arrays plus the measured seconds.
   * :class:`MIPSServeEngine` — the micro-batching request loop over one
     executor: batch/deadline triggers, `QuantizedLRU`, sampled recall.
 
 The engine draws each flush's block permutation from a ``torch.Generator``
 seeded from ``(seed, batch sequence)``; ``perm_source`` replaces that
 draw (tests inject the JAX package's permutations through it).  Dynamic
-stores, meshes, the quantized tiers, adaptive early exit and the
-continuous-batching ``ServeRuntime`` are later slices (ROADMAP.md) and
-are refused here.
+stores, meshes and the continuous-batching ``ServeRuntime`` are later
+slices (ROADMAP.md) and are refused here.
 """
 
 from __future__ import annotations
@@ -28,9 +28,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.boundedme_torch import (decode_tiled, make_plan,
-                                              resolve_device, tile_table)
+from repro_torch.core.boundedme_torch import (decode_operands, decode_tiled,
+                                              make_plan,
+                                              measured_plan_quant_err,
+                                              quantize_table, resolve_device,
+                                              tile_table)
 from repro_torch.core.mips import exact_topk, table_abs_max
+from repro_torch.core.schedule import pulls_through_round
 from repro_torch.obs.metrics import MetricsRegistry, summarize_latencies
 
 __all__ = ["QuantizedLRU", "CascadeExecutor", "MIPSServeEngine"]
@@ -94,19 +98,22 @@ class _Pending:
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} is not ported yet ({item} of "
-                              f"ROADMAP.md); this slice serves a static "
-                              f"fp32 table on one device")
+                              f"ROADMAP.md); the port serves a static "
+                              f"table on one device")
 
 
 class CascadeExecutor:
     """The executor layer: one calibrated (eps, delta) dispatch path.
 
     Owns the static item table — re-laid tile-major on ``device`` once —
-    plus the `make_plan` calibration for exactly one eps point.
-    `dispatch` runs one fused-cascade launch over a padded ``(lanes, N)``
-    query buffer and returns host arrays plus the measured seconds
-    (ending in ``torch.cuda.synchronize()`` on the card); `recall_of`
-    rescores a query exhaustively against the table.
+    plus the `make_plan` calibration for exactly one eps point.  On the
+    int8, int4 and pq tiers the table is quantized once here and every
+    dispatch reads that copy; pq calibrates its measured ``quant_err`` on
+    the table unless one is given.  `dispatch` runs one fused-cascade
+    launch over a padded ``(lanes, N)`` query buffer and returns host
+    arrays plus the measured seconds (ending in
+    ``torch.cuda.synchronize()`` on the card); `recall_of` rescores a
+    query exhaustively against the table.
     """
 
     def __init__(self, table, *, K: int = 1, eps: float = 0.1,
@@ -115,7 +122,8 @@ class CascadeExecutor:
                  mesh=None, n_valid: Optional[int] = None,
                  precision: str = "fp32", adaptive: bool = False,
                  bound: str = "hoeffding", pull_mode: str = "row",
-                 coord_block: int = 128,
+                 coord_block: int = 128, quant_err: Optional[float] = None,
+                 pq_subdims: int = 8, pq_codes: int = 16,
                  metrics: Optional[MetricsRegistry] = None,
                  device="cuda"):
         if not isinstance(table, (torch.Tensor, np.ndarray)):
@@ -123,10 +131,6 @@ class CascadeExecutor:
                     "queue 1 item 7 (dynamic stores)")
         if mesh is not None:
             _refuse("sharded serving", "queue 1 item 10")
-        if precision != "fp32":
-            _refuse(f"precision={precision!r}", "queue 2 item 1")
-        if adaptive:
-            _refuse("adaptive early exit", "queue 1 item 3(d)")
         self.device = resolve_device(device)
         self._table = torch.as_tensor(table, dtype=torch.float32).to(
             self.device)
@@ -137,12 +141,32 @@ class CascadeExecutor:
             value_range = 2.0 * float(qmax_hint) * table_abs_max(self._table)
         self.n, self.N, self.K = n, N, K
         self.eps, self.delta = float(eps), float(delta)
+        self.adaptive = bool(adaptive)
+        block = min(int(block), N)
+        if precision == "pq" and quant_err is None:
+            # pq has no a-priori worst-case model: calibrate a measured
+            # per-pull bound on the served table; a hybrid plan prices two
+            # pull widths with different codebooks, so take the max
+            widths = {"row": (block,), "coord": (coord_block,),
+                      "hybrid": (block, coord_block)}[pull_mode]
+            quant_err = max(measured_plan_quant_err(
+                self._table, precision="pq", tile=tile, block=w,
+                pq_subdims=pq_subdims, pq_codes=pq_codes,
+                device=self.device) for w in widths)
         self.plan = make_plan(n, N, K=K, eps=eps, delta=delta,
                               value_range=value_range, tile=tile,
-                              block=min(int(block), N), bound=bound,
-                              pull_mode=pull_mode, coord_block=coord_block)
+                              block=block, precision=precision, bound=bound,
+                              pull_mode=pull_mode, coord_block=coord_block,
+                              quant_err=quant_err, pq_subdims=pq_subdims,
+                              pq_codes=pq_codes)
         self._V4 = tile_table(self._table, self.plan, self.device)
+        self._quant = (quantize_table(self._V4, self.plan)
+                       if self.plan.precision != "fp32" else None)
         self._nv = n if n_valid is None else int(n_valid)
+        # the schedule operands every dispatch reads: built now, not in
+        # the first request's dispatch
+        decode_operands(self.plan, final_exact=True, adaptive=self.adaptive,
+                        device=self.device)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         lbl = {"precision": self.plan.precision,
                "pull_mode": self.plan.pull_mode, "eps": f"{self.eps:.6g}"}
@@ -171,25 +195,34 @@ class CascadeExecutor:
         """Rows at or past this index never win a ranking."""
         return self._nv
 
-    def dispatch(self, Qbuf: np.ndarray, perm
-                 ) -> Tuple[np.ndarray, np.ndarray, float]:
+    @property
+    def quantized(self):
+        """The table artifacts every dispatch reads on a quantized tier
+        (`quantize_table` layout), else None."""
+        return self._quant
+
+    def dispatch(self, Qbuf: np.ndarray, perm) -> Tuple[
+            np.ndarray, np.ndarray, Optional[np.ndarray], float]:
         """Serve one padded (lanes, N) buffer in a single kernel launch.
 
         ``perm`` is the batch's shared block permutation.  Returns ``(ids,
-        scores, seconds)``, ids and scores as host arrays; ``seconds`` is
-        the measured blocking time, which virtual-clock drivers add to
-        their clock.
+        scores, rounds_used, seconds)``, the first three as host arrays
+        (``rounds_used`` is None unless adaptive); ``seconds`` is the
+        measured blocking time, which virtual-clock loops add to their
+        clock.
         """
         on_card = self.device.type == "cuda"
         t0 = time.perf_counter()
-        ids, scores = decode_tiled(self._V4, Qbuf, perm, plan=self.plan,
-                                   final_exact=True, n_valid=self._nv)
+        out = decode_tiled(self._V4, Qbuf, perm, plan=self.plan,
+                           final_exact=True, n_valid=self._nv,
+                           quantized=self._quant, adaptive=self.adaptive)
         if on_card:
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         self._c_dispatch.inc(**self._mlabels)
         self._h_dispatch.observe(dt * 1e3, **self._mlabels)
-        return ids.cpu().numpy(), scores.cpu().numpy(), dt
+        rounds = out[2].cpu().numpy() if self.adaptive else None
+        return out[0].cpu().numpy(), out[1].cpu().numpy(), rounds, dt
 
     def recall_of(self, q: np.ndarray, got_slots: np.ndarray) -> float:
         """Exact-top-K overlap of a served answer (exhaustive rescore on
@@ -234,7 +267,8 @@ class MIPSServeEngine:
                  recall_sample_rate: float = 0.0,
                  precision: str = "fp32", adaptive: bool = False,
                  bound: str = "hoeffding", pull_mode: str = "row",
-                 coord_block: int = 128, seed: int = 0,
+                 coord_block: int = 128, quant_err: Optional[float] = None,
+                 pq_subdims: int = 8, pq_codes: int = 16, seed: int = 0,
                  metrics: Optional[MetricsRegistry] = None,
                  perm_source: Optional[Callable[[int], object]] = None,
                  device="cuda"):
@@ -243,9 +277,12 @@ class MIPSServeEngine:
             table, K=K, eps=eps, delta=delta, value_range=value_range,
             qmax_hint=qmax_hint, tile=tile, block=block, mesh=mesh,
             n_valid=n_valid, precision=precision, adaptive=adaptive,
-            bound=bound, pull_mode=pull_mode,
-            coord_block=coord_block, metrics=self.metrics, device=device)
+            bound=bound, pull_mode=pull_mode, coord_block=coord_block,
+            quant_err=quant_err, pq_subdims=pq_subdims, pq_codes=pq_codes,
+            metrics=self.metrics, device=device)
         self.K = K
+        self._adaptive = bool(adaptive)
+        self._bound = bound
         self.batch_size = int(batch_size)
         self.deadline_s = float(deadline_ms) * 1e-3
         self._seed = int(seed)
@@ -260,6 +297,7 @@ class MIPSServeEngine:
         self._recall_rng = np.random.default_rng(seed)
         self._lat: List[float] = []
         self._recalls: List[float] = []
+        self._rounds: List[int] = []   # adaptive: per-query exit rounds
         self._c_requests = self.metrics.counter(
             "serve_requests_total", "Requests submitted.")
         self._c_cache_hits = self.metrics.counter(
@@ -406,9 +444,11 @@ class MIPSServeEngine:
         for i, p in enumerate(batch):
             Qbuf[i] = p.q
         perm = self._perm_source(self._batch_seq)
-        ids, scores, dt = self._exec.dispatch(Qbuf, perm)
+        ids, scores, rounds, dt = self._exec.dispatch(Qbuf, perm)
         ids = ids[:len(batch)]
         scores = scores[:len(batch)]
+        if rounds is not None:
+            self._rounds.extend(rounds[:len(batch)].tolist())
         self._batch_seq += 1
         self._occupancy.append(len(batch))
         self._h_occupancy.observe(len(batch))
@@ -430,7 +470,31 @@ class MIPSServeEngine:
             self._occupancy = self._occupancy[-10_000:]
         if len(self._recalls) > 100_000:
             self._recalls = self._recalls[-10_000:]
+        if len(self._rounds) > 100_000:
+            self._rounds = self._rounds[-10_000:]
         return done, dt
+
+    def _adaptive_stats(self) -> dict:
+        """Early-exit telemetry: rounds_used histogram + mean pull frac."""
+        out = {"enabled": self._adaptive, "bound": self._bound}
+        if not self._adaptive:
+            return out
+        hist: Dict[int, int] = {}
+        for r in self._rounds:
+            hist[int(r)] = hist.get(int(r), 0) + 1
+        pulls = pulls_through_round(self.plan.schedule)
+        total = max(1, int(pulls[-1]))
+        samples = max(1, len(self._rounds))
+        mean_pulls = sum(int(pulls[min(r, len(pulls) - 1)]) * c
+                         for r, c in hist.items()) / samples
+        out.update({
+            "samples": len(self._rounds),
+            "rounds_hist": {str(k): v for k, v in sorted(hist.items())},
+            "mean_rounds": (float(np.mean(self._rounds))
+                            if self._rounds else 0.0),
+            "mean_pull_frac": mean_pulls / total,
+        })
+        return out
 
     def stats(self) -> dict:
         """Per-request latency/recall counters as a plain dict.
@@ -459,4 +523,5 @@ class MIPSServeEngine:
                                 if self._recalls else float("nan"))},
             "plan": {"rounds": len(self.plan.schedule.rounds),
                      "pull_speedup": self.plan.schedule.speedup},
+            "adaptive": self._adaptive_stats(),
         }

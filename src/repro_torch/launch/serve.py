@@ -8,11 +8,18 @@ embedding, ``(padded_vocab, d_model)`` with the padding rows masked) by
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --loop
 
 It runs on the CUDA card unless ``--device cpu`` is given.  The table is
-drawn N(0, 0.02) from seed 0 (`repro_torch.convert`).  Modes
-and options of later slices — the decode demo, ``--runtime``,
-``--dynamic``, ``--tenants``, ``--shards`` > 1, ``--precision`` other
-than fp32, ``--adaptive`` — are refused with a message naming their
-ROADMAP.md item.
+drawn N(0, 0.02) from seed 0 (`repro_torch.convert`).  ``--precision
+int8|int4|pq`` serves through the kernel's quantized tiers (pq with a
+quant_err calibrated on the table, ``--pq-subdims`` wide subspaces) and
+``--adaptive [--bound hoeffding|bernstein]`` through its early-exit
+lanes::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --loop --precision pq --adaptive --bound bernstein
+
+Modes and options of later slices — the decode demo, ``--runtime``,
+``--dynamic``, ``--tenants``, ``--shards`` > 1 — are refused with a
+message naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -139,9 +146,9 @@ def build_loop(args) -> Tuple[MIPSServeEngine, np.ndarray]:
         block=min(512, cfg.d_model), n_valid=n_valid,
         batch_size=args.batch, deadline_ms=args.deadline_ms,
         recall_sample_rate=args.recall_rate,
-        cache_entries=args.cache_entries, bound=args.bound,
-        pull_mode=args.pull_mode, seed=args.stream_seed,
-        device=dev)
+        cache_entries=args.cache_entries, precision=args.precision,
+        adaptive=args.adaptive, bound=args.bound, pull_mode=args.pull_mode,
+        pq_subdims=args.pq_subdims, seed=args.stream_seed, device=dev)
     rng = np.random.default_rng(0)
     qs = rng.normal(size=(args.requests, engine.N)).astype(np.float32)
     if args.repeat_rate > 0:                  # cacheable duplicate queries
@@ -158,7 +165,9 @@ def run_loop(args) -> dict:
     print(f"[serve] loop: table=({engine.n},{engine.N}) device={args.device} "
           f"K={args.topk} eps={args.eps} batch={args.batch} "
           f"deadline={args.deadline_ms}ms rounds={len(plan.schedule.rounds)} "
-          f"precision={plan.precision} pull_mode={plan.pull_mode} "
+          f"precision={plan.precision} quant_err={plan.quant_err:.6g} "
+          f"eps_eff={plan.eps_effective:.4f} adaptive={args.adaptive} "
+          f"bound={args.bound} pull_mode={plan.pull_mode} "
           f"block={plan.block} "
           f"pull_speedup={plan.schedule.speedup:.2f}x", flush=True)
     stats = simulate_stream(engine, qs, interarrival_ms=args.interarrival_ms,
@@ -177,10 +186,6 @@ _LATER = (
      "queue 1 item 9 (multi-tenant serving)"),
     ("--shards > 1", lambda a: a.shards > 1,
      "queue 1 item 10 (sharded serving)"),
-    ("--precision other than fp32", lambda a: a.precision != "fp32",
-     "queue 2 item 1 (int8/int4/pq tiers)"),
-    ("--adaptive", lambda a: a.adaptive,
-     "queue 1 item 3(d) (adaptive early exit)"),
 )
 
 
@@ -200,6 +205,8 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
         ap.error(f"--requests must be >= 1, got {args.requests}")
     if not 0.0 <= args.repeat_rate <= 1.0:
         ap.error(f"--repeat-rate must be in [0, 1], got {args.repeat_rate}")
+    if args.pq_subdims < 1:
+        ap.error(f"--pq-subdims must be >= 1, got {args.pq_subdims}")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -215,10 +222,19 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eps", type=float, default=0.1)
     ap.add_argument("--delta", type=float, default=0.1)
     ap.add_argument("--precision", default="fp32",
-                    choices=["fp32", "int8", "int4", "pq"])
-    ap.add_argument("--adaptive", action="store_true")
+                    choices=["fp32", "int8", "int4", "pq"],
+                    help="sampling arithmetic of the cascade: int8/int4 "
+                         "quantized pulls under widened bounds (int4 "
+                         "nibble-packed), pq codebook pulls under a "
+                         "quant_err measured on the table")
+    ap.add_argument("--pq-subdims", type=int, default=8,
+                    help="product-quantization subspace width "
+                         "(--precision pq; must divide the block width)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="certify per-query early exit at round ends")
     ap.add_argument("--bound", default="hoeffding",
-                    choices=["hoeffding", "bernstein"])
+                    choices=["hoeffding", "bernstein"],
+                    help="certification radius family for --adaptive")
     ap.add_argument("--pull-mode", default="row",
                     choices=["row", "coord", "hybrid"])
     ap.add_argument("--batch", type=int, default=4,

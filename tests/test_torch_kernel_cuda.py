@@ -4,9 +4,11 @@ The kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips without a card; on one it builds the kernel and compares.  This
 file imports only the port, so it runs where JAX is not installed.
 
-Ids must be equal; scores agree to rtol 1e-5 and atol 1e-6 * max|score|
-(the kernel's fp32 dot sums in another order than the plain version's
-``einsum``).
+Ids must be equal; fp32 scores agree to rtol 1e-5 and atol 1e-6 *
+max|score| (the kernel's fp32 dot sums in another order than the plain
+version's ``einsum``).  The int8 and int4 tiers are bitwise equal (exact
+integer dots, then the same rounded float ops), and so are the adaptive
+``rounds_used``; pq scores are held to the fp32 tolerance.
 """
 
 import numpy as np
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import boundedme_torch as bt
+from repro_torch.core import quantize as tq
 from repro_torch.kernels import fused_cascade as fc
 from repro_torch.kernels import ops
 
@@ -92,3 +95,110 @@ def test_kernel_wrapper_checks_operands(card):
         fc.fused_cascade_batched_cuda(*dev, k_out=10 ** 6, **kw)
     with pytest.raises(ValueError, match="is on cpu"):
         fc.fused_cascade_batched_cuda(dev[0], args[1], *dev[2:], **kw)
+
+
+def _tier(args, tier, bound=None):
+    """The tier's operands (port quantizers) and keywords; with ``bound``
+    also the adaptive ones."""
+    V4, Qb, slotcode, rmeta, cols = args
+    kw = {}
+    if tier == "pq":
+        cb = tq.pq_train(V4, n_codes=16, subdims=8)
+        V4, kw = tq.pq_encode(V4, cb), dict(codebook=cb)
+    elif tier in ("int8", "int4"):
+        V4, vscale = (tq.quantize_tiles_int4(V4) if tier == "int4"
+                      else tq.quantize_tiles(V4))
+        Qb, qscale = tq.quantize_blocks(Qb)
+        kw = dict(vscale=vscale, qscale=qscale, packed_int4=tier == "int4")
+    return (V4, Qb, slotcode, rmeta, cols), kw
+
+
+@pytest.mark.parametrize("tier", ["int8", "int4", "pq"])
+@pytest.mark.parametrize("n,N,K,block,mode,tile,n_valid,k_out,cover,B",
+                         [CASES[i] for i in (0, 1, 2, 3, 4, 6)])
+def test_kernel_tiers_match_plain_version(card, tier, n, N, K, block, mode,
+                                          tile, n_valid, k_out, cover, B):
+    args, kw = _operands(n, N, K, block, mode, tile, cover, B, seed=n)
+    args, tkw = _tier(args, tier)
+    name = f"fused_cascade_batched[{tier}]"
+    before = fc.launch_counts()[name]
+    ids, vals = ops.fused_cascade_batched(
+        *(t.to(card) for t in args), k_out=k_out, n_valid=n_valid, **kw,
+        **{k: (v.to(card) if torch.is_tensor(v) else v)
+           for k, v in tkw.items()})
+    torch.cuda.synchronize()
+    assert fc.launch_counts()[name] == before + 1
+    pids, pvals = ops.fused_cascade_batched(*args, k_out=k_out,
+                                            n_valid=n_valid, **kw, **tkw)
+    np.testing.assert_array_equal(ids.cpu().numpy(), pids.numpy())
+    got, want = vals.cpu().numpy(), pvals.numpy()
+    if tier == "pq":
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), fin)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(want[fin]).max()))
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bound", ["hoeffding", "bernstein"])
+@pytest.mark.parametrize("tier", ["fp32", "int8", "int4", "pq"])
+@pytest.mark.parametrize("n,N,mode,n_valid,k_out", [
+    (400, 512, "coord", 390, 5), (203, 300, "row", 190, 5),
+    (96, 512, "row", 3, 7)])
+def test_kernel_adaptive_matches_plain_version(card, tier, bound, n, N,
+                                               mode, n_valid, k_out):
+    rng = np.random.default_rng(n)
+    V = rng.normal(size=(n, N)).astype(np.float32)
+    Q = rng.normal(size=(4, N)).astype(np.float32)
+    for b, strength in enumerate([0.0, 0.3, 0.6, 1.5]):
+        V[rng.choice(n, 3, replace=False)] += strength * Q[b]
+    plan = bt.make_plan(n, N, K=3, eps=4.0, delta=0.1, value_range=8.0,
+                        block=64, pull_mode=mode, coord_block=32,
+                        bound=bound)
+    V4 = bt.tile_table(V, plan, "cpu")
+    Qb = bt._pad_operands(None, torch.from_numpy(Q), plan)[1].reshape(
+        4, plan.n_blocks, plan.block).contiguous()
+    slotcode, rmeta, bpos, t_final, n_final = bt.schedule_operands(
+        plan.schedule, False, torch.device("cpu"))
+    perm = torch.from_numpy(rng.permutation(plan.n_blocks))
+    cols = perm[bpos].to(torch.int32).expand(4, -1).contiguous()
+    args, tkw = _tier((V4, Qb, slotcode, rmeta, cols), tier)
+    kw = dict(n_arms=n, K=3, t_final=t_final, n_final=n_final, k_out=k_out,
+              n_valid=n_valid, k_cert=3, track_var=bound == "bernstein",
+              **tkw)
+    cert = bt.cert_operand(plan.schedule, torch.device("cpu"))
+    name = f"fused_cascade_batched[{tier}+adaptive]"
+    before = fc.launch_counts()[name]
+    ids, vals, rused = ops.fused_cascade_batched(
+        *(t.to(card) for t in args), cert=cert.to(card),
+        **{k: (v.to(card) if torch.is_tensor(v) else v)
+           for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert fc.launch_counts()[name] == before + 1
+    pids, pvals, prused = ops.fused_cascade_batched(*args, cert=cert, **kw)
+    np.testing.assert_array_equal(rused.cpu().numpy(), prused.numpy())
+    np.testing.assert_array_equal(ids.cpu().numpy(), pids.numpy())
+    got, want = vals.cpu().numpy(), pvals.numpy()
+    if tier in ("int8", "int4"):
+        np.testing.assert_array_equal(got, want)
+    else:
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), fin)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(want[fin]).max()))
+
+
+def test_kernel_wrapper_checks_tier_operands(card):
+    args, kw = _operands(203, 300, 3, 64, "row", 8, True, 2, seed=0)
+    (V8, Q8, *rest), tkw = _tier(args, "int8")
+    dev = [t.to(card) for t in (V8, Q8, *rest)]
+    vs, qs = tkw["vscale"].to(card), tkw["qscale"].to(card)
+    with pytest.raises(ValueError, match="qscale shape"):
+        fc.fused_cascade_batched_cuda(*dev, vscale=vs, qscale=qs[:1], **kw)
+    with pytest.raises(TypeError, match="int8"):
+        fc.fused_cascade_batched_cuda(args[0].to(card), *dev[1:], vscale=vs,
+                                      qscale=qs, **kw)
+    with pytest.raises(ValueError, match="track_var needs cert"):
+        fc.fused_cascade_batched_cuda(*dev, vscale=vs, qscale=qs,
+                                      track_var=True, **kw)

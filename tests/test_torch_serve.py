@@ -6,6 +6,10 @@
   query stream on the same virtual clock to equal ids, allclose scores
   (rtol 1e-5, atol 1e-6 * max|score|: fp32 sums in another order) and
   equal batch, occupancy and cache counters.
+* The same per tier — int8, int4, pq (each package trains its own
+  codebook on the table, one quant_err for both) — and with adaptive
+  early exit, whose ``stats()["adaptive"]`` (rounds histogram, mean pull
+  fraction) must be equal too.
 * `serving_table_from_jax` carries the JAX package's serve table over.
 * The port and ``chip_smoke.py`` import neither jax nor ``repro``.
 * Without CUDA and without ``device="cpu"`` the entry points raise, and
@@ -86,6 +90,84 @@ def test_engine_matches_jax_engine(mode):
     assert ts["cache"]["hits"] == 5
 
 
+# (precision, adaptive, bound, mode)
+TIER_ENGINES = [("int8", False, "hoeffding", "row"),
+                ("int4", False, "hoeffding", "coord"),
+                ("pq", False, "hoeffding", "row"),
+                ("int8", True, "bernstein", "row"),
+                ("fp32", True, "hoeffding", "coord"),
+                ("pq", True, "bernstein", "coord")]
+
+
+@pytest.mark.parametrize("precision,adaptive,bound,mode", TIER_ENGINES)
+def test_engine_tiers_match_jax_engine(precision, adaptive, bound, mode):
+    table = _table()
+    qs = _stream()
+    common = dict(K=4, eps=0.3, delta=0.1, block=32, batch_size=4,
+                  deadline_ms=2.0, n_valid=590, pull_mode=mode,
+                  coord_block=16, seed=3, precision=precision,
+                  adaptive=adaptive, bound=bound, pq_subdims=4,
+                  quant_err=2e-5 if precision == "pq" else None)
+    jeng = JaxEngine(table, use_pallas=False, **common)
+    n_blocks = jeng.plan.n_blocks
+    root = jax.random.PRNGKey(3)
+    teng = MIPSServeEngine(
+        table, device="cpu",
+        perm_source=lambda s: np.array(jax.random.permutation(
+            jax.random.fold_in(root, s), n_blocks)), **common)
+    assert dataclasses.astuple(teng.plan) == dataclasses.astuple(jeng.plan)
+    jres, tres = _drive(jeng, qs), _drive(teng, qs)
+    for (jids, jsc), (tids, tsc) in zip(jres, tres):
+        np.testing.assert_array_equal(tids, jids)
+        np.testing.assert_allclose(tsc, jsc, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(jsc).max()))
+    js, ts = jeng.stats(), teng.stats()
+    for key in ("requests", "completed", "pending", "batches",
+                "full_flushes", "deadline_flushes", "mean_batch_occupancy",
+                "cache", "plan", "adaptive"):
+        assert ts[key] == js[key], key
+    if adaptive:
+        assert ts["adaptive"]["samples"] == ts["requests"] - 5
+
+
+def test_executor_quantizes_the_table_once():
+    table = _table(64, 32)
+    ex = CascadeExecutor(table, K=2, block=16, precision="int4",
+                         device="cpu")
+    Vq, vscale = ex.quantized
+    assert Vq.dtype == torch.int8 and Vq.shape[-1] == 8
+    before = [t.clone() for t in ex.quantized]
+    ids, scores, rounds, dt = ex.dispatch(table[:3], np.arange(2))
+    assert rounds is None and ids.shape == (3, 2) and dt > 0
+    assert all(a is b for a, b in zip(ex.quantized, (Vq, vscale)))
+    assert all(torch.equal(a, b) for a, b in zip(ex.quantized, before))
+    pq = CascadeExecutor(table, K=2, block=16, precision="pq",
+                         pq_subdims=4, pull_mode="hybrid", device="cpu")
+    assert pq.plan.quant_err > 0 and pq.quantized[1].shape[-1] == 4
+    ada = CascadeExecutor(table, K=2, block=16, adaptive=True, device="cpu")
+    assert ada.dispatch(table[:3], np.arange(2))[2].shape == (3,)
+    assert CascadeExecutor(table, device="cpu").quantized is None
+
+
+@pytest.mark.parametrize("argv", [
+    ["--precision", "int8"], ["--precision", "int4", "--pull-mode", "coord"],
+    ["--precision", "pq", "--pq-subdims", "4"],
+    ["--precision", "int8", "--adaptive", "--bound", "bernstein"]])
+def test_serve_cli_tiers_on_cpu(argv, capsys):
+    args = serve.parse_args(["--arch", "qwen1.5-0.5b", "--smoke", "--loop",
+                             "--device", "cpu", "--requests", "12",
+                             "--recall-rate", "1.0", *argv])
+    stats = serve.run_loop(args)
+    assert stats["completed"] == 12 and stats["pending"] == 0
+    assert stats["adaptive"]["enabled"] == ("--adaptive" in argv)
+    head = capsys.readouterr().out.splitlines()[0]
+    assert f"precision={args.precision}" in head and "eps_eff=" in head
+    assert "quant_err=" in head
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--arch", "qwen1.5-0.5b", "--loop",
+                          "--pq-subdims", "0"])
+
+
 def test_engine_own_permutations_are_seeded():
     table, qs = _table(), _stream()
     runs = []
@@ -142,7 +224,7 @@ def test_serve_cli_loop_on_cpu():
 
 @pytest.mark.parametrize("argv", [
     ["--runtime"], ["--dynamic"], ["--tenants", "t.json"], ["--shards", "2"],
-    ["--precision", "int8"], ["--adaptive"]])
+    ["--precision", "pq", "--dynamic"], ["--adaptive", "--shards", "2"]])
 def test_serve_cli_refuses_later_slices(argv, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(["--arch", "qwen1.5-0.5b", "--loop", *argv])
@@ -157,8 +239,8 @@ def test_serve_cli_refuses_decode_demo(capsys):
 
 def test_executor_refuses_later_slices():
     table = _table(64, 32)
-    for kw in (dict(mesh=object()), dict(precision="int8"),
-               dict(adaptive=True)):
+    for kw in (dict(mesh=object()), dict(mesh=object(), precision="int8"),
+               dict(mesh=object(), adaptive=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             CascadeExecutor(table, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
