@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -10,15 +10,20 @@ Phases, one line each (any failure exits non-zero before the result):
 2. build — compiles every CUDA kernel of the port from ``src/`` (nvcc,
    ``sm_90a``), one nvcc per source, all started together;
 3. kernel — at the full qwen1.5-0.5b vocab table ((153600, 1024) fp32,
-   n_valid 151936, B = 4, K = 4, eps = delta = 0.1) the fused-cascade
-   kernel is held against its plain PyTorch version on the same operands,
-   in 'row' and 'coord' pull mode, for every tier the serve path runs:
-   fp32 (at k_out = K and 2K, with final coverage), int8, int4, pq (a
-   quant_err measured on the table) and int8 with adaptive early exit
-   under the 'bernstein' radii; plus a small case with fewer live rows
-   than k_out.  Each is timed: the kernel (median of 10 launches after 2
-   warm-ups, CUDA events), the plain version, exact ``torch.matmul`` +
-   ``torch.topk`` on the fp32 table as a yardstick, and the bound;
+   n_valid 151936, K = 4, eps = delta = 0.1) every kernel is held against
+   its plain PyTorch version on the same operands and timed (the kernel:
+   median of 10 launches after 2 warm-ups, CUDA events; the plain
+   version; a library call as a yardstick; the bound):
+   the batched fused cascade (B = 4) and the single-query fused cascade
+   (one query; also bitwise equal to a B = 1 batched launch), in 'row'
+   and 'coord' pull mode, for every tier: fp32 (at k_out = K and 2K,
+   with final coverage), int8, int4, pq (a quant_err measured on the
+   table) and int8 with adaptive early exit under the 'bernstein'
+   radii, plus a small case with fewer live rows than k_out; the
+   gathered tile-dot at the tiled table's row (all 19,200 tiles, both
+   512-wide blocks) and coord (C = 128, 8 blocks) geometry, and the
+   blocked matvec at (153600, 1024) with (256, 512) tiles, each in f32
+   and bf16;
 4. serve — the ``repro_torch.launch.serve --arch qwen1.5-0.5b --loop`` path
    in process, 64 requests, batch 4, row mode, through MIPSServeEngine,
    once per configuration: fp32, ``--precision int8``, ``--precision
@@ -28,8 +33,25 @@ Phases, one line each (any failure exits non-zero before the result):
    dispatch.  Every flush is then held against the plain version on the
    same permutation, and the served scores must be the exact inner
    products of the served ids;
-5. a ``kernels`` JSON line, one entry per tier, and last the ``ok`` JSON
-   line.
+5. mips — the library API on the unpadded vocab table (151936, 1024):
+   8 seeded queries through ``mips_topk`` (K = 4, eps = delta = 0.1,
+   ``final_exact``) per tier and pull mode, and int8 with adaptive
+   bernstein; launches of ``fused_cascade[<tier>]`` must equal the calls,
+   served ids be distinct rows, served scores the float64 exact ones; the
+   recall@4 against exact search (through ``ops.blocked_matvec``) is
+   printed, and the served scores are recomputed through
+   ``ops.gather_block_dot``.  Then ``nns_topk`` on 2 queries against a
+   float64 nearest-neighbour search, and ``bounded_me_batched`` on 4
+   queries with per-query perms: one batched launch, bitwise equal to
+   four single-query calls;
+6. quickstart — the recommender table of ``examples/quickstart.py``
+   (``mf_dataset(20000, 8192, rank=32, seed=0)``, block 128, K = 5,
+   delta = 0.1, eps in {0.5, 2, 8} sigma, fp32, ``final_exact``):
+   kernel held against the plain version, exact scores; prints the top-5
+   overlap with exact search, the plan's speedup, and the kernel and call
+   ms against ``torch.matmul`` + ``torch.topk``;
+7. a ``kernels`` JSON line, one entry per kernel and tier, and last the
+   ``ok`` JSON line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
 near-tie, counted and printed — every differing candidate's exact float64
@@ -37,9 +59,11 @@ score within 1e-5 relative of the candidate it replaced (fp32 sums taken
 in another order may swap two rows whose scores tie to ~1e-7).  Scores
 agree to rtol 1e-5 for the same reason; the int8 and int4 accumulators
 (and so their unscaled scores) must be bitwise equal, and adaptive
-``rounds_used`` equal.  Served scores agree with float64 exact scores to
-rtol 1e-4: one fp32 sum over 1024 products of mixed sign carries ~1e-5
-relative error on values of the top-K's size.
+``rounds_used`` equal.  The gathered tile-dot and the matvec agree with
+their plain versions to rtol 1e-5 and atol 1e-5 * max|out| (products
+exact in f32, sums in another order).  Served scores agree with float64
+exact scores to rtol 1e-4: one fp32 sum over 1024 products of mixed sign
+carries ~1e-5 relative error on values of the top-K's size.
 """
 
 from __future__ import annotations
@@ -60,11 +84,19 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8, dense
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16, dense
 TPU_KERNEL = "src/repro/kernels/fused_cascade.py:563"
-SOURCE = "src/repro_torch/kernels/csrc/fused_cascade.cu"
+TPU_KERNEL_SINGLE = "src/repro/kernels/fused_cascade.py:451"
+TPU_GATHER = "src/repro/kernels/gather_dot.py:48"
+TPU_MATVEC = "src/repro/kernels/blocked_matvec.py:33"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = CSRC + "fused_cascade.cu"
 B, K, EPS, DELTA = 4, 4, 0.1, 0.1
 SCORE_RTOL = 1e-5
 EXACT_RTOL = 1e-4
+N_MIPS_QUERIES = 8
+MF_SHAPE = (20_000, 8_192)      # examples/quickstart.py
+DEV = "cuda"                    # where every entry point is asked to run
 #: (label, precision, adaptive, bound) of every tier the serve path runs
 TIERS = [("fp32", "fp32", False, "hoeffding"),
          ("int8", "int8", False, "hoeffding"),
@@ -163,8 +195,10 @@ def phase_device() -> None:
 
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.kernels import fused_cascade
-    builds = {"fused_cascade_batched": fused_cascade.build}
+    from repro_torch.kernels import blocked_matvec, fused_cascade, gather_dot
+    builds = {"fused_cascade": fused_cascade.build,
+              "gather_dot": gather_dot.build,
+              "blocked_matvec": blocked_matvec.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builds.items()}
@@ -200,6 +234,18 @@ def cascade_operands(plan, V4, Q, perm, *, adaptive=False, quantized=None):
     return (table, Qb, slotcode, rmeta, cols), kw
 
 
+def single_of(ops, kw, b: int = 0, keep_batch: bool = False):
+    """Query ``b`` of a batch's operands: single-query operands, or with
+    ``keep_batch`` a batch of one."""
+    table, Qb, slotcode, rmeta, cols = ops
+    sl = slice(b, b + 1) if keep_batch else b
+    skw = dict(kw)
+    if "qscale" in kw:
+        skw["qscale"] = kw["qscale"][sl].contiguous()
+    return (table, Qb[sl].contiguous(), slotcode, rmeta,
+            cols[sl].contiguous()), skw
+
+
 def tier_plan(table, n_valid, precision, bound, mode):
     from repro_torch.core.boundedme_torch import make_measured_plan, make_plan
     from repro_torch.core.mips import table_abs_max
@@ -208,7 +254,7 @@ def tier_plan(table, n_valid, precision, bound, mode):
               value_range=2.0 * table_abs_max(table), precision=precision,
               bound=bound, pull_mode=mode)
     if precision == "pq":
-        return make_measured_plan(table, **kw)
+        return make_measured_plan(table, device=DEV, **kw)
     return make_plan(n, N, **kw)
 
 
@@ -220,22 +266,23 @@ def kernel_bound(plan, ops, kw, cells, n_pulls) -> dict:
     their type."""
     R, C = plan.tile, plan.block
     table, Qb, slotcode, rmeta, cols = ops
+    nq = Qb.shape[0] if Qb.dim() == 3 else 1
     nbytes = (cells * R * table.shape[3] * table.element_size()
               + sum(t.numel() * t.element_size()
                     for t in (Qb, slotcode, rmeta, cols))
-              + B * K * 8)
+              + nq * K * 8)
     if plan.precision in ("int8", "int4"):
         nbytes += cells * 4 + kw["qscale"].numel() * 4
         t_ops = 2 * n_pulls * R * C / INT8_OPS_PER_S
     elif plan.precision == "pq":
         cb = kw["codebook"]
         nbytes += cb.numel() * 4
-        lut_flops = 2 * B * cb.numel()
+        lut_flops = 2 * nq * cb.numel()
         t_ops = (lut_flops + n_pulls * R * table.shape[3]) / FP32_FLOPS_PER_S
     else:
         t_ops = 2 * n_pulls * R * C / FP32_FLOPS_PER_S
     if "cert" in kw:
-        nbytes += kw["cert"].numel() * 4 + B * 4
+        nbytes += kw["cert"].numel() * 4 + nq * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bytes": nbytes, "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -244,8 +291,10 @@ def kernel_bound(plan, ops, kw, cells, n_pulls) -> dict:
 def phase_kernel(table, n_valid) -> dict:
     from repro_torch.core.boundedme_torch import quantize_table, tile_table
     from repro_torch.core.schedule import PULL_BIT, pulls_through_round
-    from repro_torch.kernels.fused_cascade import fused_cascade_batched_cuda
-    from repro_torch.kernels.ref import fused_cascade_batched_ref
+    from repro_torch.kernels.fused_cascade import (fused_cascade_batched_cuda,
+                                                   fused_cascade_cuda)
+    from repro_torch.kernels.ref import (fused_cascade_batched_ref,
+                                         fused_cascade_ref)
     from repro_torch.launch.engine import seeded_perm
 
     n, N = table.shape
@@ -256,14 +305,19 @@ def phase_kernel(table, n_valid) -> dict:
     def library():
         s = (table @ Q.T).masked_fill_(mask, -torch.inf)
         return torch.topk(s, K, dim=0)
+
+    def library1():              # the same for one query
+        s = (table @ Q[0]).masked_fill_(mask[:, 0], -torch.inf)
+        return torch.topk(s, K)
     library_ms = time_cuda(library, 10, 2)
-    out = {}
+    library1_ms = time_cuda(library1, 10, 2)
+    out, single = {}, {}
     for mode in ("row", "coord"):
         V4 = None
         for label, precision, adaptive, bound in TIERS:
             plan = tier_plan(table, n_valid, precision, bound, mode)
             if V4 is None:
-                V4 = tile_table(table, plan)
+                V4 = tile_table(table, plan, DEV)
             quant = (quantize_table(V4, plan) if precision != "fp32"
                      else None)
             perm = seeded_perm(0, 0, plan.n_blocks)
@@ -288,8 +342,8 @@ def phase_kernel(table, n_valid) -> dict:
                     cells = int(pulled.sum())
                     rounds = got[2].tolist() if adaptive else None
             steps = int(((ops[2].cpu() & PULL_BIT) != 0).sum())
+            through = pulls_through_round(plan.schedule)
             if adaptive:   # the pulls this run's queries made
-                through = pulls_through_round(plan.schedule)
                 n_pulls = int(sum(through[r] for r in rounds))
             else:
                 n_pulls = steps * B
@@ -311,7 +365,43 @@ def phase_kernel(table, n_valid) -> dict:
                 res["rounds_used"] = rounds
             out[(label, mode)] = res
             say(f"kernel {label} {mode}: " + json.dumps(res))
-            del ops, pulled, quant
+
+            # the single-query entry on query 0, held against its plain
+            # version and, bit for bit, against a B = 1 batched launch
+            sops, skw = single_of(ops, kw)
+            pulled = torch.zeros((plan.n_tiles, plan.n_blocks),
+                                 dtype=torch.bool, device=V4.device)
+            got = fused_cascade_cuda(*sops, n_valid=n_valid, **skw)
+            ref = fused_cascade_ref(*sops, n_valid=n_valid, pulled=pulled,
+                                    **skw)
+            bops, bkw = single_of(ops, kw, keep_batch=True)
+            one = fused_cascade_batched_cuda(*bops, n_valid=n_valid, **bkw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b[0]) for a, b in zip(got, one)),
+                  f"single {label} {mode}: not bitwise a B = 1 batched "
+                  f"launch")
+            r = compare(table, Q[:1], [t[None] for t in got],
+                        [t[None] for t in ref], bitwise=bitwise,
+                        what=f"single {label} {mode}")
+            rounds1 = [int(got[2])] if adaptive else None
+            n_pulls = (int(through[rounds1[0]]) if adaptive else steps)
+            bound_info = kernel_bound(plan, sops, skw, int(pulled.sum()),
+                                      n_pulls)
+            res1 = {"pulls": n_pulls, "union_cells": int(pulled.sum()),
+                    **bound_info,
+                    "kernel_ms": time_cuda(lambda: fused_cascade_cuda(
+                        *sops, n_valid=n_valid, **skw), 10, 2),
+                    "plain_ms": time_cuda(lambda: fused_cascade_ref(
+                        *sops, n_valid=n_valid, **skw), 3, 1),
+                    "library_ms": library1_ms,
+                    "max_abs_err": r["max_abs_err"],
+                    "near_tie_queries": r["near_tie_queries"],
+                    "bitwise_batch_of_one": True}
+            if adaptive:
+                res1["rounds_used"] = rounds1
+            single[(label, mode)] = res1
+            say(f"single {label} {mode}: " + json.dumps(res1))
+            del ops, pulled, quant, sops, bops
         del V4
         torch.cuda.empty_cache()
 
@@ -325,7 +415,7 @@ def phase_kernel(table, n_valid) -> dict:
     for precision in ("fp32", "int8"):
         plan = make_plan(96, 512, K=5, eps=0.7, delta=0.1, value_range=8.0,
                          block=64, precision=precision)
-        V4s = tile_table(small, plan)
+        V4s = tile_table(small, plan, DEV)
         ops, kw = cascade_operands(
             plan, V4s, Qs, seeded_perm(0, 1, plan.n_blocks),
             quantized=(quantize_table(V4s, plan) if precision != "fp32"
@@ -340,22 +430,109 @@ def phase_kernel(table, n_valid) -> dict:
                   and len(set(ids.tolist())) == 7,
                   f"small {precision} case: live ids {ids.tolist()} / "
                   f"scores {vals.tolist()}")
-    say("kernel small: fewer live rows than k_out ok (fp32, int8)")
+        sops, skw = single_of(ops, kw, b=1)
+        got = fused_cascade_cuda(*sops, k_out=7, n_valid=3, **skw)
+        ref = fused_cascade_ref(*sops, k_out=7, n_valid=3, **skw)
+        compare(small, Qs[1:], [t[None] for t in got], [t[None] for t in ref],
+                bitwise=precision == "int8",
+                what=f"single small {precision} n_valid=3 k_out=7")
+        ids, vals = got[0].cpu(), got[1].cpu()
+        check(sorted(ids[torch.isfinite(vals)].tolist()) == [0, 1, 2]
+              and len(set(ids.tolist())) == 7,
+              f"single small {precision} case: live ids {ids.tolist()}")
+    say("kernel small: fewer live rows than k_out ok (fp32, int8; batched "
+        "and single-query)")
+    return out, single
+
+
+def time_kernel_aux(fn, ref, args, *, what: str, nbytes: int,
+                    flops: int, flops_per_s: float, library=None) -> dict:
+    """Hold ``fn(*args)`` against ``ref(*args)`` and time both, a library
+    call and the bound (bytes moved once, operations at peak)."""
+    got, want = fn(*args), ref(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(got.shape == want.shape and got.dtype == torch.float32
+          and torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale),
+          f"{what}: kernel vs plain max abs {err:.3g} (scale {scale:.3g})")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return {"bytes": nbytes, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "kernel_ms": time_cuda(lambda: fn(*args), 10, 2),
+            "plain_ms": time_cuda(lambda: ref(*args), 3, 1),
+            "library_ms": (time_cuda(lambda: library(*args), 10, 2)
+                           if library else None),
+            "max_abs_err": err}
+
+
+def phase_aux_kernels(table) -> dict:
+    """The gathered tile-dot and the blocked matvec at the serving table's
+    geometry, f32 and bf16, against their plain versions."""
+    from repro_torch.core.boundedme_torch import make_plan, tile_table
+    from repro_torch.kernels.blocked_matvec import blocked_matvec_cuda
+    from repro_torch.kernels.gather_dot import gather_block_dot_cuda
+    from repro_torch.kernels.ref import (blocked_matvec_ref,
+                                         gather_block_dot_ref)
+    from repro_torch.launch.engine import seeded_perm
+
+    n, N = table.shape
+    q = torch.from_numpy(np.random.default_rng(99).normal(size=N).astype(
+        np.float32)).cuda()
+    rates = {torch.float32: FP32_FLOPS_PER_S,
+             torch.bfloat16: BF16_FLOPS_PER_S}
+    out = {}
+    for mode, block in (("row", 512), ("coord", 128)):
+        plan = make_plan(n, N, K=K, block=block)
+        V4f = tile_table(table, plan, DEV)
+        idx = torch.arange(plan.n_tiles, dtype=torch.int32, device=DEV)
+        cols = seeded_perm(0, 0, plan.n_blocks).to(torch.int32).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            V4 = V4f.to(dtype)
+            qsel = q.reshape(plan.n_blocks, block)[cols.long()].to(dtype)
+            T, dt, R = plan.n_tiles, plan.n_blocks, plan.tile
+            nbytes = (V4.numel() * V4.element_size()
+                      + qsel.numel() * qsel.element_size()
+                      + 4 * (T + dt) + 4 * T * R)
+            res = time_kernel_aux(
+                gather_block_dot_cuda, gather_block_dot_ref,
+                (V4, idx, cols, qsel), what=f"gather_block_dot {mode} "
+                f"{dtype}", nbytes=nbytes, flops=2 * T * dt * R * block,
+                flops_per_s=rates[dtype])
+            res["shape"] = list(V4.shape)
+            out[("gather_block_dot", mode, dtype)] = res
+            say(f"gather_block_dot {mode} {str(dtype)[6:]}: "
+                + json.dumps(res))
+            del V4
+        del V4f
+    for dtype in (torch.float32, torch.bfloat16):
+        W, qd = table.to(dtype), q.to(dtype)
+        nbytes = (W.numel() + qd.numel()) * W.element_size() + 4 * n
+        res = time_kernel_aux(
+            blocked_matvec_cuda, blocked_matvec_ref, (W, qd),
+            what=f"blocked_matvec {dtype}", nbytes=nbytes, flops=2 * n * N,
+            flops_per_s=rates[dtype], library=torch.matmul)
+        res["shape"] = [n, N]
+        out[("blocked_matvec", dtype)] = res
+        say(f"blocked_matvec {str(dtype)[6:]}: " + json.dumps(res))
+        del W
+    torch.cuda.empty_cache()
     return out
 
 
 @contextlib.contextmanager
 def plain_route():
-    """Send CUDA tensors to the plain PyTorch version (for the reference
+    """Send CUDA tensors to the plain PyTorch versions (for the reference
     answers only: no launch is counted inside)."""
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.ref import fused_cascade_batched_ref
-    kernel = kops.fused_cascade_batched_cuda
-    kops.fused_cascade_batched_cuda = fused_cascade_batched_ref
+    from repro_torch.kernels import ref
+    kernels = (kops.fused_cascade_batched_cuda, kops.fused_cascade_cuda)
+    kops.fused_cascade_batched_cuda = ref.fused_cascade_batched_ref
+    kops.fused_cascade_cuda = ref.fused_cascade_ref
     try:
         yield
     finally:
-        kops.fused_cascade_batched_cuda = kernel
+        kops.fused_cascade_batched_cuda, kops.fused_cascade_cuda = kernels
 
 
 def serve_run(label, precision, adaptive, bound) -> dict:
@@ -443,6 +620,227 @@ def serve_run(label, precision, adaptive, bound) -> dict:
     return res
 
 
+def mips_run(V, Q, label, precision, adaptive, bound, mode, quant_err,
+             exact_ids) -> dict:
+    """One tier's queries through ``mips_topk``, launches counted."""
+    from repro_torch.core import mips
+    from repro_torch.kernels import ops as kops
+    n, N = V.shape
+    kw = dict(eps=EPS, delta=DELTA, final_exact=True, precision=precision,
+              adaptive=adaptive, bound=bound, pull_mode=mode,
+              quant_err=quant_err)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [mips.mips_topk(V, q, K, device=DEV, **kw) for q in Q]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    name = "fused_cascade" + ("" if label == "fp32" else f"[{label}]")
+    check(counts[f"fused_cascade[{label}]"] == len(Q)
+          and counts["fused_cascade"] == len(Q)
+          and counts["fused_cascade_batched"] == 0,
+          f"mips {label} {mode}: launches {counts[f'fused_cascade[{label}]']}"
+          f" of fused_cascade[{label}] ({counts['fused_cascade']} in all) "
+          f"for {len(Q)} calls")
+    hits = 0
+    for b, (ids, scores) in enumerate(outs):
+        ids_l = ids.tolist()
+        check(len(set(ids_l)) == K and max(ids_l) < n and min(ids_l) >= 0,
+              f"mips {label} {mode}: query {b} ids {ids_l}")
+        exact = (V[ids.long()].double() @ Q[b].double()) / N
+        check(torch.allclose(scores.double(), exact, rtol=EXACT_RTOL,
+                             atol=0.0),
+              f"mips {label} {mode}: query {b} scores {scores.tolist()} vs "
+              f"exact {exact.tolist()}")
+        hits += len(set(ids_l) & set(exact_ids[b]))
+    res = {"name": name, "calls": len(Q),
+           "launches": counts[f"fused_cascade[{label}]"],
+           "recall": hits / (K * len(Q)), "wall_s": wall,
+           "ms_per_call": 1e3 * wall / len(Q)}
+    say(f"mips {label} {mode}: " + json.dumps(res))
+    return res, outs
+
+
+def phase_mips(table, n_valid) -> dict:
+    """Phase 5: the library API on the unpadded vocab table."""
+    from repro_torch.core import mips
+    from repro_torch.core.boundedme_torch import (bounded_me_batched,
+                                                  bounded_me_blocked,
+                                                  draw_perms, make_plan,
+                                                  measured_plan_quant_err,
+                                                  tile_table)
+    from repro_torch.kernels import ops as kops
+
+    V = table[:n_valid]                    # the unpadded vocab table
+    n, N = V.shape
+    Q = torch.from_numpy(np.random.default_rng(4321).normal(
+        size=(N_MIPS_QUERIES, N)).astype(np.float32)).cuda()
+    # exact search through the exhaustive baseline's entry point (the
+    # padded table divides into its (256, 512) tiles; padding masked)
+    kops.reset_launch_counts()
+    exact_ids = [torch.topk(kops.blocked_matvec(table, q)[:n_valid],
+                            K).indices.tolist() for q in Q]
+    matvec_launches = kops.launch_counts()["blocked_matvec"]
+    check(matvec_launches == len(Q),
+          f"mips: {matvec_launches} blocked_matvec launches for {len(Q)}")
+    qerr = {mode: measured_plan_quant_err(V, precision="pq", block=(
+        512 if mode == "row" else 128), device=DEV)
+        for mode in ("row", "coord")}
+    say(f"mips: pq quant_err measured once per mode on the table (not per "
+        f"call): {json.dumps(qerr)}")
+    out, fp32_row = {}, None
+    for label, precision, adaptive, bound in TIERS:
+        for mode in ("row", "coord"):
+            res, outs = mips_run(
+                V, Q, label, precision, adaptive, bound, mode,
+                qerr[mode] if precision == "pq" else None, exact_ids)
+            out[(label, mode)] = res
+            if (label, mode) == ("fp32", "row"):
+                fp32_row = outs
+            torch.cuda.empty_cache()
+
+    # the served fp32 scores again, through the pull step's entry point:
+    # each candidate's tile summed over every column block
+    plan = make_plan(n, N, K=K)
+    V4 = tile_table(V, plan, DEV)
+    qp = torch.nn.functional.pad(Q, (0, plan.n_blocks * plan.block - N))
+    cols = torch.arange(plan.n_blocks, device=DEV)
+    kops.reset_launch_counts()
+    for b, (ids, scores) in enumerate(fp32_row):
+        rows = kops.gather_block_dot(V4, ids.long() // plan.tile, cols,
+                                     qp[b].reshape(plan.n_blocks, -1))
+        again = rows[torch.arange(K, device=DEV),
+                     ids.long() % plan.tile] / N
+        check(torch.allclose(again, scores, rtol=EXACT_RTOL, atol=0.0),
+              f"mips: gather_block_dot rescore {again.tolist()} vs served "
+              f"{scores.tolist()}")
+    gather_launches = kops.launch_counts()["gather_block_dot"]
+    check(gather_launches == len(Q),
+          f"mips: {gather_launches} gather_block_dot launches for {len(Q)}")
+    del V4
+
+    # nearest neighbours: queries near known rows
+    rng = np.random.default_rng(77)
+    rows = rng.choice(n, 2, replace=False).tolist()
+    V64 = V.double()
+    sq = (V64 * V64).sum(1)
+    kops.reset_launch_counts()
+    for r in rows:
+        q = V[r] + 0.002 * torch.from_numpy(rng.normal(size=N).astype(
+            np.float32)).cuda()
+        ids, scores = mips.nns_topk(V, q, K, eps=EPS, delta=DELTA,
+                                    final_exact=True, device=DEV)
+        d2 = sq - 2.0 * (V64 @ q.double())
+        nn = torch.topk(-d2, K).indices.tolist()
+        ids_l = ids.tolist()
+        check(len(set(ids_l)) == K and ids_l[0] == nn[0] == r,
+              f"nns: query near row {r}: ids {ids_l}, exact {nn}")
+        aug = (2.0 * (V64[ids.long()] @ q.double()) - sq[ids.long()]) / (
+            N + 1)
+        check(torch.allclose(scores.double(), aug, rtol=EXACT_RTOL,
+                             atol=0.0),
+              f"nns: scores {scores.tolist()} vs exact {aug.tolist()}")
+        say(f"nns near row {r}: ids {ids_l}, exact {nn}, overlap "
+            f"{len(set(ids_l) & set(nn))}/{K}")
+    check(kops.launch_counts()["fused_cascade[fp32]"] == len(rows),
+          "nns: one fused_cascade launch per call")
+    del V64, sq
+
+    # per-query keys: one batched launch equals the single-query calls
+    Qb = Q[:4]
+    plan = make_plan(n, N, K=K, eps=EPS, delta=DELTA,
+                     value_range=mips.default_value_range(V, Qb))
+    perms = draw_perms(plan.n_blocks, 4, torch.Generator().manual_seed(3))
+    kops.reset_launch_counts()
+    ids, vals = bounded_me_batched(V, Qb, perms, plan=plan, final_exact=True,
+                                   device=DEV)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    check(counts["fused_cascade_batched[fp32]"] == 1
+          and counts["fused_cascade"] == 0,
+          f"batched: {counts['fused_cascade_batched']} batched and "
+          f"{counts['fused_cascade']} single launches, expected 1 and 0")
+    for b in range(4):
+        sids, svals, _ = bounded_me_blocked(V, Qb[b], perms[b], plan=plan,
+                                            final_exact=True, device=DEV)
+        check(torch.equal(sids, ids[b]) and torch.equal(svals, vals[b]),
+              f"batched: query {b} ids {ids[b].tolist()} / {sids.tolist()} "
+              f"not bitwise the single-query call's")
+    say("batched: 4 queries, per-query perms, 1 fused_cascade_batched "
+        "launch, bitwise equal to 4 single-query calls")
+    out["matvec_launches"] = matvec_launches
+    out["gather_launches"] = gather_launches
+    return out
+
+
+def phase_quickstart() -> dict:
+    """Phase 6: examples/quickstart.py's regime on the card."""
+    from repro_torch.core import mips
+    from repro_torch.core.boundedme_torch import (draw_perms, make_plan,
+                                                  tile_table)
+    from repro_torch.data.synthetic import mf_dataset
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.fused_cascade import fused_cascade_cuda
+
+    n, N = MF_SHAPE
+    t0 = time.perf_counter()
+    Vn, qn = mf_dataset(n, N, rank=32, seed=0)
+    sigma = float(np.std(Vn[:512] @ qn / N))
+    vr = float(8.0 * np.std(Vn) * np.std(qn))
+    V, q = torch.from_numpy(Vn).cuda(), torch.from_numpy(qn).cuda()
+    del Vn
+    say(f"quickstart: mf_dataset{(n, N)} in {time.perf_counter() - t0:.1f}"
+        f" s, sigma {sigma:.6g}, value_range {vr:.6g}")
+    exact = torch.topk(V.double() @ q.double(), 5).indices.tolist()
+    library_ms = time_cuda(lambda: torch.topk(V @ q, 5), 10, 2)
+    out = {}
+    for mult in (0.5, 2.0, 8.0):
+        eps = mult * sigma
+        kw = dict(K=5, eps=eps, delta=0.1, value_range=vr, final_exact=True,
+                  block=128, device=DEV)
+        kops.reset_launch_counts()
+        ids, scores = mips.mips_topk(V, q, **kw)
+        torch.cuda.synchronize()
+        launches = kops.launch_counts()["fused_cascade[fp32]"]
+        check(launches == 1, f"quickstart {mult}: {launches} launches")
+        with plain_route():
+            pids, pscores = mips.mips_topk(V, q, **kw)
+        r = compare(V, q[None], [ids[None], scores[None]],
+                    [pids[None], pscores[None]],
+                    what=f"quickstart eps={mult}*sigma")
+        ex = (V[ids.long()].double() @ q.double()) / N
+        check(torch.allclose(scores.double(), ex, rtol=EXACT_RTOL, atol=0.0),
+              f"quickstart {mult}: scores {scores.tolist()} vs exact "
+              f"{ex.tolist()}")
+        # the kernel alone, on the operands the call built
+        plan = make_plan(n, N, K=5, eps=eps, delta=0.1, value_range=vr,
+                         block=128)
+        V4 = tile_table(V, plan, DEV)
+        ops_, kw_ = cascade_operands(plan, V4, torch.nn.functional.pad(
+            q, (0, plan.n_blocks * plan.block - N))[None],
+            draw_perms(plan.n_blocks))
+        sops, skw = single_of(ops_, kw_)
+        kernel_ms = time_cuda(lambda: fused_cascade_cuda(*sops, **skw), 10,
+                              2)
+        calls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            mips.mips_topk(V, q, **kw)
+            torch.cuda.synchronize()
+            calls.append(1e3 * (time.perf_counter() - t0))
+        res = {"eps_sigma": mult, "overlap": len(set(ids.tolist())
+                                                 & set(exact)),
+               "speedup": plan.speedup, "rounds": len(plan.schedule.rounds),
+               "kernel_ms": kernel_ms, "call_ms": statistics.median(calls),
+               "library_ms": library_ms, "launches": launches,
+               "max_abs_err": r["max_abs_err"],
+               "near_tie_queries": r["near_tie_queries"]}
+        out[mult] = res
+        say("quickstart: " + json.dumps(res))
+        del V4, ops_, sops
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
@@ -461,14 +859,17 @@ def main() -> int:
         from repro_torch.configs import get_config
         from repro_torch.convert import make_serving_table
         table, n_valid = make_serving_table(get_config("qwen1.5-0.5b"), 0,
-                                            "cuda")
-        kern = phase_kernel(table, n_valid)
-        del table
-        torch.cuda.empty_cache()
+                                            DEV)
+        kern, single = phase_kernel(table, n_valid)
+        aux = phase_aux_kernels(table)
         served = {}
         for tier in TIERS:
             served[tier[0]] = serve_run(*tier)
             torch.cuda.empty_cache()
+        lib = phase_mips(table, n_valid)
+        del table
+        torch.cuda.empty_cache()
+        phase_quickstart()
         say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -476,23 +877,53 @@ def main() -> int:
         return 1
     entries = []
     for label, precision, adaptive, bound in TIERS:
-        row, coord, srv = kern[(label, "row")], kern[(label, "coord")], \
-            served[label]
-        entries.append({
-            "name": ("fused_cascade_batched" if label == "fp32"
-                     else f"fused_cascade_batched[{label}]"),
-            "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
-            "launches": srv["launches"],
-            "max_abs_err": max(row["max_abs_err"], coord["max_abs_err"],
-                               srv["max_abs_err"]),
-            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-            "coord_ms": coord["kernel_ms"],
-            "coord_plain_ms": coord["plain_ms"],
-            "coord_bound_ms": coord["bound_ms"],
-            "precision": precision, "adaptive": adaptive, "bound": bound,
-            "held_against_plain": True})
+        for name, res, launches, extra, replaces in (
+                ("fused_cascade_batched", kern, served[label]["launches"],
+                 served[label]["max_abs_err"], TPU_KERNEL),
+                ("fused_cascade", single,
+                 lib[(label, "row")]["launches"]
+                 + lib[(label, "coord")]["launches"], 0.0,
+                 TPU_KERNEL_SINGLE)):
+            row, coord = res[(label, "row")], res[(label, "coord")]
+            entries.append({
+                "name": name if label == "fp32" else f"{name}[{label}]",
+                "route": "cuda", "source": SOURCE, "replaces": replaces,
+                "launches": launches,
+                "max_abs_err": max(row["max_abs_err"], coord["max_abs_err"],
+                                   extra),
+                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "coord_ms": coord["kernel_ms"],
+                "coord_plain_ms": coord["plain_ms"],
+                "coord_bound_ms": coord["bound_ms"],
+                "precision": precision, "adaptive": adaptive,
+                "bound": bound, "held_against_plain": True})
+    f32, b16 = torch.float32, torch.bfloat16
+    for name, src, replaces, launches, base, alt in (
+            ("gather_block_dot", "gather_dot.cu", TPU_GATHER,
+             lib["gather_launches"], ("gather_block_dot", "row", f32),
+             {"coord": ("gather_block_dot", "coord", f32),
+              "bf16": ("gather_block_dot", "row", b16),
+              "coord_bf16": ("gather_block_dot", "coord", b16)}),
+            ("blocked_matvec", "blocked_matvec.cu", TPU_MATVEC,
+             lib["matvec_launches"], ("blocked_matvec", f32),
+             {"bf16": ("blocked_matvec", b16)})):
+        r = aux[base]
+        entry = {"name": name, "route": "cuda", "source": CSRC + src,
+                 "replaces": replaces, "launches": launches,
+                 "max_abs_err": max(aux[k]["max_abs_err"]
+                                    for k in [base, *alt.values()]),
+                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"], "shape": r["shape"],
+                 "held_against_plain": True}
+        for tag, key in alt.items():
+            entry.update({f"{tag}_ms": aux[key]["kernel_ms"],
+                          f"{tag}_plain_ms": aux[key]["plain_ms"],
+                          f"{tag}_bound_ms": aux[key]["bound_ms"],
+                          f"{tag}_library_ms": aux[key]["library_ms"]})
+        entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

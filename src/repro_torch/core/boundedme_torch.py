@@ -14,16 +14,21 @@ Adaptations versus the paper's per-arm algorithm (as in the JAX package):
     and block-mean rewards;
   * arms are eliminated in *tiles* of ``tile`` (default 8) rows ranked by
     the tile-max empirical mean;
-  * one shared random block permutation per query batch.  Torch cannot
-    reproduce ``jax.random``, so the permutation is an explicit argument
-    here: callers draw it (the serving engine from a seeded
-    ``torch.Generator``) or hand in the JAX package's.
+  * one random block permutation per query batch (`bounded_me_decode`)
+    or per query (`bounded_me_blocked`, `bounded_me_batched`).  Torch
+    cannot reproduce ``jax.random``, so permutations are explicit
+    arguments here: callers hand them in (the tests hand in the JAX
+    package's) or they are drawn from a seeded ``torch.Generator``
+    (`draw_perms`).
 
-The decode path runs every tier of the JAX package: fp32, int8 and int4
+Every entry runs every tier of the JAX package: fp32, int8 and int4
 (quantized table cells, int8 queries), pq (codes against a per-block
 codebook, f32 queries), each with or without adaptive early exit.  On
 the quantized tiers and with early exit the returned scores are made
-exact by an fp32 rescore of the candidates, as in the JAX package.
+exact by an fp32 rescore of the candidates, as in the JAX package.  The
+single-query entry `bounded_me_blocked` runs its cascade as one
+`repro_torch.kernels.ops.fused_cascade` dispatch; the batched entries as
+one `fused_cascade_batched` dispatch.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ from repro_torch.kernels import ops
 __all__ = ["BlockedPlan", "make_plan", "choose_pull_mode", "resolve_device",
            "tile_table", "quantize_table", "measured_plan_quant_err",
            "make_measured_plan", "schedule_operands", "cert_operand",
-           "decode_operands", "decode_tiled", "bounded_me_decode"]
+           "decode_operands", "decode_tiled", "bounded_me_decode",
+           "draw_perms", "bounded_me_blocked", "bounded_me_batched"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -463,13 +469,30 @@ def cert_operand(sched: Schedule, device: torch.device) -> torch.Tensor:
 
 
 def _check_perm(perm, n_blocks: int, device: torch.device) -> torch.Tensor:
+    """``perm`` as int64 on ``device``: one permutation of
+    ``range(n_blocks)`` or a ``(B, n_blocks)`` stack of them, each row
+    checked."""
     p = torch.as_tensor(perm)
     host = p.detach().cpu().numpy()
-    if host.shape != (n_blocks,) or not np.array_equal(np.sort(host),
-                                                       np.arange(n_blocks)):
-        raise ValueError(f"perm must be a permutation of range({n_blocks}), "
-                         f"got shape {tuple(host.shape)}")
+    if (host.ndim not in (1, 2) or host.shape[-1] != n_blocks
+            or not (np.sort(host, axis=-1) == np.arange(n_blocks)).all()):
+        raise ValueError(f"perm must be a permutation of range({n_blocks}) "
+                         f"or a (B, {n_blocks}) stack of them, got shape "
+                         f"{tuple(host.shape)}")
     return p.to(device=device, dtype=torch.int64)
+
+
+def draw_perms(n_blocks: int, B: Optional[int] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Block permutations from ``generator`` (default: a CPU generator
+    seeded 0, so calls without one repeat): ``(n_blocks,)``, or ``(B,
+    n_blocks)`` with one ``torch.randperm`` per query, drawn in order."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if B is None:
+        return torch.randperm(n_blocks, generator=generator)
+    return torch.stack([torch.randperm(n_blocks, generator=generator)
+                        for _ in range(B)])
 
 
 def decode_operands(plan: BlockedPlan, *, final_exact: bool,
@@ -491,27 +514,34 @@ def decode_operands(plan: BlockedPlan, *, final_exact: bool,
 
 
 def _fused_call(Vq: torch.Tensor, Qin: torch.Tensor, perm: torch.Tensor, *,
-                plan: BlockedPlan, final_exact: bool, k_out: int,
-                n_valid: int, vscale=None, qscale=None, codebook=None,
+                plan: BlockedPlan, final_exact: bool, batched: bool = True,
+                k_out: Optional[int] = None, n_valid: Optional[int] = None,
+                vscale=None, qscale=None, codebook=None,
                 adaptive: bool = False):
     """Dispatch the whole cascade as exactly one fused-cascade launch.
 
-    All queries of the batch share ``perm``; see `decode_operands` for
-    what ``final_exact`` does inside the cascade.
+    ``batched``: ``Qin (B, n_blocks, C)`` through `fused_cascade_batched`,
+    with one ``perm (n_blocks,)`` shared by the batch or per-query
+    ``perm (B, n_blocks)``; else one query ``Qin (n_blocks, C)`` and
+    ``perm (n_blocks,)`` through `fused_cascade`.  See `decode_operands`
+    for what ``final_exact`` does inside the cascade.
     """
     slotcode, rmeta, bpos, t_final, n_final, cert = decode_operands(
         plan, final_exact=final_exact, adaptive=adaptive, device=Vq.device)
-    cols = perm[bpos].to(torch.int32).expand(Qin.shape[0], -1).contiguous()
-    return ops.fused_cascade_batched(
-        Vq, Qin, slotcode, rmeta, cols, n_arms=plan.n, K=plan.K,
-        t_final=t_final, n_final=n_final, k_out=k_out, n_valid=n_valid,
-        vscale=vscale, qscale=qscale, codebook=codebook,
-        packed_int4=plan.precision == "int4", cert=cert, k_cert=plan.K,
-        track_var=adaptive and plan.schedule.bound == "bernstein")
+    cols = perm[..., bpos].to(torch.int32)
+    if batched and cols.dim() == 1:
+        cols = cols.expand(Qin.shape[0], -1)
+    fn = ops.fused_cascade_batched if batched else ops.fused_cascade
+    return fn(Vq, Qin, slotcode, rmeta, cols.contiguous(), n_arms=plan.n,
+              K=plan.K, t_final=t_final, n_final=n_final, k_out=k_out,
+              n_valid=n_valid, vscale=vscale, qscale=qscale,
+              codebook=codebook, packed_int4=plan.precision == "int4",
+              cert=cert, k_cert=plan.K,
+              track_var=adaptive and plan.schedule.bound == "bernstein")
 
 
 def _rescore_rows(V4: torch.Tensor, Qp: torch.Tensor, ids: torch.Tensor,
-                  n_valid: int, plan: BlockedPlan
+                  n_valid: int, plan: BlockedPlan, batched: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact fp32 rescore + descending re-sort of cascade candidates.
 
@@ -519,8 +549,12 @@ def _rescore_rows(V4: torch.Tensor, Qp: torch.Tensor, ids: torch.Tensor,
     dots it with the zero-padded query, so the product equals the
     unpadded one and dividing by the true ``N`` lands on (q . v)/N.
     Rows at or past ``n_valid`` are pinned to -inf and never re-enter
-    the top-K; ties keep the cascade's order.
+    the top-K; ties keep the cascade's order.  ``batched``: ``ids (B,
+    k)`` and ``Qp (B, Np)``; else ``ids (k,)`` and ``Qp (Np,)``.
     """
+    if not batched:
+        ids, vals = _rescore_rows(V4, Qp[None], ids[None], n_valid, plan)
+        return ids[0], vals[0]
     R = plan.tile
     safe = ids.long().clamp(0, V4.shape[0] * R - 1)
     rows = V4[safe // R, :, safe % R, :]                 # (B, k, nb, C)
@@ -543,6 +577,45 @@ def _check_quantized(quantized, V4: torch.Tensor, plan: BlockedPlan
     return Vq.contiguous(), vaux.contiguous()
 
 
+def _run_tiled(V4: torch.Tensor, Qp: torch.Tensor, perm, *,
+               plan: BlockedPlan, batched: bool, final_exact: bool,
+               k_out: int, n_valid: int, quantized=None,
+               adaptive: bool = False):
+    """The cascade on a `tile_table` table and zero-padded queries ``Qp``
+    (``(B, Np)`` batched, ``(Np,)`` for one query), all on ``V4``'s
+    device: quantize (table unless ``quantized`` is given; queries
+    always), one fused dispatch, then the fp32 rescore or the padding
+    rescale."""
+    dev = V4.device
+    Qb = Qp.reshape(*Qp.shape[:-1], plan.n_blocks, plan.block).contiguous()
+    perm = _check_perm(perm, plan.n_blocks, dev)
+    if perm.dim() == 2 and (not batched or perm.shape[0] != Qp.shape[0]):
+        raise ValueError(f"per-query perms {tuple(perm.shape)} need a "
+                         f"batch of {perm.shape[0]} queries")
+    quantized_plan = plan.precision != "fp32"
+    if quantized is not None:
+        Vq, vaux = _check_quantized(quantized, V4, plan)
+    elif quantized_plan:
+        Vq, vaux = quantize_table(V4, plan)
+    kw = dict(plan=plan, final_exact=final_exact, batched=batched,
+              k_out=k_out, n_valid=n_valid, adaptive=adaptive)
+    if plan.precision == "pq":          # pq queries stay f32 (LUT walk)
+        out = _fused_call(Vq, Qb, perm, codebook=vaux, **kw)
+    elif quantized_plan:
+        Q8, qscale = quantize_blocks(Qb)    # per query block
+        out = _fused_call(Vq, Q8, perm, vscale=vaux, qscale=qscale, **kw)
+    else:
+        out = _fused_call(V4, Qb, perm, **kw)
+    ids, vals = out[0], out[1]
+    if final_exact and (quantized_plan or adaptive):
+        ids, vals = _rescore_rows(V4, Qp, ids, n_valid, plan, batched)
+    else:
+        # undo the zero-padding rescale so scores estimate (q . v)/N
+        vals = vals * torch.tensor((plan.n_blocks * plan.block) / plan.N,
+                                   dtype=torch.float32, device=dev)
+    return (ids, vals, out[2]) if adaptive else (ids, vals)
+
+
 def decode_tiled(V4: torch.Tensor, Q, perm, *, plan: BlockedPlan,
                  final_exact: bool = True, k_out: Optional[int] = None,
                  n_valid: Optional[int] = None, quantized=None,
@@ -550,44 +623,23 @@ def decode_tiled(V4: torch.Tensor, Q, perm, *, plan: BlockedPlan,
     """`bounded_me_decode` on a table already laid out by `tile_table`.
 
     Runs on ``V4``'s device; ``Q``, ``perm`` and ``quantized`` are moved
-    there.  On a quantized plan without ``quantized`` the table is
-    quantized here, at every call (`quantize_table`).
+    there.  ``perm`` is one ``(n_blocks,)`` permutation shared by the
+    batch or ``(B, n_blocks)``, one per query.  On a quantized plan
+    without ``quantized`` the table is quantized here, at every call
+    (`quantize_table`).
     """
-    if k_out is None:
-        k_out = plan.K
+    k_out = plan.K if k_out is None else int(k_out)
     if not plan.K <= k_out <= plan.k_out_cap:
         raise ValueError(f"k_out={k_out} outside [K={plan.K}, "
                          f"k_out_cap={plan.k_out_cap}]")
     n_valid = plan.n if n_valid is None else int(n_valid)
-    dev = V4.device
-    Q = torch.as_tensor(Q, dtype=torch.float32).to(dev)
+    Q = torch.as_tensor(Q, dtype=torch.float32).to(V4.device)
     if Q.dim() != 2 or Q.shape[1] != plan.N:
         raise ValueError(f"Q must be (B, {plan.N}), got {tuple(Q.shape)}")
     _, Qp = _pad_operands(None, Q, plan)
-    Qb = Qp.reshape(Q.shape[0], plan.n_blocks, plan.block).contiguous()
-    perm = _check_perm(perm, plan.n_blocks, dev)
-    quantized_plan = plan.precision != "fp32"
-    if quantized is not None:
-        Vq, vaux = _check_quantized(quantized, V4, plan)
-    elif quantized_plan:
-        Vq, vaux = quantize_table(V4, plan)
-    kw = dict(plan=plan, final_exact=final_exact, k_out=k_out,
-              n_valid=n_valid, adaptive=adaptive)
-    if plan.precision == "pq":          # pq queries stay f32 (LUT walk)
-        out = _fused_call(Vq, Qb, perm, codebook=vaux, **kw)
-    elif quantized_plan:
-        Q8, qscale = quantize_blocks(Qb)    # per query: (B, n_blocks)
-        out = _fused_call(Vq, Q8, perm, vscale=vaux, qscale=qscale, **kw)
-    else:
-        out = _fused_call(V4, Qb, perm, **kw)
-    ids, vals = out[0], out[1]
-    if final_exact and (quantized_plan or adaptive):
-        ids, vals = _rescore_rows(V4, Qp, ids, n_valid, plan)
-    else:
-        # undo the zero-padding rescale so scores estimate (q . v)/N
-        vals = vals * torch.tensor((plan.n_blocks * plan.block) / plan.N,
-                                   dtype=torch.float32, device=dev)
-    return (ids, vals, out[2]) if adaptive else (ids, vals)
+    return _run_tiled(V4, Qp, perm, plan=plan, batched=True,
+                      final_exact=final_exact, k_out=k_out, n_valid=n_valid,
+                      quantized=quantized, adaptive=adaptive)
 
 
 def bounded_me_decode(V, Q, perm, *, plan: BlockedPlan,
@@ -638,4 +690,89 @@ def bounded_me_decode(V, Q, perm, *, plan: BlockedPlan,
     V4 = tile_table(V, plan, device)
     return decode_tiled(V4, Q, perm, plan=plan, final_exact=final_exact,
                         k_out=k_out, n_valid=n_valid, quantized=quantized,
+                        adaptive=adaptive)
+
+
+def _run_blocked(V, q, perm, *, plan: BlockedPlan, final_exact: bool,
+                 adaptive: bool, device):
+    """One query through `fused_cascade` (``boundedme_jax._run_blocked``
+    in its ``use_pallas`` form): ``(ids (K,), scores (K,))``, with
+    ``adaptive`` also a scalar ``rounds_used``."""
+    V4 = tile_table(V, plan, device)
+    q = torch.as_tensor(q, dtype=torch.float32).to(V4.device)
+    if q.shape != (plan.N,):
+        raise ValueError(f"q must be ({plan.N},), got {tuple(q.shape)}")
+    _, qp = _pad_operands(None, q, plan)
+    return _run_tiled(V4, qp, perm, plan=plan, batched=False,
+                      final_exact=final_exact, k_out=plan.K, n_valid=plan.n,
+                      adaptive=adaptive)
+
+
+def bounded_me_blocked(V, q, perm=None, *, K: int = 1, eps: float = 0.1,
+                       delta: float = 0.05, value_range: float = 1.0,
+                       tile: int = 8, block: int = 512,
+                       final_exact: bool = False, precision: str = "fp32",
+                       adaptive: bool = False, bound: str = "hoeffding",
+                       pull_mode: str = "row", coord_block: int = 128,
+                       quant_err: Optional[float] = None,
+                       pq_subdims: int = 8, pq_codes: int = 16,
+                       plan: Optional[BlockedPlan] = None,
+                       generator: Optional[torch.Generator] = None,
+                       device="cuda"):
+    """Top-K MIPS over rows of ``V`` for one query ``q`` (N,).
+
+    Returns ``(ids (K,), scores (K,), plan)`` where scores estimate
+    ``(q . v)/N``; with ``adaptive`` ``(ids, scores, rounds_used,
+    plan)``.  The whole cascade is one `fused_cascade` dispatch: the
+    CUDA kernel on the card, its plain version with ``device="cpu"``.
+    Knobs as in ``repro.core.boundedme_jax.bounded_me_blocked``:
+    ``precision`` 'fp32' | 'int8' | 'int4' | 'pq' (table and query
+    quantized in the call; 'pq' with ``quant_err=None`` calibrates the
+    plan on ``V`` by `make_measured_plan`), ``pull_mode`` 'row' |
+    'coord' | 'hybrid', ``bound`` for ``adaptive`` early exit;
+    ``final_exact`` makes the returned scores exact.  ``plan``, when
+    given, wins over the knobs.  ``perm``, the block permutation
+    (``(plan.n_blocks,)``), takes the place of the JAX package's key;
+    without it one is drawn from ``generator`` (`draw_perms`).
+    """
+    dev = resolve_device(device)
+    if plan is None:
+        n, N = V.shape
+        kwargs = dict(K=K, eps=eps, delta=delta, value_range=value_range,
+                      tile=tile, block=block, precision=precision,
+                      bound=bound, pull_mode=pull_mode,
+                      coord_block=coord_block, pq_subdims=pq_subdims,
+                      pq_codes=pq_codes)
+        if precision == "pq" and quant_err is None:
+            plan = make_measured_plan(V, device=dev, **kwargs)
+        else:
+            plan = make_plan(n, N, quant_err=quant_err, **kwargs)
+    if perm is None:
+        perm = draw_perms(plan.n_blocks, generator=generator)
+    out = _run_blocked(V, q, perm, plan=plan, final_exact=final_exact,
+                       adaptive=adaptive, device=dev)
+    return (*out, plan)
+
+
+def bounded_me_batched(V, Q, perms=None, *, plan: BlockedPlan,
+                       final_exact: bool = False, adaptive: bool = False,
+                       generator: Optional[torch.Generator] = None,
+                       device="cuda"):
+    """BoundedME over a batch of queries ``Q`` (B, N) with per-query block
+    permutations ``perms`` (B, n_blocks), as one `fused_cascade_batched`
+    dispatch.
+
+    Results equal a loop of `bounded_me_blocked` calls with the same
+    perms; `bounded_me_decode` is the serving form with one permutation
+    shared by the batch.  Without ``perms`` they are drawn from
+    ``generator`` (`draw_perms`).  Returns ``(ids (B, K), scores (B,
+    K))``, with ``adaptive`` also ``rounds_used (B,)``.
+    """
+    V4 = tile_table(V, plan, device)
+    Q = torch.as_tensor(Q, dtype=torch.float32)
+    if perms is None:
+        perms = draw_perms(plan.n_blocks, Q.shape[0], generator)
+    if torch.as_tensor(perms).dim() != 2:
+        raise ValueError(f"perms must be (B, {plan.n_blocks})")
+    return decode_tiled(V4, Q, perms, plan=plan, final_exact=final_exact,
                         adaptive=adaptive)

@@ -1,17 +1,25 @@
-"""MIPS helpers of the port (from ``repro.core.mips``).
+"""Public MIPS / NNS API of the port (from ``repro.core.mips``).
 
-Only what the serving path needs so far: the exhaustive baseline and the
-table's max magnitude, from which the executor derives its a-priori
-value range.  ``mips_topk`` and ``nns_topk`` are ROADMAP queue 1 item 6.
+``mips_topk`` is the user-facing entry point: zero preprocessing, explicit
+(eps, delta) suboptimality knob.  It runs on the card by default (one
+`repro_torch.kernels.ops.fused_cascade` launch per call) and on the CPU,
+through the kernel's plain PyTorch version, with ``device="cpu"``.
+``sharded_mips_topk`` comes with the port's sharding (ROADMAP queue 1
+item 10).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+import weakref
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["exact_topk", "table_abs_max"]
+from repro_torch.core.boundedme_torch import bounded_me_blocked, resolve_device
+
+__all__ = ["mips_topk", "nns_topk", "exact_topk", "default_value_range",
+           "table_abs_max"]
 
 
 def exact_topk(V: torch.Tensor, q: torch.Tensor, K: int = 1
@@ -22,6 +30,137 @@ def exact_topk(V: torch.Tensor, q: torch.Tensor, K: int = 1
     return ids, vals
 
 
-def table_abs_max(V: torch.Tensor) -> float:
-    """max|V_ij| as a host float."""
-    return float(V.abs().max())
+class _TableMaxCache:
+    """Host-side cache of max|V| per table object.
+
+    The product-range bound needs an O(nN) reduction over the table, so
+    it is computed once per table.  Keyed by ``id(table)`` with a weakref
+    guard against id reuse, as in the JAX package.  Torch tensors, unlike
+    JAX arrays, change in place, so an entry also holds the tensor's
+    version counter (``_version``, bumped by every in-place write) and a
+    table edited since is reduced again.  A table that cannot be weakly
+    referenced is held strongly, so the dict is evicted FIFO past
+    ``_CAP`` tables.
+    """
+
+    _CAP = 16
+
+    def __init__(self):
+        self._entries = {}
+
+    def get(self, V) -> float:
+        key = id(V)
+        version = getattr(V, "_version", None)
+        hit = self._entries.get(key)
+        if hit is not None:
+            ref, seen, vmax = hit
+            if ref() is not None and seen == version:
+                return vmax
+            del self._entries[key]
+        vmax = float(torch.as_tensor(V).abs().max())
+        try:
+            ref = weakref.ref(V)
+        except TypeError:                    # non-weakref-able table type
+            ref = (lambda strong=V: strong)  # strong ref; FIFO-evicted
+        if len(self._entries) >= self._CAP:
+            self._entries.pop(next(iter(self._entries)))
+        self._entries[key] = (ref, version, vmax)
+        return vmax
+
+
+_TABLE_MAX = _TableMaxCache()
+
+
+def table_abs_max(V) -> float:
+    """max|V_ij| as a host float, computed once per table (and again
+    after an in-place edit) and cached."""
+    return _TABLE_MAX.get(V)
+
+
+def default_value_range(V, q) -> float:
+    """Conservative data-derived product range 2 max|q| max|V|.
+
+    The per-table reduction is cached host-side; the per-query max is
+    O(N).  Hot-path callers should pass an explicit ``value_range``.
+    """
+    qmax = float(torch.as_tensor(q).abs().max())
+    return max(2.0 * qmax * table_abs_max(V), 1e-12)
+
+
+def mips_topk(V, q, K: int = 1, *, method: str = "boundedme",
+              eps: float = 0.05, delta: float = 0.05,
+              value_range: Optional[float] = None, perm=None,
+              generator: Optional[torch.Generator] = None, tile: int = 8,
+              block: int = 512, final_exact: bool = False,
+              precision: str = "fp32", adaptive: bool = False,
+              bound: str = "hoeffding", pull_mode: str = "row",
+              coord_block: int = 128, quant_err: Optional[float] = None,
+              pq_subdims: int = 8, pq_codes: int = 16, device="cuda"):
+    """Top-K maximum inner product search over the rows of ``V``.
+
+    Zero preprocessing: ``V`` can be swapped or edited between calls with
+    no index rebuild; the per-table max of the default ``value_range`` is
+    the only cached state.
+
+    Args:
+      V: (n, N) float table, rows are arms.  q: (N,) float query.
+      K: number of results, 1 <= K <= n.
+      method: 'boundedme' (the paper's bandit) or 'exact' (full matvec
+        and top-K; ignores every knob below).
+      eps / delta: returned arms are eps-optimal on the mean-product
+        scale (q . v)/N with probability >= 1 - delta, at block-mean
+        granularity.
+      value_range: a-priori bound on per-coordinate products; defaults
+        to `default_value_range`.
+      perm: the block permutation, ``(n_blocks,)``, in place of the JAX
+        package's key; without it one is drawn from ``generator``
+        (default seeded 0, so repeated calls agree).
+      tile / block / final_exact / precision / adaptive / bound /
+      pull_mode / coord_block / quant_err / pq_subdims / pq_codes: as in
+        ``repro.core.mips.mips_topk``; see `bounded_me_blocked`.  As
+        there, the adaptive ``rounds_used`` is dropped here.
+      device: ``"cuda"`` (default) runs the CUDA kernel and raises
+        without a card; ``"cpu"`` runs the plain PyTorch version.
+
+    Returns:
+      ``(ids (K,) int32, scores (K,) float32)`` on ``device``; scores
+      estimate (q . v)/N (exact with ``final_exact``).
+
+    Raises:
+      ValueError: unknown ``method``.
+    """
+    dev = resolve_device(device)
+    if method == "exact":
+        V = torch.as_tensor(V, dtype=torch.float32).to(dev)
+        return exact_topk(V, torch.as_tensor(q, dtype=torch.float32).to(dev),
+                          K)
+    if method != "boundedme":
+        raise ValueError(f"unknown method {method!r}")
+    if value_range is None:
+        value_range = default_value_range(V, q)
+    out = bounded_me_blocked(
+        V, q, perm, K=K, eps=eps, delta=delta, value_range=value_range,
+        tile=tile, block=block, final_exact=final_exact,
+        precision=precision, adaptive=adaptive, bound=bound,
+        pull_mode=pull_mode, coord_block=coord_block, quant_err=quant_err,
+        pq_subdims=pq_subdims, pq_codes=pq_codes, generator=generator,
+        device=dev)
+    return out[0], out[1]
+
+
+def nns_topk(V, q, K: int = 1, **kw):
+    """Nearest-neighbour search via the paper's reduction
+    f(i, j) = -(q_j - v_ij)^2.
+
+    -|q - v|^2 = 2 q.v - |v|^2 - |q|^2, so the search runs as MIPS over
+    rows [sqrt(2) v_i, -|v_i|^2] against the query [sqrt(2) q, 1]: one
+    extra coordinate.  Keywords as in `mips_topk`; the augmented table
+    is built on ``device``.
+    """
+    dev = resolve_device(kw.get("device", "cuda"))
+    V = torch.as_tensor(V, dtype=torch.float32).to(dev)
+    q = torch.as_tensor(q, dtype=torch.float32).to(dev)
+    root2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=dev)
+    aug_V = torch.cat([root2 * V, -(V * V).sum(dim=1, keepdim=True)], dim=1)
+    aug_q = torch.cat([root2 * q, torch.ones(1, dtype=q.dtype, device=dev)])
+    return mips_topk(aug_V, aug_q, K, **kw)

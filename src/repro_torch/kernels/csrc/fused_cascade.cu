@@ -1,10 +1,11 @@
 // Fused BoundedME cascade for Hopper (sm_90a): fp32, int8, int4 and pq
 // pull tiers, each with or without adaptive early exit.
 //
-// Replaces `fused_cascade_batched_pallas` (src/repro/kernels/fused_cascade.py,
-// kernel body `_make_kernel`, scratch `_scratch`, tier switch
-// `_resolve_qkind`): one launch runs the whole multi-round cascade of a
-// (B, N) query batch, from the first pull to the final top-k_out extraction.
+// Replaces `fused_cascade_batched_pallas` and `fused_cascade_pallas`
+// (src/repro/kernels/fused_cascade.py, kernel body `_make_kernel`, scratch
+// `_scratch`, tier switch `_resolve_qkind`): one launch runs the whole
+// multi-round cascade of a (B, N) query batch, or of one query, from the
+// first pull to the final top-k_out extraction.  Two entries, one body.
 //
 // What bounds it.  Every pull reads one stored (R, Cs) tile of the table —
 // fp32 (Cs = C, 4 bytes a cell), int8 (Cs = C, 1 byte), nibble-packed int4
@@ -13,7 +14,9 @@
 // card's memory rate.  This version runs one block per query, so a batch of
 // B queries occupies B of the 132 SMs and the rate one SM can load at, not
 // HBM, limits it.  Reading each pulled tile once for all queries of a batch
-// (they share one block permutation) is where a later version gains.
+// (they share one block permutation) is where a later version gains.  The
+// single-query entry runs one block, so 131 of 132 SMs idle; splitting one
+// query over a thread-block cluster is where that entry gains.
 //
 // What the design does.
 //  * The TPU kernel's sequential (B, S) grid becomes one block per query
@@ -483,7 +486,7 @@ __device__ void finalize(const Args& a, const float* acc, const int* surv,
 // ---- the kernel ------------------------------------------------------------
 
 template <int TIER, bool ADAPTIVE, bool TRACK_VAR>
-__global__ void __launch_bounds__(kThreads, 1) fused_cascade(Args a) {
+__global__ void __launch_bounds__(kThreads, 1) cascade_kernel(Args a) {
   __shared__ int s_active, s_tstop, s_rused;
   __shared__ unsigned long long red_key[kWarps + 1];
   __shared__ float red_f[kWarps + 1];
@@ -596,18 +599,30 @@ template <int TIER>
 cudaError_t launch_tier(const Args& a, int B, int adaptive, int track_var,
                         cudaStream_t stream) {
   if (!adaptive)
-    fused_cascade<TIER, false, false><<<B, kThreads, 0, stream>>>(a);
+    cascade_kernel<TIER, false, false><<<B, kThreads, 0, stream>>>(a);
   else if (!track_var)
-    fused_cascade<TIER, true, false><<<B, kThreads, 0, stream>>>(a);
+    cascade_kernel<TIER, true, false><<<B, kThreads, 0, stream>>>(a);
   else
-    fused_cascade<TIER, true, true><<<B, kThreads, 0, stream>>>(a);
+    cascade_kernel<TIER, true, true><<<B, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+cudaError_t launch(int tier, const Args& a, int B, int adaptive,
+                   int track_var, cudaStream_t stream) {
+  switch (tier) {
+    case kF32: return launch_tier<kF32>(a, B, adaptive, track_var, stream);
+    case kI8: return launch_tier<kI8>(a, B, adaptive, track_var, stream);
+    case kI4: return launch_tier<kI4>(a, B, adaptive, track_var, stream);
+    case kPQ: return launch_tier<kPQ>(a, B, adaptive, track_var, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// One entry for every tier: tier 0 fp32, 1 int8, 2 int4, 3 pq.  Returns the
-// launch's cudaError_t (0 on success); the wrapper raises on anything else.
+// The batched entry, for every tier: tier 0 fp32, 1 int8, 2 int4, 3 pq.
+// Returns the launch's cudaError_t (0 on success); the wrapper raises on
+// anything else.
 extern "C" int fused_cascade_batched(
     int tier, int adaptive, int track_var, const void* V4, const void* Qb,
     const float* vscale, const float* qscale, const float* codebook,
@@ -621,17 +636,31 @@ extern "C" int fused_cascade_batched(
          vals, rused, acc, acc2, surv, tmp, keys, lut, n_tiles, n_blocks, R,
          C, Cs, S, n_rounds, t_final, n_final, k_out, n_codes, k_cert, P, vec,
          n_valid};
-  cudaError_t err;
-  switch (tier) {
-    case kF32: err = launch_tier<kF32>(a, B, adaptive, track_var, stream); break;
-    case kI8: err = launch_tier<kI8>(a, B, adaptive, track_var, stream); break;
-    case kI4: err = launch_tier<kI4>(a, B, adaptive, track_var, stream); break;
-    case kPQ: err = launch_tier<kPQ>(a, B, adaptive, track_var, stream); break;
-    default: err = cudaErrorInvalidValue; break;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch(tier, a, B, adaptive, track_var, stream));
 }
 
-extern "C" const char* fused_cascade_error_string(int code) {
+// The single-query entry (replaces `fused_cascade_pallas`): qb (n_blocks, C),
+// qscale (n_blocks,), cols (S,), ids and vals (k_out,), a scalar rused, and
+// workspace for one query.  The TPU's two kernels are one `_make_kernel`
+// body; here the same templated body runs as one block.  The layouts are
+// those of a B = 1 batch, so its outputs equal a B = 1 batched launch bit
+// for bit.
+extern "C" int fused_cascade(
+    int tier, int adaptive, int track_var, const void* V4, const void* qb,
+    const float* vscale, const float* qscale, const float* codebook,
+    const float* cert, const int* slotcode, const int* rmeta, const int* cols,
+    int* ids, float* vals, int* rused, float* acc, float* acc2, int* surv,
+    int* tmp, unsigned long long* keys, float* lut, int n_tiles,
+    int n_blocks, int R, int C, int Cs, int S, int n_rounds, int t_final,
+    int n_final, int k_out, int n_codes, int k_cert, int P, int vec,
+    long long n_valid, cudaStream_t stream) {
+  Args a{V4, qb, vscale, qscale, codebook, cert, slotcode, rmeta, cols, ids,
+         vals, rused, acc, acc2, surv, tmp, keys, lut, n_tiles, n_blocks, R,
+         C, Cs, S, n_rounds, t_final, n_final, k_out, n_codes, k_cert, P, vec,
+         n_valid};
+  return static_cast<int>(launch(tier, a, 1, adaptive, track_var, stream));
+}
+
+extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,109 +1,62 @@
-"""The fused BoundedME cascade kernel: build, binding, wrapper.
+"""The fused BoundedME cascade kernel: binding and wrappers.
 
 The kernel is hand-written CUDA C++ in ``csrc/fused_cascade.cu``; its
-source note says what it replaces (``fused_cascade_batched_pallas`` of
-the JAX package), what bounds it and what its design does.  It is
-compiled by ``nvcc`` for ``sm_90a`` at first use into ``build/`` beside
-this file (git-ignored), as a shared library with a plain C interface,
-and bound with ``ctypes``.  Nothing here imports or builds anything when
-the module is imported.
+source note says what it replaces (``fused_cascade_batched_pallas`` and
+``fused_cascade_pallas`` of the JAX package), what bounds it and what its
+design does.  `repro_torch.kernels.library` builds it for ``sm_90a`` at
+first use and binds it with ``ctypes``; nothing here imports or builds
+anything when the module is imported.
 
-`fused_cascade_batched_cuda` launches the kernel on CUDA tensors and
-raises on anything else; `repro_torch.kernels.ops.fused_cascade_batched`
-chooses between it and the plain PyTorch version by the tensors' device.
+Two entries share one templated body, as the two TPU kernels share
+``_make_kernel``: `fused_cascade_batched_cuda` (a (B, N) batch, one block
+per query) and `fused_cascade_cuda` (one query, one block).  Each
+launches on CUDA tensors and raises on anything else;
+`repro_torch.kernels.ops` chooses between them and the plain PyTorch
+versions by the tensors' device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["build", "fused_cascade_batched_cuda", "resolve_tier", "TIERS",
-           "launch_counts", "reset_launch_counts", "SOURCE"]
+from repro_torch.kernels import library
+from repro_torch.kernels.library import launch_counts, reset_launch_counts
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_cascade.cu"
-_BUILD_DIR = SOURCE.parent.parent / "build"
+__all__ = ["build", "fused_cascade_batched_cuda", "fused_cascade_cuda",
+           "resolve_tier", "TIERS", "launch_counts", "reset_launch_counts",
+           "SOURCE"]
 
-#: pull tiers, in the CUDA entry point's tier-code order
+SOURCE = library.CSRC / "fused_cascade.cu"
+
+#: pull tiers, in the CUDA entry points' tier-code order
 TIERS = ("fp32", "int8", "int4", "pq")
 
-#: launches per kernel wrapper, and of this kernel per tier (``"int8"``, or
-#: ``"int8+adaptive"`` with early exit); each wrapper adds one where it
-#: launches its kernel
-_launches: Dict[str, int] = dict.fromkeys(
-    ["fused_cascade_batched"]
-    + [f"fused_cascade_batched[{t}{a}]" for t in TIERS
-       for a in ("", "+adaptive")], 0)
+# launches of each entry in all and per tier (``"fused_cascade[int8]"``,
+# or ``"fused_cascade_batched[int8+adaptive]"`` with early exit)
+library.register(f"{entry}{tag}" for entry in ("fused_cascade_batched",
+                                               "fused_cascade")
+                 for tag in [""] + [f"[{t}{a}]" for t in TIERS
+                                    for a in ("", "+adaptive")])
 
 
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches made through the wrappers since the last reset."""
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for name in _launches:
-        _launches[name] = 0
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin and PATH); the CUDA "
-                           "toolkit is needed to build the kernel")
-    return found
-
-
-def build() -> Tuple[Path, str]:
-    """Compile the kernel unless a build of this exact source exists.
-
-    Returns ``(library path, ptxas report)``; the report is empty when
-    the library was already built.  The library's name carries a hash of
-    the source, and it is written under a temporary name and renamed, so
-    concurrent processes never load a half-written or stale library.
-    """
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    out = _BUILD_DIR / f"libfused_cascade_{tag}.so"
-    if out.exists():
-        return out, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr
+def build():
+    """Compile the kernel unless this source is built: ``(library path,
+    ptxas report)`` (`repro_torch.kernels.library.build`)."""
+    return library.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    lib = library.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_cascade_batched.argtypes = (
-        [i] * 3 + [p] * 18 + [i] * 15 + [ctypes.c_longlong, p])
-    lib.fused_cascade_batched.restype = i
-    lib.fused_cascade_error_string.argtypes = [i]
-    lib.fused_cascade_error_string.restype = ctypes.c_char_p
+    tail = [i] * 14 + [ctypes.c_longlong, p]
+    lib.fused_cascade_batched.argtypes = [i] * 3 + [p] * 18 + [i] + tail
+    lib.fused_cascade.argtypes = [i] * 3 + [p] * 18 + tail
+    lib.fused_cascade_batched.restype = lib.fused_cascade.restype = i
     return lib
 
 
@@ -150,27 +103,15 @@ def resolve_tier(Cs: int, vscale, qscale, codebook, packed_int4: bool
     return ("int8" if vscale is not None else "fp32"), Cs
 
 
-def fused_cascade_batched_cuda(V4: torch.Tensor, Qb: torch.Tensor,
-                               slotcode: torch.Tensor,
-                               rounds_meta: torch.Tensor,
-                               cols: torch.Tensor, *, n_arms: int, K: int,
-                               t_final: int, n_final: int,
-                               k_out: Optional[int] = None,
-                               n_valid: Optional[int] = None,
-                               vscale: Optional[torch.Tensor] = None,
-                               qscale: Optional[torch.Tensor] = None,
-                               codebook: Optional[torch.Tensor] = None,
-                               packed_int4: bool = False,
-                               cert: Optional[torch.Tensor] = None,
-                               k_cert: int = 1, track_var: bool = False):
-    """Launch the fused cascade on CUDA tensors (one launch per batch).
-
-    Operands as in `repro_torch.kernels.ops.fused_cascade_batched`, all
-    contiguous on one CUDA device; the tier follows from them
-    (`resolve_tier`).  Returns ``(ids (B, k_out) int32, vals (B, k_out)
-    float32)``, vals being unscaled block means, and with ``cert`` also
-    ``rounds_used (B,) int32``.
-    """
+def _launch(single: bool, V4: torch.Tensor, Qb: torch.Tensor,
+            slotcode: torch.Tensor, rounds_meta: torch.Tensor,
+            cols: torch.Tensor, *, n_arms: int, K: int, t_final: int,
+            n_final: int, k_out: Optional[int], n_valid: Optional[int],
+            vscale: Optional[torch.Tensor], qscale: Optional[torch.Tensor],
+            codebook: Optional[torch.Tensor], packed_int4: bool,
+            cert: Optional[torch.Tensor], k_cert: int, track_var: bool):
+    """Check the batched operand layout and launch one of the two entries
+    (``single``: a B = 1 batch through the single-query entry)."""
     if not V4.is_cuda:
         raise ValueError(f"the CUDA kernel needs CUDA tensors, V4 is on "
                          f"{V4.device}")
@@ -180,12 +121,12 @@ def fused_cascade_batched_cuda(V4: torch.Tensor, Qb: torch.Tensor,
     _check("V4", V4, {"fp32": torch.float32, "pq": torch.uint8}.get(
         tier, torch.int8), 4, dev)
     n_tiles, n_blocks, R, Cs = V4.shape
+    _check("cols", cols, torch.int32, 2, dev)
     B, S = cols.shape
     _check("Qb", Qb, torch.int8 if tier in ("int8", "int4")
            else torch.float32, (B, n_blocks, C), dev)
     _check("slotcode", slotcode, torch.int32, (S,), dev)
     _check("rounds_meta", rounds_meta, torch.int32, 2, dev)
-    _check("cols", cols, torch.int32, 2, dev)
     if rounds_meta.shape[1] != 3 or rounds_meta.shape[0] < 1:
         raise ValueError(f"rounds_meta must be (n_rounds + 1, 3), got "
                          f"{tuple(rounds_meta.shape)}")
@@ -235,23 +176,84 @@ def fused_cascade_batched_cuda(V4: torch.Tensor, Qb: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
     lib = _lib()
+    entry = "fused_cascade" if single else "fused_cascade_batched"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_cascade_batched(
+        rc = getattr(lib, entry)(
             TIERS.index(tier), int(cert is not None), int(track_var),
             V4.data_ptr(), Qb.data_ptr(), ptr(vscale), ptr(qscale),
             ptr(codebook), ptr(cert), slotcode.data_ptr(),
             rounds_meta.data_ptr(), cols.data_ptr(), ids.data_ptr(),
             vals.data_ptr(), rused.data_ptr(), acc.data_ptr(), ptr(acc2),
             surv.data_ptr(), tmp.data_ptr(), keys.data_ptr(), ptr(lut),
-            B, n_tiles, n_blocks, R, C, Cs, S, n_rounds, int(t_final),
-            int(n_final), k_out, n_codes, int(k_cert), P, vec, n_valid,
-            stream)
-    if rc != 0:
-        msg = lib.fused_cascade_error_string(rc).decode()
-        raise RuntimeError(f"fused_cascade_batched launch failed: {msg} "
-                           f"(cudaError {rc})")
-    _launches["fused_cascade_batched"] += 1
+            *(() if single else (B,)), n_tiles, n_blocks, R, C, Cs, S,
+            n_rounds, int(t_final), int(n_final), k_out, n_codes,
+            int(k_cert), P, vec, n_valid, stream)
+    library.check_launch(lib, rc, entry)
     adaptive = "+adaptive" if cert is not None else ""
-    _launches[f"fused_cascade_batched[{tier}{adaptive}]"] += 1
+    library.count(entry, f"{entry}[{tier}{adaptive}]")
     return (ids, vals, rused) if cert is not None else (ids, vals)
+
+
+def fused_cascade_batched_cuda(V4: torch.Tensor, Qb: torch.Tensor,
+                               slotcode: torch.Tensor,
+                               rounds_meta: torch.Tensor,
+                               cols: torch.Tensor, *, n_arms: int, K: int,
+                               t_final: int, n_final: int,
+                               k_out: Optional[int] = None,
+                               n_valid: Optional[int] = None,
+                               vscale: Optional[torch.Tensor] = None,
+                               qscale: Optional[torch.Tensor] = None,
+                               codebook: Optional[torch.Tensor] = None,
+                               packed_int4: bool = False,
+                               cert: Optional[torch.Tensor] = None,
+                               k_cert: int = 1, track_var: bool = False):
+    """Launch the fused cascade on CUDA tensors (one launch per batch).
+
+    Operands as in `repro_torch.kernels.ops.fused_cascade_batched`, all
+    contiguous on one CUDA device; the tier follows from them
+    (`resolve_tier`).  Returns ``(ids (B, k_out) int32, vals (B, k_out)
+    float32)``, vals being unscaled block means, and with ``cert`` also
+    ``rounds_used (B,) int32``.
+    """
+    return _launch(False, V4, Qb, slotcode, rounds_meta, cols,
+                   n_arms=n_arms, K=K, t_final=t_final, n_final=n_final,
+                   k_out=k_out, n_valid=n_valid, vscale=vscale,
+                   qscale=qscale, codebook=codebook,
+                   packed_int4=packed_int4, cert=cert, k_cert=k_cert,
+                   track_var=track_var)
+
+
+def fused_cascade_cuda(V4: torch.Tensor, qb: torch.Tensor,
+                       slotcode: torch.Tensor, rounds_meta: torch.Tensor,
+                       cols: torch.Tensor, *, n_arms: int, K: int,
+                       t_final: int, n_final: int,
+                       k_out: Optional[int] = None,
+                       n_valid: Optional[int] = None,
+                       vscale: Optional[torch.Tensor] = None,
+                       qscale: Optional[torch.Tensor] = None,
+                       codebook: Optional[torch.Tensor] = None,
+                       packed_int4: bool = False,
+                       cert: Optional[torch.Tensor] = None,
+                       k_cert: int = 1, track_var: bool = False):
+    """Launch the single-query fused cascade on CUDA tensors.
+
+    Operands as in `repro_torch.kernels.ops.fused_cascade`: ``qb
+    (n_blocks, C)``, ``cols (S,)`` and ``qscale (n_blocks,)``.  Returns
+    ``(ids (k_out,) int32, vals (k_out,) float32)`` and with ``cert``
+    also a scalar ``rounds_used`` int32 tensor.
+    """
+    if qb.dim() != 2:
+        raise ValueError(f"qb must be (n_blocks, C), got {tuple(qb.shape)}")
+    if cols.dim() != 1:
+        raise ValueError(f"cols must be (S,), got {tuple(cols.shape)}")
+    if qscale is not None and qscale.dim() != 1:
+        raise ValueError(f"qscale must be (n_blocks,), got "
+                         f"{tuple(qscale.shape)}")
+    out = _launch(True, V4, qb[None], slotcode, rounds_meta, cols[None],
+                  n_arms=n_arms, K=K, t_final=t_final, n_final=n_final,
+                  k_out=k_out, n_valid=n_valid, vscale=vscale,
+                  qscale=None if qscale is None else qscale[None],
+                  codebook=codebook, packed_int4=packed_int4, cert=cert,
+                  k_cert=k_cert, track_var=track_var)
+    return tuple(t[0] for t in out)

@@ -9,8 +9,8 @@ the place of the JAX package's ``count_pallas_calls``.
 
 The entry points are generic in the feature-tile width ``C``: 'row' and
 'coord' plans differ only in the geometry of the operands.  The launch
-counts also break the fused cascade down by tier
-(``fused_cascade_batched[int8]``, ``fused_cascade_batched[pq+adaptive]``).
+counts also break the fused cascade down by entry and tier
+(``fused_cascade[int8]``, ``fused_cascade_batched[pq+adaptive]``).
 """
 
 from __future__ import annotations
@@ -20,11 +20,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.blocked_matvec import blocked_matvec_cuda
 from repro_torch.kernels.fused_cascade import (fused_cascade_batched_cuda,
-                                               launch_counts,
-                                               reset_launch_counts)
+                                               fused_cascade_cuda)
+from repro_torch.kernels.gather_dot import gather_block_dot_cuda
+from repro_torch.kernels.library import launch_counts, reset_launch_counts
 
-__all__ = ["on_cuda", "fused_cascade_batched", "launch_counts",
+__all__ = ["on_cuda", "gather_block_dot", "fused_cascade",
+           "fused_cascade_batched", "blocked_matvec", "launch_counts",
            "reset_launch_counts"]
 
 
@@ -39,6 +42,49 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     devices = sorted(str(t.device) for t in tensors)
     raise ValueError(f"kernel operands must all be on CUDA or all on the "
                      f"CPU, got devices {devices}")
+
+
+def gather_block_dot(V4: torch.Tensor, idx: torch.Tensor,
+                     cols: torch.Tensor, qsel: torch.Tensor) -> torch.Tensor:
+    """The per-round BoundedME pull step of the unfused path:
+    ``out[t] = sum_b V4[idx[t], cols[b]] @ qsel[b]``.
+
+    ``V4 (n_tiles, n_blocks, R, C)`` and ``qsel (dt, C)`` both float32 or
+    both bfloat16, integer ``idx (T,)`` and ``cols (dt,)`` (indices may
+    repeat).  Returns ``(T, R)`` float32, the blocks added in order.
+    """
+    if on_cuda(V4, idx, cols, qsel):
+        return gather_block_dot_cuda(V4, idx, cols, qsel)
+    return ref.gather_block_dot_ref(V4, idx, cols, qsel)
+
+
+def fused_cascade(V4: torch.Tensor, qb: torch.Tensor,
+                  slotcode: torch.Tensor, rounds_meta: torch.Tensor,
+                  cols: torch.Tensor, *, n_arms: int, K: int, t_final: int,
+                  n_final: int, k_out: Optional[int] = None,
+                  n_valid: Optional[int] = None,
+                  vscale: Optional[torch.Tensor] = None,
+                  qscale: Optional[torch.Tensor] = None,
+                  codebook: Optional[torch.Tensor] = None,
+                  packed_int4: bool = False,
+                  cert: Optional[torch.Tensor] = None,
+                  k_cert: int = 1, track_var: bool = False):
+    """The whole BoundedME cascade of one query in one dispatch.
+
+    As `fused_cascade_batched` with one query: ``qb (n_blocks, C)``,
+    ``cols (S,)`` and, on the int tiers, ``qscale (n_blocks,)``.  Returns
+    ``(ids (k_out,) int32, vals (k_out,) float32)``, vals unscaled block
+    means, and with ``cert`` also a scalar ``rounds_used`` int32 tensor.
+    """
+    kw = dict(n_arms=n_arms, K=K, t_final=t_final, n_final=n_final,
+              k_out=k_out, n_valid=n_valid, vscale=vscale, qscale=qscale,
+              codebook=codebook, packed_int4=packed_int4, cert=cert,
+              k_cert=k_cert, track_var=track_var)
+    tensors = [t for t in (V4, qb, slotcode, rounds_meta, cols, vscale,
+                           qscale, codebook, cert) if t is not None]
+    if on_cuda(*tensors):
+        return fused_cascade_cuda(V4, qb, slotcode, rounds_meta, cols, **kw)
+    return ref.fused_cascade_ref(V4, qb, slotcode, rounds_meta, cols, **kw)
 
 
 def fused_cascade_batched(V4: torch.Tensor, Qb: torch.Tensor,
@@ -90,3 +136,14 @@ def fused_cascade_batched(V4: torch.Tensor, Qb: torch.Tensor,
                                           cols, **kw)
     return ref.fused_cascade_batched_ref(V4, Qb, slotcode, rounds_meta,
                                          cols, **kw)
+
+
+def blocked_matvec(W: torch.Tensor, q: torch.Tensor, *, tile_n: int = 256,
+                   tile_d: int = 512) -> torch.Tensor:
+    """Exact blocked matvec ``W @ q``: ``W (n, d)`` and ``q (d,)`` both
+    float32 or both bfloat16, ``(tile_n, tile_d)`` tiles clamped to the
+    shape and required to divide it (``ValueError`` otherwise).  Returns
+    ``(n,)`` float32."""
+    if on_cuda(W, q):
+        return blocked_matvec_cuda(W, q, tile_n=tile_n, tile_d=tile_d)
+    return ref.blocked_matvec_ref(W, q, tile_n=tile_n, tile_d=tile_d)

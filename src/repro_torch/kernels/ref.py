@@ -1,9 +1,16 @@
-"""Plain PyTorch version of the fused cascade kernel.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
-`fused_cascade_batched_ref` computes what the CUDA kernel
+`gather_block_dot_ref` and `blocked_matvec_ref` compute what
+``csrc/gather_dot.cu`` and ``csrc/blocked_matvec.cu`` compute: f32
+products of f32 or bf16 operands, each tile's or row's sum taken over its
+blocks or slabs in order.
+
+`fused_cascade_batched_ref` computes what the fused cascade kernel
 (``csrc/fused_cascade.cu``) computes, with the same operands and outputs,
-and shares no code with it.  It walks the flat schedule round by round,
-vectorised over survivors and queries, never step by step: within a
+and shares no code with it; `fused_cascade_ref` is its single-query
+form, a batch of one, as the kernel's single-query entry is.  It walks
+the flat schedule round by round, vectorised over survivors and queries,
+never step by step: within a
 round the survivor list is fixed and each tile receives only its own
 pulls, so the round's k-th pulls of all slots form one batched gather and
 product, taken in k order — each tile still sums its column blocks in
@@ -35,9 +42,11 @@ import torch
 
 from repro_torch.core.quantize import pq_lut, unpack_int4
 from repro_torch.core.schedule import END_BIT, PULL_BIT, SLOT_MASK
+from repro_torch.kernels import blocked_matvec, gather_dot
 from repro_torch.kernels.fused_cascade import resolve_tier
 
-__all__ = ["fused_cascade_batched_ref"]
+__all__ = ["fused_cascade_batched_ref", "fused_cascade_ref",
+           "gather_block_dot_ref", "blocked_matvec_ref"]
 
 #: gathered elements per chunk: bounds the round-1 working set
 _CHUNK_ELEMS = 1 << 26
@@ -262,3 +271,70 @@ def fused_cascade_batched_ref(V4: torch.Tensor, Qb: torch.Tensor,
     ids = torch.gather(tiles, 1, pos // R) * R + pos % R
     out = (ids.to(torch.int32), vals[:, :k_out].contiguous())
     return (*out, rounds_used) if adaptive else out
+
+
+def fused_cascade_ref(V4: torch.Tensor, qb: torch.Tensor,
+                      slotcode: torch.Tensor, rounds_meta: torch.Tensor,
+                      cols: torch.Tensor, *, n_arms: int, K: int,
+                      t_final: int, n_final: int,
+                      k_out: Optional[int] = None,
+                      n_valid: Optional[int] = None,
+                      vscale: Optional[torch.Tensor] = None,
+                      qscale: Optional[torch.Tensor] = None,
+                      codebook: Optional[torch.Tensor] = None,
+                      packed_int4: bool = False,
+                      cert: Optional[torch.Tensor] = None,
+                      k_cert: int = 1, track_var: bool = False,
+                      pulled: Optional[torch.Tensor] = None):
+    """The single-query fused cascade, in plain PyTorch: a batch of one.
+
+    ``qb (n_blocks, C)``, ``cols (S,)``, ``qscale (n_blocks,)``; the
+    rest as in `fused_cascade_batched_ref`.  Returns ``(ids (k_out,)
+    int32, vals (k_out,) float32)`` and with ``cert`` also a scalar
+    ``rounds_used`` int32 tensor.
+    """
+    if qb.dim() != 2 or cols.dim() != 1:
+        raise ValueError(f"qb must be (n_blocks, C) and cols (S,), got "
+                         f"{tuple(qb.shape)} and {tuple(cols.shape)}")
+    out = fused_cascade_batched_ref(
+        V4, qb[None], slotcode, rounds_meta, cols[None], n_arms=n_arms, K=K,
+        t_final=t_final, n_final=n_final, k_out=k_out, n_valid=n_valid,
+        vscale=vscale, qscale=None if qscale is None else qscale[None],
+        codebook=codebook, packed_int4=packed_int4, cert=cert,
+        k_cert=k_cert, track_var=track_var, pulled=pulled)
+    return tuple(t[0] for t in out)
+
+
+def gather_block_dot_ref(V4: torch.Tensor, idx: torch.Tensor,
+                         cols: torch.Tensor, qsel: torch.Tensor
+                         ) -> torch.Tensor:
+    """``out[t] = sum_b V4[idx[t], cols[b]] @ qsel[b]``, ``(T, R)`` f32.
+
+    ``V4 (n_tiles, n_blocks, R, C)`` and ``qsel (dt, C)`` float32 or
+    bfloat16 (widened to f32: bf16 products are exact in f32), integer
+    ``idx (T,)`` and ``cols (dt,)``; indices may repeat.  Each block's
+    ``(R, C) @ (C,)`` dots are added in block order b = 0 ... dt - 1.
+    """
+    gather_dot.check_operands(V4, idx, cols, qsel)
+    idx, cols = idx.long(), cols.long()
+    out = torch.zeros((idx.shape[0], V4.shape[2]), dtype=torch.float32,
+                      device=V4.device)
+    for b in range(cols.shape[0]):
+        out = out + torch.einsum("trc,c->tr", V4[idx, cols[b]].float(),
+                                 qsel[b].float())
+    return out
+
+
+def blocked_matvec_ref(W: torch.Tensor, q: torch.Tensor, tile_n: int = 256,
+                       tile_d: int = 512) -> torch.Tensor:
+    """Exact ``W @ q``, ``(n,)`` f32, for ``W (n, d)`` and ``q (d,)``
+    float32 or bfloat16: f32 products, each row's sum taken over the
+    ``tile_d``-wide slabs in order.  Raises ``ValueError`` where the
+    tiles, clamped to the shape, do not divide it."""
+    blocked_matvec.check_operands(W, q)
+    n, d = W.shape
+    _, tile_d = blocked_matvec.tiles(n, d, tile_n, tile_d)
+    out = torch.zeros((n,), dtype=torch.float32, device=W.device)
+    for j in range(0, d, tile_d):
+        out = out + W[:, j:j + tile_d].float() @ q[j:j + tile_d].float()
+    return out

@@ -1,4 +1,4 @@
-"""The CUDA fused-cascade kernel against its plain PyTorch version.
+"""The port's CUDA kernels against their plain PyTorch versions.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips without a card; on one it builds the kernel and compares.  This
@@ -8,7 +8,12 @@ Ids must be equal; fp32 scores agree to rtol 1e-5 and atol 1e-6 *
 max|score| (the kernel's fp32 dot sums in another order than the plain
 version's ``einsum``).  The int8 and int4 tiers are bitwise equal (exact
 integer dots, then the same rounded float ops), and so are the adaptive
-``rounds_used``; pq scores are held to the fp32 tolerance.
+``rounds_used``; pq scores are held to the fp32 tolerance.  The
+single-query cascade is held the same way and, bit for bit, against a
+B = 1 launch of the batched entry.  The gathered tile-dot and the blocked
+matvec agree with their plain versions to rtol 1e-5 and atol 1e-5 *
+max|out| in f32 and bf16: the products are exact in f32 and only the
+order of the sums within a block or slab differs.
 """
 
 import numpy as np
@@ -43,14 +48,15 @@ def card():
     return torch.device("cuda")
 
 
-def _operands(n, N, K, block, mode, tile, cover, B, seed):
+def _operands(n, N, K, block, mode, tile, cover, B, seed,
+              bound="hoeffding"):
     rng = np.random.default_rng(seed)
     V = rng.normal(size=(n, N)).astype(np.float32)
     V[n // 2:n // 2 + 10] = V[:10]           # exact ties across tiles
     Q = torch.from_numpy(rng.normal(size=(B, N)).astype(np.float32))
     plan = bt.make_plan(n, N, K=K, eps=0.5, delta=0.1, value_range=8.0,
                         block=block, tile=tile, pull_mode=mode,
-                        coord_block=32 if block < 128 else 128)
+                        coord_block=32 if block < 128 else 128, bound=bound)
     V4 = bt.tile_table(V, plan, "cpu")
     _, Qp = bt._pad_operands(None, Q, plan)
     Qb = Qp.reshape(B, plan.n_blocks, plan.block).contiguous()
@@ -202,3 +208,142 @@ def test_kernel_wrapper_checks_tier_operands(card):
     with pytest.raises(ValueError, match="track_var needs cert"):
         fc.fused_cascade_batched_cuda(*dev, vscale=vs, qscale=qs,
                                       track_var=True, **kw)
+
+
+# ---- the single-query cascade, the gathered tile-dot, the matvec ----------
+
+def _single(args, tkw):
+    """Query 0 of a batched case as single-query operands."""
+    V4, Qb, slotcode, rmeta, cols = args
+    skw = {k: (v[0].contiguous() if k == "qscale" else v)
+           for k, v in tkw.items()}
+    return (V4, Qb[0].contiguous(), slotcode, rmeta,
+            cols[0].contiguous()), skw
+
+
+def _on(card, args, kw):
+    return ([t.to(card) for t in args],
+            {k: (v.to(card) if torch.is_tensor(v) else v)
+             for k, v in kw.items()})
+
+
+@pytest.mark.parametrize("bound", [None, "hoeffding", "bernstein"])
+@pytest.mark.parametrize("tier", ["fp32", "int8", "int4", "pq"])
+@pytest.mark.parametrize("n,N,K,block,mode,tile,n_valid,k_out,cover,B",
+                         [CASES[i] for i in (0, 1, 2, 4)])
+def test_single_query_kernel_matches_plain_and_batch_of_one(
+        card, tier, bound, n, N, K, block, mode, tile, n_valid, k_out, cover,
+        B):
+    args, kw = _operands(n, N, K, block, mode, tile,
+                         cover and bound is None, B, seed=n,
+                         bound=bound or "hoeffding")
+    args, tkw = _tier(args, tier)
+    args, tkw = _single(args, tkw)
+    kw = dict(kw, k_out=k_out, n_valid=n_valid, **tkw)
+    if bound is not None:
+        plan = bt.make_plan(n, N, K=K, eps=0.5, delta=0.1, value_range=8.0,
+                            block=block, tile=tile, pull_mode=mode,
+                            coord_block=32 if block < 128 else 128,
+                            bound=bound)
+        kw.update(cert=bt.cert_operand(plan.schedule, torch.device("cpu")),
+                  k_cert=K, track_var=bound == "bernstein")
+    dargs, dkw = _on(card, args, kw)
+    name = f"fused_cascade[{tier}{'' if bound is None else '+adaptive'}]"
+    before = fc.launch_counts()
+    got = ops.fused_cascade(*dargs, **dkw)
+    torch.cuda.synchronize()
+    after = fc.launch_counts()
+    assert after[name] == before[name] + 1
+    assert after["fused_cascade"] == before["fused_cascade"] + 1
+    assert after["fused_cascade_batched"] == before["fused_cascade_batched"]
+    want = ops.fused_cascade(*args, **kw)
+    assert got[0].shape == (k_out,)
+    if bound is not None:
+        assert got[2].shape == () and int(got[2]) == int(want[2])
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    g, w = got[1].cpu().numpy(), want[1].numpy()
+    if tier in ("int8", "int4"):
+        np.testing.assert_array_equal(g, w)
+    else:
+        fin = np.isfinite(w)
+        np.testing.assert_array_equal(np.isfinite(g), fin)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(w[fin]).max()))
+    # bit for bit a B = 1 launch of the batched entry
+    bkw = dict(dkw, qscale=dkw["qscale"][None]) if "qscale" in dkw else dkw
+    batch = fc.fused_cascade_batched_cuda(
+        dargs[0], dargs[1][None], dargs[2], dargs[3], dargs[4][None], **bkw)
+    for a, b in zip(got, batch):
+        assert torch.equal(a, b[0])
+
+
+@pytest.mark.parametrize("R,C,T,dt", [(8, 512, 300, 2), (8, 128, 257, 8),
+                                      (4, 256, 33, 3), (16, 100, 20, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_block_dot_kernel_matches_plain(card, R, C, T, dt, dtype):
+    g = torch.Generator().manual_seed(R * C + T)
+    V4 = torch.randn(40, 9, R, C, generator=g).to(dtype)
+    idx = torch.randint(0, 40, (T,), generator=g)       # repeats included
+    cols = torch.randint(0, 9, (dt,), generator=g)
+    qsel = torch.randn(dt, C, generator=g).to(dtype)
+    before = ops.launch_counts()["gather_block_dot"]
+    out = ops.gather_block_dot(*(t.to(card) for t in (V4, idx, cols, qsel)))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gather_block_dot"] == before + 1
+    want = ops.gather_block_dot(V4, idx, cols, qsel)
+    assert out.dtype == torch.float32 and out.shape == (T, R)
+    np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("n,d,tn,td", [(1024, 1024, 256, 512),
+                                       (768, 640, 256, 128),
+                                       (300, 96, 100, 96), (64, 30, 32, 10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_matvec_kernel_matches_plain(card, n, d, tn, td, dtype):
+    g = torch.Generator().manual_seed(n + d)
+    W = torch.randn(n, d, generator=g).to(dtype)
+    q = torch.randn(d, generator=g).to(dtype)
+    before = ops.launch_counts()["blocked_matvec"]
+    out = ops.blocked_matvec(W.to(card), q.to(card), tile_n=tn, tile_d=td)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["blocked_matvec"] == before + 1
+    want = ops.blocked_matvec(W, q, tile_n=tn, tile_d=td)
+    assert out.dtype == torch.float32 and out.shape == (n,)
+    np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_new_wrappers_check_operands(card):
+    from repro_torch.kernels import blocked_matvec as bmv
+    from repro_torch.kernels import gather_dot as gd
+    V4 = torch.zeros(4, 3, 8, 64, device=card)
+    idx = torch.zeros(2, dtype=torch.int32, device=card)
+    cols = torch.zeros(1, dtype=torch.int32, device=card)
+    q = torch.zeros(1, 64, device=card)
+    before = ops.launch_counts()
+    with pytest.raises(TypeError, match="bfloat16"):
+        gd.gather_block_dot_cuda(V4, idx, cols, q.bfloat16())
+    with pytest.raises(ValueError, match="is on cpu"):
+        gd.gather_block_dot_cuda(V4, idx.cpu(), cols, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        gd.gather_block_dot_cuda(V4.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), idx, cols, q)
+    with pytest.raises(ValueError, match="not divisible"):
+        bmv.blocked_matvec_cuda(torch.zeros(100, 512, device=card),
+                                torch.zeros(512, device=card), tile_n=64)
+    with pytest.raises(ValueError, match="is on cpu"):
+        bmv.blocked_matvec_cuda(torch.zeros(64, 32, device=card),
+                                torch.zeros(32))
+    args, kw = _operands(203, 300, 3, 64, "row", 8, True, 1, seed=0)
+    dev = [t.to(card) for t in args]
+    with pytest.raises(ValueError, match="qb must be"):
+        fc.fused_cascade_cuda(*dev, **kw)
+    with pytest.raises(ValueError, match="cols must be"):
+        fc.fused_cascade_cuda(dev[0], dev[1][0], *dev[2:], **kw)
+    assert ops.launch_counts() == before
+    # out-of-range gather indices give NaN rows, never a stray read
+    bad = torch.tensor([1, 9], dtype=torch.int32, device=card)
+    out = gd.gather_block_dot_cuda(V4, bad, cols, q)
+    torch.cuda.synchronize()
+    assert not bool(out[0].isnan().any()) and bool(out[1].isnan().all())
