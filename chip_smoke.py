@@ -19,7 +19,16 @@ Phases, one line each (any failure exits non-zero before the result):
    and 'coord' pull mode, for every tier: fp32 (at k_out = K and 2K,
    with final coverage), int8, int4, pq (a quant_err measured on the
    table) and int8 with adaptive early exit under the 'bernstein'
-   radii, plus a small case with fewer live rows than k_out; the
+   radii, plus a small case with fewer live rows than k_out.  Both
+   entries are one cooperative launch of one CTA per SM (the grid each
+   launch ran with is read back from the kernel's own gridDim, printed,
+   and must equal the SM count); the batched entry runs with its batch's
+   one cols row expanded (stride 0, the serve path's form: round 1 is
+   read once for the batch) and must be bitwise the launch with a
+   contiguous copy of cols; the two are timed
+   alternately, three times each; each launch is timed again on a copy of the schedule with every
+   PULL_BIT cleared (the same round ends, no pulls), which splits its time
+   into round ends and pulls.  Then the
    gathered tile-dot at the tiled table's row (all 19,200 tiles, both
    512-wide blocks) and coord (C = 128, 8 blocks) geometry, and the
    blocked matvec at (153600, 1024) with (256, 512) tiles, each in f32
@@ -218,8 +227,8 @@ def cascade_operands(plan, V4, Q, perm, *, adaptive=False, quantized=None):
     slotcode, rmeta, bpos, t_final, n_final, cert = decode_operands(
         plan, final_exact=True, adaptive=adaptive, device=V4.device)
     Qb = Q.reshape(Q.shape[0], plan.n_blocks, plan.block).contiguous()
-    cols = perm.to(V4.device)[bpos].to(torch.int32).expand(
-        Q.shape[0], -1).contiguous()
+    # one perm for the batch: one cols row expanded, as `_fused_call` does
+    cols = perm.to(V4.device)[bpos].to(torch.int32).expand(Q.shape[0], -1)
     kw = dict(n_arms=plan.n, K=plan.K, t_final=t_final, n_final=n_final)
     table = V4
     if plan.precision == "pq":
@@ -267,6 +276,8 @@ def kernel_bound(plan, ops, kw, cells, n_pulls) -> dict:
     R, C = plan.tile, plan.block
     table, Qb, slotcode, rmeta, cols = ops
     nq = Qb.shape[0] if Qb.dim() == 3 else 1
+    if cols.dim() == 2 and cols.stride(0) == 0:
+        cols = cols[0]             # one row, read once
     nbytes = (cells * R * table.shape[3] * table.element_size()
               + sum(t.numel() * t.element_size()
                     for t in (Qb, slotcode, rmeta, cols))
@@ -288,15 +299,37 @@ def kernel_bound(plan, ops, kw, cells, n_pulls) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def pull_split(fn, ops, kernel_ms, **kw) -> dict:
+    """Time ``fn`` on a copy of the schedule with every step's PULL_BIT
+    cleared: the same round ends, no pulls.  That time is the launch's
+    round-end time; ``kernel_ms`` minus it is its pull time."""
+    from repro_torch.core.schedule import PULL_BIT
+    table, Qb, slotcode, rmeta, cols = ops
+    idle = (table, Qb, slotcode & ~PULL_BIT, rmeta, cols)
+    ends_ms = time_cuda(lambda: fn(*idle, **kw), 10, 2)
+    return {"round_end_ms": ends_ms, "pull_ms": kernel_ms - ends_ms}
+
+
 def phase_kernel(table, n_valid) -> dict:
     from repro_torch.core.boundedme_torch import quantize_table, tile_table
     from repro_torch.core.schedule import PULL_BIT, pulls_through_round
     from repro_torch.kernels.fused_cascade import (fused_cascade_batched_cuda,
-                                                   fused_cascade_cuda)
+                                                   fused_cascade_cuda,
+                                                   launch_grid, launched_grid)
     from repro_torch.kernels.ref import (fused_cascade_batched_ref,
                                          fused_cascade_ref)
     from repro_torch.launch.engine import seeded_perm
 
+    _, capacity = launch_grid(table.device)
+    sms = torch.cuda.get_device_properties(table.device).multi_processor_count
+    launched_grid(table.device)          # clear the word the launches write
+
+    def grid_of(what):
+        """The grid the last launch ran with, read back from the kernel's
+        own gridDim; it must be one CTA per SM."""
+        ctas = launched_grid(table.device)
+        check(ctas == sms, f"{what}: launched {ctas} CTAs on {sms} SMs")
+        return ctas
     n, N = table.shape
     Q = torch.from_numpy(np.random.default_rng(1234).normal(
         size=(B, N)).astype(np.float32)).cuda()
@@ -330,6 +363,7 @@ def phase_kernel(table, n_valid) -> dict:
                                      dtype=torch.bool, device=V4.device)
                 got = fused_cascade_batched_cuda(*ops, k_out=k_out,
                                                  n_valid=n_valid, **kw)
+                ctas = grid_of(f"{label} {mode} B={B}")
                 ref = fused_cascade_batched_ref(*ops, k_out=k_out,
                                                 n_valid=n_valid,
                                                 pulled=pulled, **kw)
@@ -341,6 +375,14 @@ def phase_kernel(table, n_valid) -> dict:
                 if k_out == K:
                     cells = int(pulled.sum())
                     rounds = got[2].tolist() if adaptive else None
+                    # the same launch with per-query cols, bit for bit
+                    own = (*ops[:4], ops[4].contiguous())
+                    again = fused_cascade_batched_cuda(
+                        *own, k_out=k_out, n_valid=n_valid, **kw)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                          f"{label} {mode}: the shared round-1 read is not "
+                          f"bitwise the launch without it")
             steps = int(((ops[2].cpu() & PULL_BIT) != 0).sum())
             through = pulls_through_round(plan.schedule)
             if adaptive:   # the pulls this run's queries made
@@ -350,6 +392,15 @@ def phase_kernel(table, n_valid) -> dict:
             bound_info = kernel_bound(plan, ops, kw, cells, n_pulls)
             kernel_ms = time_cuda(lambda: fused_cascade_batched_cuda(
                 *ops, n_valid=n_valid, **kw), 10, 2)
+            split = pull_split(fused_cascade_batched_cuda, ops, kernel_ms,
+                               n_valid=n_valid, **kw)
+            # the shared read against per-query cols, alternated 3 times
+            on_ms, own_ms = [], []
+            for _ in range(3):
+                on_ms.append(time_cuda(lambda: fused_cascade_batched_cuda(
+                    *ops, n_valid=n_valid, **kw), 10, 2))
+                own_ms.append(time_cuda(lambda: fused_cascade_batched_cuda(
+                    *own, n_valid=n_valid, **kw), 10, 2))
             plain_ms = time_cuda(lambda: fused_cascade_batched_ref(
                 *ops, n_valid=n_valid, **kw), 3, 1)
             res = {
@@ -360,7 +411,9 @@ def phase_kernel(table, n_valid) -> dict:
                 "union_cells": cells, **bound_info,
                 "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "max_abs_err": max(errs),
-                "near_tie_queries": ties}
+                "near_tie_queries": ties, **split,
+                "shared_cols_ms_runs": on_ms, "per_query_cols_ms_runs": own_ms,
+                "shared_cols_bitwise": True, "grid_ctas": ctas, "sms": sms}
             if adaptive:
                 res["rounds_used"] = rounds
             out[(label, mode)] = res
@@ -372,6 +425,7 @@ def phase_kernel(table, n_valid) -> dict:
             pulled = torch.zeros((plan.n_tiles, plan.n_blocks),
                                  dtype=torch.bool, device=V4.device)
             got = fused_cascade_cuda(*sops, n_valid=n_valid, **skw)
+            ctas1 = grid_of(f"single {label} {mode}")
             ref = fused_cascade_ref(*sops, n_valid=n_valid, pulled=pulled,
                                     **skw)
             bops, bkw = single_of(ops, kw, keep_batch=True)
@@ -387,16 +441,19 @@ def phase_kernel(table, n_valid) -> dict:
             n_pulls = (int(through[rounds1[0]]) if adaptive else steps)
             bound_info = kernel_bound(plan, sops, skw, int(pulled.sum()),
                                       n_pulls)
+            kernel1_ms = time_cuda(lambda: fused_cascade_cuda(
+                *sops, n_valid=n_valid, **skw), 10, 2)
             res1 = {"pulls": n_pulls, "union_cells": int(pulled.sum()),
-                    **bound_info,
-                    "kernel_ms": time_cuda(lambda: fused_cascade_cuda(
-                        *sops, n_valid=n_valid, **skw), 10, 2),
+                    **bound_info, "kernel_ms": kernel1_ms,
+                    **pull_split(fused_cascade_cuda, sops, kernel1_ms,
+                                 n_valid=n_valid, **skw),
                     "plain_ms": time_cuda(lambda: fused_cascade_ref(
                         *sops, n_valid=n_valid, **skw), 3, 1),
                     "library_ms": library1_ms,
                     "max_abs_err": r["max_abs_err"],
                     "near_tie_queries": r["near_tie_queries"],
-                    "bitwise_batch_of_one": True}
+                    "bitwise_batch_of_one": True, "grid_ctas": ctas1,
+                    "sms": sms}
             if adaptive:
                 res1["rounds_used"] = rounds1
             single[(label, mode)] = res1
@@ -893,7 +950,7 @@ def main() -> int:
                                    extra),
                 "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"],
+                "library_ms": row["library_ms"], "grid_ctas": row["grid_ctas"],
                 "coord_ms": coord["kernel_ms"],
                 "coord_plain_ms": coord["plain_ms"],
                 "coord_bound_ms": coord["bound_ms"],

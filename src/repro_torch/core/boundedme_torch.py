@@ -521,18 +521,19 @@ def _fused_call(Vq: torch.Tensor, Qin: torch.Tensor, perm: torch.Tensor, *,
     """Dispatch the whole cascade as exactly one fused-cascade launch.
 
     ``batched``: ``Qin (B, n_blocks, C)`` through `fused_cascade_batched`,
-    with one ``perm (n_blocks,)`` shared by the batch or per-query
-    ``perm (B, n_blocks)``; else one query ``Qin (n_blocks, C)`` and
-    ``perm (n_blocks,)`` through `fused_cascade`.  See `decode_operands`
-    for what ``final_exact`` does inside the cascade.
+    with one ``perm (n_blocks,)`` shared by the batch — its cols are that
+    one row expanded over the batch, which the kernel reads once in round
+    1 — or per-query ``perm (B, n_blocks)``; else one query ``Qin (n_blocks,
+    C)`` and ``perm (n_blocks,)`` through `fused_cascade`.  See
+    `decode_operands` for what ``final_exact`` does inside the cascade.
     """
     slotcode, rmeta, bpos, t_final, n_final, cert = decode_operands(
         plan, final_exact=final_exact, adaptive=adaptive, device=Vq.device)
-    cols = perm[..., bpos].to(torch.int32)
+    cols = perm[..., bpos].to(torch.int32).contiguous()
     if batched and cols.dim() == 1:
         cols = cols.expand(Qin.shape[0], -1)
     fn = ops.fused_cascade_batched if batched else ops.fused_cascade
-    return fn(Vq, Qin, slotcode, rmeta, cols.contiguous(), n_arms=plan.n,
+    return fn(Vq, Qin, slotcode, rmeta, cols, n_arms=plan.n,
               K=plan.K, t_final=t_final, n_final=n_final, k_out=k_out,
               n_valid=n_valid, vscale=vscale, qscale=qscale,
               codebook=codebook, packed_int4=plan.precision == "int4",

@@ -10,73 +10,93 @@
 // What bounds it.  Every pull reads one stored (R, Cs) tile of the table —
 // fp32 (Cs = C, 4 bytes a cell), int8 (Cs = C, 1 byte), nibble-packed int4
 // (Cs = C/2) or pq codes (Cs = C/w) — and does a few operations per byte, so
-// the work is memory-bound: the least time is the pulled bytes over the
-// card's memory rate.  This version runs one block per query, so a batch of
-// B queries occupies B of the 132 SMs and the rate one SM can load at, not
-// HBM, limits it.  Reading each pulled tile once for all queries of a batch
-// (they share one block permutation) is where a later version gains.  The
-// single-query entry runs one block, so 131 of 132 SMs idle; splitting one
-// query over a thread-block cluster is where that entry gains.
+// the pulls are memory-bound: their least time is the pulled bytes over the
+// card's memory rate, which only many SMs with many loads in flight reach.
+// Between rounds the cascade must stop: every survivor's accumulator is
+// complete before it is ranked, and the next round pulls the kept tiles.
+// Those round ends (15 at the qwen1.5-0.5b table) are serial work per query
+// and a barrier across the card each; with the pulls spread over the card
+// they take most of a launch.
 //
 // What the design does.
-//  * The TPU kernel's sequential (B, S) grid becomes one block per query
-//    that loops over the flat schedule.  Its VMEM/SMEM scratch (accumulator,
-//    M2 accumulator, survivor list, score buffer, pq lookup table) does not
-//    fit in shared memory at real table sizes, so it lives in per-query
-//    device workspace that the wrapper allocates; at a few MB per batch it
-//    stays in L2.
-//  * Within a round the survivor list is fixed and every tile receives only
-//    its own pulls.  Warp w takes the steps whose survivor slot is
-//    congruent to w modulo the warp count and walks them in step order, so
-//    each tile's sum is accumulated in column order exactly as on the TPU;
-//    the block synchronises only at round ends.
+//  * One persistent cooperative launch: one 512-thread CTA per SM (the grid
+//    is the card's SM count, checked for co-residency; the launch writes
+//    its gridDim.x back for the caller to read), all B queries in one
+//    grid.  Round boundaries are grid syncs.  The TPU kernel's VMEM
+//    scratch (accumulator, M2 accumulator, survivor list, pq lookup table,
+//    active / t_stop lanes) lives in per-query device workspace that the
+//    wrapper allocates; it is written inside the launch, so it is read with
+//    plain loads, never through the read-only path.
+//  * Pulls are spread over every warp of the grid.  A work item is one
+//    (query b, survivor slot) and belongs to warp (slot * B + b) mod W for
+//    the whole round; that warp walks the item's steps of the round in step
+//    order.  Within a round the survivor list is fixed and every tile
+//    receives only its own pulls, so each tile's sum is accumulated in
+//    column order exactly as on the TPU, whichever warp takes it.  The
+//    warp finds its items' steps from the flat schedule's layout
+//    (`flatten_schedule`: column-major, slot-minor; segment geometry from
+//    rounds_meta) without scanning the steps; the wrapper refuses a
+//    schedule laid out otherwise before it launches.
+//  * When the batch shares one block permutation (the wrapper is given
+//    one cols row expanded over the batch: the engine's decode path),
+//    round 1 — the identity survivor list and the same columns for every
+//    query — loads each (tile, column) cell once and dots it with all B
+//    queries; each query's partial is the same sequence of operations as
+//    a lone pull, so results do not depend on the shared read.
 //  * Pulls run on CUDA cores (no TF32, no tensor cores).  fp32: float4
-//    loads of every row, an FMA dot, a butterfly of shuffles per row.
-//    int8: 16-byte loads and __dp4a, an exact int32 sum in any order, then
-//    part = float(raw) * (vscale * qscale) as two rounded float ops.  int4:
-//    each packed byte holds column k (low nibble) and k + C/2 (high); the
-//    masks w << 4 & 0xF0F0F0F0 and w & 0xF0F0F0F0 turn four bytes into four
-//    signed nibbles times 16, which __dp4a takes as they are, and the exact
-//    sum is shifted down by 4 at the end; then the int8 path.  pq: the
-//    query's lookup table lut[col][s][k] = sum_j q[col][s*w + j] *
-//    cb[col][s][k][j] is built once per launch for all column blocks (the
-//    TPU builds it per pull: the same values), and lane r sums row r's
-//    lut[col][s][code] over s in order.
+//    loads of four rows, then an FMA dot and a butterfly per row.  int8 and
+//    int4 (R = 8, 16-byte aligned rows): the tile's 16-byte loads are all
+//    issued before any is reduced (C = 512 int8: 8 a lane); __dp4a, then a
+//    transposing shuffle reduction that ends with lane r holding row r.
+//    int4 feeds its nibbles to __dp4a as 16 times themselves (masks
+//    w << 4 & 0xF0F0F0F0 and w & 0xF0F0F0F0) and shifts the exact sum down
+//    by 4.  Integer sums are exact in any order; part = float(raw) *
+//    (vscale * qscale) as two rounded float ops.  pq: the query's lookup
+//    table lut[col][s][k] is built once per launch; one warp runs 32 / R
+//    items at once, lane r + R*i summing row r of item i over s in order.
 //  * Every float op whose rounding the plain PyTorch version repeats is
 //    written as __fmul_rn / __fadd_rn / __fdiv_rn / __fsqrt_rn, so no FMA
-//    contraction changes it: the int8 and int4 accumulators, the M2
-//    accumulator, the pq sums and the certification radii match the plain
-//    version bit for bit.
-//  * Elimination keeps the top n_keep slots by (score descending, slot
-//    ascending) and writes them in that order, which is what the TPU
-//    kernel's iterative max extraction with NaN marking produces.  The
-//    pair is packed into one 64-bit key (order-preserving float bits, then
-//    the complemented slot) and sorted by a block-wide bitonic sort.  The
-//    final top-k_out over the n_final * R surviving rows uses the same sort.
-//  * Adaptive early exit keeps per-query active / t_stop / rounds_used lanes
-//    in shared memory.  After each round-end elimination an active query
-//    certifies its survivors' rows: k_cert block-wide maxima of the same
-//    64-bit keys (each the largest key below the previous one, which is the
-//    TPU's extraction order without marking) give the top rows by mean and
-//    the least of their lower bounds; one more pass takes the largest upper
-//    bound of the other rows.  A certified query skips its later pulls,
-//    still eliminates on its frozen accumulator, and its finish divides by
-//    the pulls it actually made.
+//    contraction changes it.
+//  * Round ends run in shared memory, one CTA per query (CTAs loop over
+//    queries when B exceeds the grid).  The CTA builds its T survivors'
+//    64-bit keys (order-preserving score bits, then the complemented slot:
+//    descending key order is score descending, slot ascending; -0.0 and
+//    +0.0 equal; rows past n_valid score -inf) in dynamic shared memory,
+//    finds the n_keep-th key by an MSB-first radix select, compacts the
+//    kept keys in place and sorts them with a bitonic network whose
+//    comparators all put the larger key first, so the power-of-two padding
+//    is virtual and never stored; its stages shorter than 256 positions
+//    run in registers (eight keys a thread, shuffles between lanes).  That
+//    is the TPU's extraction order.
+//    The final top-k_out over the n_final * R rows uses the same select and
+//    sort.  Keys of a table too large for shared memory go to a per-CTA
+//    device workspace instead, through the same code.
+//  * Adaptive early exit: after each elimination an active query certifies
+//    its survivors' rows (k_cert block-wide maxima of the same keys give the
+//    top rows by mean and the least of their lower bounds; one more pass
+//    takes the largest upper bound of the other rows).  A certified query
+//    pulls nothing more, still eliminates on its frozen accumulator, and its
+//    finish divides by its own t_stop.
 //  * The kernel returns unscaled block means, like the TPU kernel; the
 //    caller applies the padding rescale or an exact rescore.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr unsigned kSlotMask = (1u << 29) - 1u;   // schedule.SLOT_MASK
-constexpr unsigned kEndBit = 1u << 29;            // schedule.END_BIT
 constexpr unsigned kPullBit = 1u << 30;           // schedule.PULL_BIT
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kStaticSmem = 8192;   // bytes kept for the static shared arrays
+constexpr int kPerThread = 8;       // keys a thread holds while compacting
+constexpr int kSortAll = 2048;      // round ends of at most this many keys sort them all
 
 enum Tier : int { kF32 = 0, kI8 = 1, kI4 = 2, kPQ = 3 };
 
@@ -97,11 +117,14 @@ struct Args {
   float* acc2;           // workspace (B, n_tiles, R), bernstein
   int* surv;             // workspace (B, n_tiles)
   int* tmp;              // workspace (B, n_tiles)
-  unsigned long long* keys;  // workspace (B, P)
+  int* state;            // workspace (2B): active, t_stop per query
+  int* grid_out;         // (1,): the launch writes its gridDim.x here
+  unsigned long long* keys;  // workspace (grid, P), or null: keys in shared memory
   float* lut;            // workspace (B, n_blocks * Cs * n_codes), pq
-  int n_tiles, n_blocks, R, C, Cs, S, n_rounds, t_final, n_final, k_out;
+  int B, n_tiles, n_blocks, R, C, Cs, S, n_rounds, t_final, n_final, k_out;
   int n_codes, k_cert, P;
   int vec;               // 1: the tier's 16-byte vector loads are legal
+  int shared_cols;       // 1: every query's cols row is the same
   long long n_valid;
 };
 
@@ -117,19 +140,24 @@ __device__ __forceinline__ int warp_sum_int(int s) {
   return s;
 }
 
+// One query's partial of one pulled tile: lanes [lo, hi) hold rows
+// [lo, hi), lane r row r.
+struct Part {
+  float v;
+  int lo, hi;
+};
+
 // ---- fp32 pulls ----------------------------------------------------------
 
-// Dot of an (8, 128 * JR) tile with the query block; lane r returns row r.
-// The loads of four rows are issued before any of them is reduced.
-template <int JR>
-__device__ __forceinline__ float pull8(const float4* __restrict__ v,
-                                       const float4* __restrict__ q,
-                                       int lane) {
+// Dot of an (8, 128 * JR) tile with each listed query's block; for each
+// half of four rows the loads of all four rows are issued before any is
+// reduced, and the half is emitted per query.
+template <int JR, class Emit>
+__device__ __forceinline__ void pull8(const float4* __restrict__ v,
+                                      const float* __restrict__ Qb,
+                                      size_t q_stride, int b0, int b1,
+                                      int bstep, int lane, Emit&& emit) {
   constexpr int C4 = 32 * JR;
-  float4 qv[JR];
-#pragma unroll
-  for (int k = 0; k < JR; ++k) qv[k] = __ldg(q + lane + 32 * k);
-  float mine = 0.f;
 #pragma unroll
   for (int h = 0; h < 8; h += 4) {
     float4 t[4][JR];
@@ -138,21 +166,28 @@ __device__ __forceinline__ float pull8(const float4* __restrict__ v,
 #pragma unroll
       for (int k = 0; k < JR; ++k)
         t[r][k] = __ldg(v + (h + r) * C4 + lane + 32 * k);
+    for (int b = b0; b < b1; b += bstep) {
+      const float4* q = reinterpret_cast<const float4*>(Qb + b * q_stride);
+      float4 qv[JR];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float s = 0.f;
+      for (int k = 0; k < JR; ++k) qv[k] = __ldg(q + lane + 32 * k);
+      float mine = 0.f;
 #pragma unroll
-      for (int k = 0; k < JR; ++k) {
-        s = fmaf(t[r][k].x, qv[k].x, s);
-        s = fmaf(t[r][k].y, qv[k].y, s);
-        s = fmaf(t[r][k].z, qv[k].z, s);
-        s = fmaf(t[r][k].w, qv[k].w, s);
+      for (int r = 0; r < 4; ++r) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < JR; ++k) {
+          s = fmaf(t[r][k].x, qv[k].x, s);
+          s = fmaf(t[r][k].y, qv[k].y, s);
+          s = fmaf(t[r][k].z, qv[k].z, s);
+          s = fmaf(t[r][k].w, qv[k].w, s);
+        }
+        s = warp_sum(s);
+        if (lane == h + r) mine = s;
       }
-      s = warp_sum(s);
-      if (lane == h + r) mine = s;
+      emit(b, Part{mine, h, h + 4});
     }
   }
-  return mine;
 }
 
 // Any R <= 32 and any C; lane r returns row r.
@@ -170,43 +205,130 @@ __device__ float pull_f32_any(const float* __restrict__ v,
   return mine;
 }
 
-__device__ __forceinline__ float pull_f32(const Args& a, const float* v,
-                                          const float* q, int lane) {
-  if (a.vec) {
-    const float4* v4 = reinterpret_cast<const float4*>(v);
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-    switch (a.C >> 7) {
-      case 1: return pull8<1>(v4, q4, lane);
-      case 2: return pull8<2>(v4, q4, lane);
-      case 4: return pull8<4>(v4, q4, lane);
-      default: break;
-    }
-  }
-  return pull_f32_any(v, q, a.R, a.C, lane);
+// ---- int8 and int4 pulls: exact integer dots ------------------------------
+
+// Eight per-row sums spread over the warp -> lane l holds the total of row
+// (l >> 2) & 7.  Three exchange steps halve the values a lane carries, two
+// butterflies finish: 9 shuffles instead of 8 x 5.
+__device__ __forceinline__ int transpose_reduce8(const int (&v)[8], int lane) {
+  const bool h = lane & 16, g = lane & 8, f = lane & 4;
+  int a4[4], a2[2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    a4[j] = (h ? v[j + 4] : v[j]) + __shfl_xor_sync(kFull, h ? v[j] : v[j + 4], 16);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    a2[j] = (g ? a4[j + 2] : a4[j]) + __shfl_xor_sync(kFull, g ? a4[j] : a4[j + 2], 8);
+  int x = (f ? a2[1] : a2[0]) + __shfl_xor_sync(kFull, f ? a2[0] : a2[1], 4);
+  x += __shfl_xor_sync(kFull, x, 2);
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x;
 }
 
-// ---- int8 and int4 pulls: exact integer dots; lane r returns row r ------
+// An (8, 16 V)-byte tile held as NV = V / 4 16-byte vectors a lane: vector
+// k = lane + 32 i of the tile is row k / V, column vector k % V.  Returns,
+// in lane r < 8, row r's total of the per-vector sums p.
+template <int V>
+__device__ __forceinline__ int reduce_rows(int (&p)[V / 4], int lane) {
+  constexpr int NV = V / 4;
+  if constexpr (V >= 32) {             // vector i of every lane is row i / (V/32)
+    constexpr int m = V / 32;
+    int rows[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      rows[r] = p[r * m];
+#pragma unroll
+      for (int u = 1; u < m; ++u) rows[r] += p[r * m + u];
+    }
+    return __shfl_sync(kFull, transpose_reduce8(rows, lane), (4 * lane) & 31);
+  } else {                             // V lanes per row, 32 / V rows per i
+    constexpr int g = 32 / V;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int o = V / 2; o > 0; o >>= 1) p[i] += __shfl_xor_sync(kFull, p[i], o);
+    int mine = 0;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int x = __shfl_sync(kFull, p[i], (lane % g) * V);
+      if (lane / g == i) mine = x;
+    }
+    return mine;
+  }
+}
 
-__device__ int pull_i8(const Args& a, const int8_t* __restrict__ v,
-                       const int8_t* __restrict__ q, int lane) {
-  const int R = a.R, C = a.C;
+__device__ __forceinline__ int dot4_i8(const int4 x, const int4 y, int s) {
+  s = __dp4a(x.x, y.x, s);
+  s = __dp4a(x.y, y.y, s);
+  s = __dp4a(x.z, y.z, s);
+  return __dp4a(x.w, y.w, s);
+}
+
+// 16 times the dot of 32 signed nibbles (the low and high halves of 16
+// packed bytes) with two int8 query vectors.
+__device__ __forceinline__ int dot4_i4(const int4 x, const int4 lo,
+                                       const int4 hi, int s) {
+  const unsigned xs[4] = {static_cast<unsigned>(x.x), static_cast<unsigned>(x.y),
+                          static_cast<unsigned>(x.z), static_cast<unsigned>(x.w)};
+  const int ls[4] = {lo.x, lo.y, lo.z, lo.w};
+  const int hs[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    s = __dp4a(static_cast<int>((xs[u] << 4) & 0xF0F0F0F0u), ls[u], s);
+    s = __dp4a(static_cast<int>(xs[u] & 0xF0F0F0F0u), hs[u], s);
+  }
+  return s;
+}
+
+// R = 8 rows of V 16-byte vectors each: every load of the tile first, then
+// for each listed query the __dp4a dots and one reduction of all rows.
+// Emits each query's exact integer row dots; the caller scales them.
+template <int V, bool I4, class Emit>
+__device__ __forceinline__ void pull_int8rows(const int4* __restrict__ v,
+                                              const int8_t* __restrict__ Qb,
+                                              size_t q_stride, int Cs, int b0,
+                                              int b1, int bstep, int lane,
+                                              Emit&& emit) {
+  constexpr int NV = V / 4;
+  int4 x[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) x[i] = __ldg(v + lane + 32 * i);
+  for (int b = b0; b < b1; b += bstep) {
+    const int8_t* q = Qb + b * q_stride;
+    int p[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int u = (lane + 32 * i) % V;
+      if constexpr (I4) {
+        const int4 lo = __ldg(reinterpret_cast<const int4*>(q) + u);
+        const int4 hi = __ldg(reinterpret_cast<const int4*>(q + Cs) + u);
+        p[i] = dot4_i4(x[i], lo, hi, 0);
+      } else {
+        p[i] = dot4_i8(x[i], __ldg(reinterpret_cast<const int4*>(q) + u), 0);
+      }
+    }
+    const int raw = reduce_rows<V>(p, lane);
+    emit(b, I4 ? (raw >> 4) : raw);
+  }
+}
+
+// Any R and C: lane r returns row r's exact dot (the int4 form unpacks).
+__device__ int pull_int_any(const int8_t* __restrict__ v,
+                            const int8_t* __restrict__ q, int R, int Cs,
+                            bool i4, int lane) {
   int mine = 0;
   for (int r = 0; r < R; ++r) {
     int s = 0;
-    if (a.vec) {           // C % 16 == 0, 16-byte aligned rows
-      const int4* vr = reinterpret_cast<const int4*>(v + (size_t)r * C);
-      const int4* q4 = reinterpret_cast<const int4*>(q);
-      for (int k = lane; k < C / 16; k += 32) {
-        const int4 x = __ldg(vr + k), y = __ldg(q4 + k);
-        s = __dp4a(x.x, y.x, s);
-        s = __dp4a(x.y, y.y, s);
-        s = __dp4a(x.z, y.z, s);
-        s = __dp4a(x.w, y.w, s);
+    for (int c = lane; c < Cs; c += 32) {
+      const int p = static_cast<int>(__ldg(v + (size_t)r * Cs + c));
+      if (i4) {
+        const int lo = static_cast<int>(static_cast<int8_t>(p << 4)) >> 4;
+        const int hi = static_cast<int>(static_cast<int8_t>(p)) >> 4;
+        s += lo * static_cast<int>(__ldg(q + c)) +
+             hi * static_cast<int>(__ldg(q + Cs + c));
+      } else {
+        s += p * static_cast<int>(__ldg(q + c));
       }
-    } else {
-      for (int c = lane; c < C; c += 32)
-        s += static_cast<int>(__ldg(v + (size_t)r * C + c)) *
-             static_cast<int>(__ldg(q + c));
     }
     s = warp_sum_int(s);
     if (lane == r) mine = s;
@@ -214,80 +336,91 @@ __device__ int pull_i8(const Args& a, const int8_t* __restrict__ v,
   return mine;
 }
 
-// Packed rows of Cs = C/2 bytes: byte k holds column k in its low nibble
-// and column k + Cs in its high nibble (the half-split layout).
-__device__ int pull_i4(const Args& a, const int8_t* __restrict__ v,
-                       const int8_t* __restrict__ q, int lane) {
-  const int R = a.R, Cs = a.Cs;
-  int mine = 0;
-  for (int r = 0; r < R; ++r) {
-    int s = 0;
-    if (a.vec) {           // Cs % 16 == 0, 16-byte aligned rows
-      // each signed nibble enters __dp4a as 16 times itself, so the sum
-      // is 16 times the dot, exactly; one shift at the end divides it out
-      const int4* vr = reinterpret_cast<const int4*>(v + (size_t)r * Cs);
-      const int4* qlo = reinterpret_cast<const int4*>(q);
-      const int4* qhi = reinterpret_cast<const int4*>(q + Cs);
-      for (int k = lane; k < Cs / 16; k += 32) {
-        const int4 x = __ldg(vr + k), lo = __ldg(qlo + k), hi = __ldg(qhi + k);
-        const int xs[4] = {x.x, x.y, x.z, x.w};
-        const int ls[4] = {lo.x, lo.y, lo.z, lo.w};
-        const int hs[4] = {hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const unsigned w = static_cast<unsigned>(xs[u]);
-          s = __dp4a(static_cast<int>((w << 4) & 0xF0F0F0F0u), ls[u], s);
-          s = __dp4a(static_cast<int>(w & 0xF0F0F0F0u), hs[u], s);
-        }
-      }
-    } else {
-      for (int c = lane; c < Cs; c += 32) {
-        const int p = static_cast<int>(__ldg(v + (size_t)r * Cs + c));
-        const int lo = static_cast<int>(static_cast<int8_t>(p << 4)) >> 4;
-        const int hi = static_cast<int>(static_cast<int8_t>(p)) >> 4;
-        s += 16 * (lo * static_cast<int>(__ldg(q + c)) +
-                   hi * static_cast<int>(__ldg(q + Cs + c)));
+// ---- one pulled cell, for one query or for all queries sharing it -------
+
+// Adds one query's partial of a tile to its accumulators: lanes [lo, hi)
+// hold rows lo .. hi - 1.
+template <bool TRACK_VAR>
+__device__ __forceinline__ void add_rows(const Args& a, int b, int tile,
+                                         float part, int lo, int hi,
+                                         int lane) {
+  if (lane < lo || lane >= hi || lane >= a.R) return;
+  const size_t row = (static_cast<size_t>(b) * a.n_tiles + tile) * a.R + lane;
+  a.acc[row] = __fadd_rn(a.acc[row], part);
+  if constexpr (TRACK_VAR) a.acc2[row] = __fadd_rn(a.acc2[row], __fmul_rn(part, part));
+}
+
+// Pulls cell (tile, col) for queries b0, b0 + bstep, ... < b1 (all of them
+// share the cell) and accumulates each query's partial.
+template <int TIER, bool TRACK_VAR>
+__device__ void pull_cell(const Args& a, int tile, int col, int b0, int b1,
+                          int bstep, int lane) {
+  const size_t cell = static_cast<size_t>(tile) * a.n_blocks + col;
+  const size_t tile_cells = static_cast<size_t>(a.R) * a.Cs;
+  const size_t q_stride = static_cast<size_t>(a.n_blocks) * a.C;
+  if constexpr (TIER == kF32) {
+    const float* v = static_cast<const float*>(a.V4) + cell * tile_cells;
+    const float* Q = static_cast<const float*>(a.Qb) + static_cast<size_t>(col) * a.C;
+    auto emit = [&](int b, Part p) { add_rows<TRACK_VAR>(a, b, tile, p.v, p.lo, p.hi, lane); };
+    const float4* v4 = reinterpret_cast<const float4*>(v);
+    if (a.vec) {
+      switch (a.C >> 7) {
+        case 1: pull8<1>(v4, Q, q_stride, b0, b1, bstep, lane, emit); return;
+        case 2: pull8<2>(v4, Q, q_stride, b0, b1, bstep, lane, emit); return;
+        case 4: pull8<4>(v4, Q, q_stride, b0, b1, bstep, lane, emit); return;
+        default: break;
       }
     }
-    s = warp_sum_int(s) >> 4;
-    if (lane == r) mine = s;
+    for (int b = b0; b < b1; b += bstep)
+      emit(b, Part{pull_f32_any(v, Q + b * q_stride, a.R, a.C, lane), 0, a.R});
+  } else {
+    constexpr bool I4 = TIER == kI4;
+    const int8_t* v = static_cast<const int8_t*>(a.V4) + cell * tile_cells;
+    const int8_t* Q = static_cast<const int8_t*>(a.Qb) + static_cast<size_t>(col) * a.C;
+    const float vs = __ldg(a.vscale + cell);
+    auto emit = [&](int b, int raw) {
+      const float scale = __fmul_rn(
+          vs, __ldg(a.qscale + static_cast<size_t>(b) * a.n_blocks + col));
+      add_rows<TRACK_VAR>(a, b, tile, __fmul_rn(__int2float_rn(raw), scale), 0, a.R, lane);
+    };
+    const int4* v16 = reinterpret_cast<const int4*>(v);
+    if (a.vec && a.R == 8) {
+      switch (a.Cs / 16) {
+        case 4: pull_int8rows<4, I4>(v16, Q, q_stride, a.Cs, b0, b1, bstep, lane, emit); return;
+        case 8: pull_int8rows<8, I4>(v16, Q, q_stride, a.Cs, b0, b1, bstep, lane, emit); return;
+        case 16: pull_int8rows<16, I4>(v16, Q, q_stride, a.Cs, b0, b1, bstep, lane, emit); return;
+        case 32: pull_int8rows<32, I4>(v16, Q, q_stride, a.Cs, b0, b1, bstep, lane, emit); return;
+        case 64: pull_int8rows<64, I4>(v16, Q, q_stride, a.Cs, b0, b1, bstep, lane, emit); return;
+        default: break;
+      }
+    }
+    for (int b = b0; b < b1; b += bstep)
+      emit(b, pull_int_any(v, Q + b * q_stride, a.R, a.Cs, I4, lane));
   }
-  return mine;
 }
 
-// ---- pq pulls ------------------------------------------------------------
+// ---- pq pulls --------------------------------------------------------------
 
-// Query b's table of lut[(col * Cs + s) * n_codes + k], each sum taken over
-// j in order with one rounded multiply and one rounded add per term.
-__device__ void build_lut(const Args& a, const float* __restrict__ q,
-                          float* lut) {
-  const int w = a.C / a.Cs;
-  const int n = a.n_blocks * a.Cs * a.n_codes;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const float* qs = q + static_cast<size_t>(i / a.n_codes) * w;
-    const float* cb = a.codebook + static_cast<size_t>(i) * w;
-    float v = __fmul_rn(__ldg(qs), __ldg(cb));
-    for (int j = 1; j < w; ++j) v = __fadd_rn(v, __fmul_rn(__ldg(qs + j), __ldg(cb + j)));
-    lut[i] = v;
-  }
+// Row r of query b's pull of cell (tile, col): sum_s lut[col][s][code],
+// over s in order, added to the row's accumulators.
+template <bool TRACK_VAR>
+__device__ void pq_row(const Args& a, int b, int tile, int col, int r) {
+  const size_t cell = static_cast<size_t>(tile) * a.n_blocks + col;
+  const uint8_t* row = static_cast<const uint8_t*>(a.V4) + (cell * a.R + r) * a.Cs;
+  const size_t per_q = static_cast<size_t>(a.n_blocks) * a.Cs * a.n_codes;
+  const float* lut = a.lut + b * per_q + static_cast<size_t>(col) * a.Cs * a.n_codes;
+  float s = lut[__ldg(row)];
+  for (int j = 1; j < a.Cs; ++j) s = __fadd_rn(s, lut[j * a.n_codes + __ldg(row + j)]);
+  const size_t acc_row = (static_cast<size_t>(b) * a.n_tiles + tile) * a.R + r;
+  a.acc[acc_row] = __fadd_rn(a.acc[acc_row], s);
+  if constexpr (TRACK_VAR) a.acc2[acc_row] = __fadd_rn(a.acc2[acc_row], __fmul_rn(s, s));
 }
 
-// Lane r returns sum_s lut[col][s][codes[r][s]], summed over s in order.
-__device__ float pull_pq(const Args& a, const uint8_t* __restrict__ codes,
-                         const float* lut_col, int lane) {
-  if (lane >= a.R) return 0.f;
-  const uint8_t* row = codes + static_cast<size_t>(lane) * a.Cs;
-  float s = lut_col[__ldg(row)];
-  for (int j = 1; j < a.Cs; ++j)
-    s = __fadd_rn(s, lut_col[j * a.n_codes + __ldg(row + j)]);
-  return s;
-}
-
-// ---- keys, sort and block reductions --------------------------------------
+// ---- keys, select, sort and block reductions ------------------------------
 
 // Descending order of the key is (score descending, index ascending).
 // -0.0 and +0.0 compare equal, as they do in the TPU kernel's max.  A real
-// entry's key is never 0, so 0 pads.
+// entry's key is never 0.
 __device__ __forceinline__ unsigned long long make_key(float score, int idx) {
   unsigned u = __float_as_uint(score == 0.f ? 0.f : score);
   u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
@@ -305,91 +438,365 @@ __device__ __forceinline__ int next_pow2(int x) {
   return n;
 }
 
-// Block-wide bitonic sort of n (a power of two) keys, descending.  Key 0
-// pads and sorts last.
-__device__ void sort_desc(unsigned long long* keys, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < n / 2; p += kThreads) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int l = i + j;
-        const unsigned long long x = keys[i], y = keys[l];
-        const bool desc = (i & k) == 0;
-        if (desc ? (x < y) : (x > y)) {
-          keys[i] = y;
-          keys[l] = x;
+// Static shared memory of one CTA's round ends.
+struct Smem {
+  unsigned long long red_key[kWarps + 1];
+  float red_f[kWarps + 1];
+  int hist[256];
+  int wsum[kWarps];
+  int digit, rem, done;
+};
+
+// The k-th largest of n distinct keys (0 < k < n), as a threshold: exactly k
+// keys are >= it.  MSB-first radix select, 8 bits a pass; it stops as soon
+// as every key of the chosen prefix is kept.
+__device__ unsigned long long radix_select(const unsigned long long* keys,
+                                           int n, int k, Smem& sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long prefix = 0ull, mask = 0ull;
+  int rem = k;
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int i = threadIdx.x; i < 256; i += kThreads) sm.hist[i] = 0;
+    __syncthreads();
+    for (int j0 = 0; j0 < n; j0 += kThreads) {
+      const int j = j0 + threadIdx.x;
+      int d = -1;
+      if (j < n) {
+        const unsigned long long key = keys[j];
+        if ((key & mask) == prefix) d = static_cast<int>((key >> shift) & 0xFFull);
+      }
+      const unsigned live = __ballot_sync(kFull, d >= 0);
+      if (live == 0u) continue;
+      const int lo = __reduce_min_sync(kFull, d >= 0 ? d : 256);
+      if (lo == __reduce_max_sync(kFull, d)) {   // one digit: one add
+        if (lane == __ffs(live) - 1) atomicAdd(&sm.hist[lo], __popc(live));
+        continue;
+      }
+      const unsigned peers = __match_any_sync(kFull, d);
+      if (d >= 0 && lane == __ffs(peers) - 1) atomicAdd(&sm.hist[d], __popc(peers));
+    }
+    __syncthreads();
+    if (warp == 0) {       // lane l owns bins 255 - 8l down to 248 - 8l
+      int s = 0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s += sm.hist[255 - 8 * lane - u];
+      int incl = s;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += t;
+      }
+      const int L = __ffs(__ballot_sync(kFull, incl >= rem)) - 1;
+      if (lane == L) {
+        int cum = incl - s;
+        for (int d = 255 - 8 * lane;; --d) {
+          const int h = sm.hist[d];
+          if (cum + h >= rem) {
+            sm.digit = d;
+            sm.rem = rem - cum;
+            sm.done = h == rem - cum;
+            break;
+          }
+          cum += h;
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= static_cast<unsigned long long>(sm.digit) << shift;
+    mask |= 0xFFull << shift;
+    rem = sm.rem;
+    const bool done = sm.done;
+    __syncthreads();
+    if (done) break;
+  }
+  return prefix;
+}
+
+// Moves the keys >= thr to the front of keys[0, n), in no order.  A chunk
+// is read into registers before any of it is written, and its kept keys
+// land below the chunk's end, so nothing unread is overwritten.
+__device__ void compact(unsigned long long* keys, int n,
+                        unsigned long long thr, Smem& sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int base = 0;
+  for (int j0 = 0; j0 < n; j0 += kThreads * kPerThread) {
+    unsigned long long x[kPerThread];
+    int cnt = 0;
+#pragma unroll
+    for (int u = 0; u < kPerThread; ++u) {
+      const int j = j0 + u * kThreads + threadIdx.x;
+      x[u] = j < n ? keys[j] : 0ull;
+      cnt += x[u] >= thr;
+    }
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) sm.wsum[warp] = incl;
+    __syncthreads();
+    int off = base + incl - cnt, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) off += sm.wsum[w];
+      total += sm.wsum[w];
+    }
+#pragma unroll
+    for (int u = 0; u < kPerThread; ++u)
+      if (x[u] >= thr) keys[off++] = x[u];
+    base += total;
+    __syncthreads();
+  }
+}
+
+// ---- the sort: a bitonic network, eight keys a thread in registers -------
+
+using u64 = unsigned long long;
+
+__device__ __forceinline__ void ce(u64& hi, u64& lo) {   // larger key to hi
+  if (hi < lo) {
+    const u64 t = hi;
+    hi = lo;
+    lo = t;
+  }
+}
+
+// Half-cleaner of distance J < 8 within a thread's eight keys.
+template <int J>
+__device__ __forceinline__ void thread_half(u64 (&x)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if ((e & J) == 0) ce(x[e], x[e + J]);
+}
+
+// Flip stage of merge level K <= 8 within a thread's eight keys.
+template <int K>
+__device__ __forceinline__ void thread_flip(u64 (&x)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if ((e & (K / 2)) == 0) ce(x[e], x[e ^ (K - 1)]);
+}
+
+// A stage whose partners lie in lane ^ m (distance >= 8): the flip stage
+// pairs key e with the partner's key 7 - e.  `lower`: this lane holds the
+// lower positions and keeps the larger keys.
+__device__ __forceinline__ void lane_stage(u64 (&x)[8], int m, bool flip,
+                                           bool lower) {
+  u64 y[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) y[e] = __shfl_xor_sync(kFull, flip ? x[e ^ 7] : x[e], m);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = lower == (x[e] > y[e]) ? x[e] : y[e];
+}
+
+// Merge levels k_first .. k_last (powers of two; all <= 256, or one
+// level) over every group of 256 positions, in registers: thread t holds
+// positions 8t .. 8t + 7 of its group of 4,096.  A level k <= 256 runs its
+// flip stage and all its half-cleaners; a longer level its half-cleaners
+// of distance < 256.  Positions from n on are the virtual least key: read
+// as 0, never written.
+__device__ void register_pass(u64* keys, int n, int np, int k_first,
+                              int k_last) {
+  const int lane = threadIdx.x & 31;
+  for (int base = (threadIdx.x >> 5) * 256; base < np; base += kThreads * 8) {
+    const int i0 = base + lane * 8;
+    u64 x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = i0 + e < n ? keys[i0 + e] : 0ull;
+    for (int k = k_first; k <= k_last; k <<= 1) {
+      if (k == 2) {
+        thread_flip<2>(x);
+        continue;
+      }
+      if (k == 4) {
+        thread_flip<4>(x);
+        thread_half<1>(x);
+        continue;
+      }
+      if (k == 8) {
+        thread_flip<8>(x);
+        thread_half<2>(x);
+        thread_half<1>(x);
+        continue;
+      }
+      int j = min(k, 256) >> 1;
+      if (k <= 256) {
+        lane_stage(x, (k - 1) >> 3, true, (lane & (j >> 3)) == 0);
+        j >>= 1;
+      }
+      for (; j >= 8; j >>= 1) lane_stage(x, j >> 3, false, (lane & (j >> 3)) == 0);
+      thread_half<4>(x);
+      thread_half<2>(x);
+      thread_half<1>(x);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (i0 + e < n) keys[i0 + e] = x[e];
+  }
+  __syncthreads();
+}
+
+// Sorts keys[0, n) descending.  A bitonic network over next_pow2(n)
+// positions in which every comparator puts the larger key at the lower
+// position: the virtual padding past n is the least key and never moves,
+// so comparators that reach past n are skipped and the padding is never
+// stored.  Stages of distance >= 256 run in shared memory, four
+// comparators a thread in flight; the rest in registers.
+__device__ void sort_desc(u64* keys, int n) {
+  const int np = next_pow2(n);
+  if (np <= 1) return;
+  register_pass(keys, n, np, 2, min(np, 256));
+  for (int k = 512; k <= np; k <<= 1) {
+    for (int j = k >> 1; j >= 256; j >>= 1) {
+      for (int p0 = threadIdx.x; p0 < np / 2; p0 += 4 * kThreads) {
+        int il[4][2];
+        u64 xy[4][2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int p = p0 + u * kThreads;
+          const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+          const int l = j == (k >> 1) ? (i ^ (k - 1)) : i + j;
+          il[u][0] = i;
+          il[u][1] = p < np / 2 && l < n ? l : -1;
+          if (il[u][1] >= 0) {
+            xy[u][0] = keys[i];
+            xy[u][1] = keys[l];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (il[u][1] >= 0 && xy[u][0] < xy[u][1]) {
+            keys[il[u][0]] = xy[u][1];
+            keys[il[u][1]] = xy[u][0];
+          }
         }
       }
       __syncthreads();
     }
+    register_pass(keys, n, np, k, k);
   }
 }
 
-// Block-wide maximum; every thread returns it.  `red` holds kWarps + 1.
-__device__ unsigned long long block_max_key(unsigned long long x,
-                                            unsigned long long* red) {
+// Leaves the largest min(k, n) of keys[0, n) at the front, sorted
+// descending.  Up to kSortAll keys are sorted whole: fewer barriers than a
+// select, a compaction and a sort.
+__device__ void select_top(unsigned long long* keys, int n, int k, Smem& sm) {
+  if (k < n && n > kSortAll) {
+    compact(keys, n, radix_select(keys, n, k, sm), sm);
+    n = k;
+  }
+  sort_desc(keys, n);
+}
+
+// Block-wide maximum; every thread returns it.
+__device__ unsigned long long block_max_key(unsigned long long x, Smem& sm) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const unsigned long long y = __shfl_xor_sync(kFull, x, o);
     x = y > x ? y : x;
   }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  if ((threadIdx.x & 31) == 0) sm.red_key[threadIdx.x >> 5] = x;
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned long long m = red[0];
-    for (int w = 1; w < kWarps; ++w) m = red[w] > m ? red[w] : m;
-    red[kWarps] = m;
+    unsigned long long m = sm.red_key[0];
+    for (int w = 1; w < kWarps; ++w) m = sm.red_key[w] > m ? sm.red_key[w] : m;
+    sm.red_key[kWarps] = m;
   }
   __syncthreads();
-  const unsigned long long m = red[kWarps];
+  const unsigned long long m = sm.red_key[kWarps];
   __syncthreads();
   return m;
 }
 
-__device__ float block_max_float(float x, float* red) {
+__device__ float block_max_float(float x, Smem& sm) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  if ((threadIdx.x & 31) == 0) sm.red_f[threadIdx.x >> 5] = x;
   __syncthreads();
   if (threadIdx.x == 0) {
-    float m = red[0];
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
-    red[kWarps] = m;
+    float m = sm.red_f[0];
+    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, sm.red_f[w]);
+    sm.red_f[kWarps] = m;
   }
   __syncthreads();
-  const float m = red[kWarps];
+  const float m = sm.red_f[kWarps];
   __syncthreads();
   return m;
 }
 
-// ---- round ends ------------------------------------------------------------
+// ---- round ends, one CTA per query -------------------------------------------
 
-// Round end: keep the best n_keep of the first n_surv slots.
-__device__ void eliminate(const Args& a, int rnd, const float* acc, int* surv,
-                          int* tmp, unsigned long long* keys) {
+// One query's per-query workspace.
+struct Query {
+  float* acc;
+  float* acc2;
+  int* surv;
+  int* tmp;
+  __device__ Query(const Args& a, int b) {
+    const size_t rows = static_cast<size_t>(b) * a.n_tiles * a.R;
+    acc = a.acc + rows;
+    acc2 = a.acc2 ? a.acc2 + rows : nullptr;
+    surv = a.surv + static_cast<size_t>(b) * a.n_tiles;
+    tmp = a.tmp + static_cast<size_t>(b) * a.n_tiles;
+  }
+};
+
+// Round end: keep the best n_keep of the first n_surv slots, in order.
+__device__ void eliminate(const Args& a, int rnd, const Query& q,
+                          unsigned long long* keys, Smem& sm) {
   const int R = a.R;
   const int t_cum = __ldg(a.rmeta + 3 * rnd);
   const int T = min(__ldg(a.rmeta + 3 * rnd + 1), a.n_tiles);
   const int keep = min(__ldg(a.rmeta + 3 * rnd + 2), T);
   const float denom = static_cast<float>(t_cum * a.C);
-  const int n = next_pow2(T);
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    unsigned long long key = 0ull;
-    if (j < T) {
-      const long long row0 = static_cast<long long>(surv[j]) * R;
+  if (R == 8 && denom > 0.f) {
+    // max_r RN(acc_r / d) = RN(max_r acc_r / d) for d > 0: one division a
+    // tile; four tiles' loads in flight a thread, two float4 each
+    constexpr int U = 4;
+    for (int j0 = threadIdx.x; j0 < T; j0 += U * kThreads) {
+      int tile[U];
+      float4 lo[U], hi[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * kThreads;
+        tile[u] = j < T ? q.surv[j] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float4* t4 = reinterpret_cast<const float4*>(q.acc + static_cast<size_t>(tile[u]) * 8);
+        lo[u] = t4[0];
+        hi[u] = t4[1];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * kThreads;
+        if (j >= T) continue;
+        const float v[8] = {lo[u].x, lo[u].y, lo[u].z, lo[u].w,
+                            hi[u].x, hi[u].y, hi[u].z, hi[u].w};
+        const long long row0 = static_cast<long long>(tile[u]) * 8;
+        float m = -INFINITY;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (row0 + r < a.n_valid) m = fmaxf(m, v[r]);
+        keys[j] = make_key(m / denom, j);
+      }
+    }
+  } else {
+    for (int j = threadIdx.x; j < T; j += kThreads) {
+      const long long row0 = static_cast<long long>(q.surv[j]) * R;
       float m = -INFINITY;
       for (int r = 0; r < R; ++r)
-        if (row0 + r < a.n_valid) m = fmaxf(m, acc[row0 + r] / denom);
-      key = make_key(m, j);
+        if (row0 + r < a.n_valid) m = fmaxf(m, q.acc[row0 + r] / denom);
+      keys[j] = make_key(m, j);
     }
-    keys[j] = key;
   }
   __syncthreads();
-  sort_desc(keys, n);
+  if (keep <= 0) return;
+  select_top(keys, T, keep, sm);
   for (int j = threadIdx.x; j < keep; j += kThreads)
-    tmp[j] = surv[key_index(keys[j])];
+    q.tmp[j] = q.surv[key_index(keys[j])];
   __syncthreads();
-  for (int j = threadIdx.x; j < keep; j += kThreads) surv[j] = tmp[j];
+  for (int j = threadIdx.x; j < keep; j += kThreads) q.surv[j] = q.tmp[j];
   __syncthreads();
 }
 
@@ -398,14 +805,13 @@ template <bool TRACK_VAR>
 struct CertRow {
   float mu, rad;
   bool valid;
-  __device__ CertRow(const Args& a, const float* acc, const float* acc2,
-                     const int* surv, int j, float denom, float denom_c,
-                     float ca, float cb) {
-    const long long row = static_cast<long long>(surv[j / a.R]) * a.R + j % a.R;
+  __device__ CertRow(const Args& a, const Query& q, int j, float denom,
+                     float denom_c, float ca, float cb) {
+    const long long row = static_cast<long long>(q.surv[j / a.R]) * a.R + j % a.R;
     valid = row < a.n_valid;
-    mu = __fdiv_rn(acc[row], denom);
+    mu = __fdiv_rn(q.acc[row], denom);
     if constexpr (TRACK_VAR) {
-      const float v = __fsub_rn(__fdiv_rn(acc2[row], denom_c), __fmul_rn(mu, mu));
+      const float v = __fsub_rn(__fdiv_rn(q.acc2[row], denom_c), __fmul_rn(mu, mu));
       rad = __fadd_rn(__fmul_rn(ca, __fsqrt_rn(fmaxf(v, 0.f))), cb);
     } else {
       rad = cb;
@@ -418,11 +824,13 @@ struct CertRow {
 
 // Does the query certify at round `rnd`?  Over the keep * R rows of the
 // post-elimination survivors: the top k_cert rows by mean must have lower
-// bounds at or above every other row's upper bound.
+// bounds at or above every other row's upper bound.  The survivors are in
+// (tile max descending, slot ascending) order and rows are numbered
+// slot-major, so each tile ahead of a row's tile holds a row that is ahead
+// of it: the top k_cert rows lie in the first k_cert tiles, and only their
+// rows are searched for them.
 template <bool TRACK_VAR>
-__device__ bool certify(const Args& a, int rnd, const float* acc,
-                        const float* acc2, const int* surv,
-                        unsigned long long* red_key, float* red_f) {
+__device__ bool certify(const Args& a, int rnd, const Query& q, Smem& sm) {
   const int t_cum = __ldg(a.rmeta + 3 * rnd);
   const int T = min(__ldg(a.rmeta + 3 * rnd + 1), a.n_tiles);
   const int n = min(__ldg(a.rmeta + 3 * rnd + 2), T) * a.R;
@@ -431,234 +839,339 @@ __device__ bool certify(const Args& a, int rnd, const float* acc,
   const float ca = __ldg(a.cert + 2 * rnd), cb = __ldg(a.cert + 2 * rnd + 1);
   unsigned long long prev = ~0ull;
   float minlb = INFINITY;
+  const int n_top = min(n, a.k_cert * a.R);
   for (int t = 0; t < a.k_cert; ++t) {
     unsigned long long best = 0ull;
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const CertRow<TRACK_VAR> c(a, acc, acc2, surv, j, denom, denom_c, ca, cb);
+    for (int j = threadIdx.x; j < n_top; j += kThreads) {
+      const CertRow<TRACK_VAR> c(a, q, j, denom, denom_c, ca, cb);
       const unsigned long long key = make_key(c.mean(), j);
       if (key < prev && key > best) best = key;
     }
-    best = block_max_key(best, red_key);
+    best = block_max_key(best, sm);
     if (best == 0ull) {      // fewer rows than k_cert: a padding row
       minlb = -INFINITY;
       break;
     }
-    const CertRow<TRACK_VAR> c(a, acc, acc2, surv, key_index(best), denom,
-                               denom_c, ca, cb);
+    const CertRow<TRACK_VAR> c(a, q, key_index(best), denom, denom_c, ca, cb);
     minlb = fminf(minlb, c.lower());
     prev = best;
   }
   float maxub = -INFINITY;
   for (int j = threadIdx.x; j < n; j += kThreads) {
-    const CertRow<TRACK_VAR> c(a, acc, acc2, surv, j, denom, denom_c, ca, cb);
+    const CertRow<TRACK_VAR> c(a, q, j, denom, denom_c, ca, cb);
     if (make_key(c.mean(), j) < prev) maxub = fmaxf(maxub, c.upper());
   }
-  maxub = block_max_float(maxub, red_f);
+  maxub = block_max_float(maxub, sm);
   return minlb >= maxub;
 }
 
-// Top k_out of the n_final * R rows of the final survivors.
-__device__ void finalize(const Args& a, const float* acc, const int* surv,
-                         unsigned long long* keys, int* ids, float* vals,
-                         int t_used) {
+// Top k_out of the n_final * R rows of query b's final survivors.
+__device__ void finalize(const Args& a, int b, const Query& q,
+                         unsigned long long* keys, int t_used, Smem& sm) {
   const int R = a.R;
   const float denom = static_cast<float>(max(1, t_used) * a.C);
   const int NF = min(a.n_final, a.n_tiles) * R;
-  const int n = next_pow2(NF);
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    unsigned long long key = 0ull;
-    if (j < NF) {
-      const long long row = static_cast<long long>(surv[j / R]) * R + j % R;
-      key = make_key(row < a.n_valid ? acc[row] / denom : -INFINITY, j);
-    }
-    keys[j] = key;
+  for (int j = threadIdx.x; j < NF; j += kThreads) {
+    const long long row = static_cast<long long>(q.surv[j / R]) * R + j % R;
+    keys[j] = make_key(row < a.n_valid ? q.acc[row] / denom : -INFINITY, j);
   }
   __syncthreads();
-  sort_desc(keys, n);
-  for (int j = threadIdx.x; j < min(a.k_out, NF); j += kThreads) {
+  const int kk = min(a.k_out, NF);
+  select_top(keys, NF, kk, sm);
+  int* ids = a.ids + static_cast<size_t>(b) * a.k_out;
+  float* vals = a.vals + static_cast<size_t>(b) * a.k_out;
+  for (int j = threadIdx.x; j < kk; j += kThreads) {
     const int p = key_index(keys[j]);
-    const long long row = static_cast<long long>(surv[p / R]) * R + p % R;
+    const long long row = static_cast<long long>(q.surv[p / R]) * R + p % R;
     ids[j] = static_cast<int>(row);
-    vals[j] = row < a.n_valid ? acc[row] / denom : -INFINITY;
+    vals[j] = row < a.n_valid ? q.acc[row] / denom : -INFINITY;
   }
+  __syncthreads();
 }
 
 // ---- the kernel ------------------------------------------------------------
 
+// Query b's pq lookup table lut[(col * Cs + s) * n_codes + k], each sum
+// taken over j in order with one rounded multiply and one rounded add per
+// term; the whole grid builds all queries' tables.
+__device__ void build_luts(const Args& a, size_t gtid, size_t gstride) {
+  const int w = a.C / a.Cs;
+  const size_t per_q = static_cast<size_t>(a.n_blocks) * a.Cs * a.n_codes;
+  const float* Q = static_cast<const float*>(a.Qb);
+  for (size_t i = gtid; i < per_q * a.B; i += gstride) {
+    const size_t b = i / per_q, k = i % per_q;
+    const float* qs = Q + b * a.n_blocks * a.C + (k / a.n_codes) * w;
+    const float* cb = a.codebook + k * w;
+    float v = __fmul_rn(__ldg(qs), __ldg(cb));
+    for (int j = 1; j < w; ++j) v = __fadd_rn(v, __fmul_rn(__ldg(qs + j), __ldg(cb + j)));
+    a.lut[i] = v;
+  }
+}
+
+// ---- walking the flat schedule ---------------------------------------------
+
+// Segment `rnd` of a schedule laid out as `flatten_schedule` lays it out
+// (column-major, slot-minor): round rnd < n_rounds pulls P = t_cum - t_prev
+// columns of its T = n_surv slots and ends on its last step, or is one
+// step that pulls nothing when P = 0; after the rounds, the remaining
+// steps walk n_final slots column by column.  Step base + p * T + s is
+// slot s of column p.
+struct Seg {
+  int T, P, len;
+};
+
+__device__ Seg segment_of(const Args& a, int rnd, int pos, int t_prev) {
+  if (rnd < a.n_rounds) {
+    const int T = __ldg(a.rmeta + 3 * rnd + 1);
+    const int P = __ldg(a.rmeta + 3 * rnd) - t_prev;
+    return P > 0 ? Seg{T, P, P * T} : Seg{1, 1, 1};
+  }
+  const int T = max(a.n_final, 1), len = a.S - pos;
+  return Seg{T, (len + T - 1) / T, len};
+}
+
+__device__ __forceinline__ bool query_active(const Args& a, bool adaptive,
+                                             unsigned amask, int b) {
+  return !adaptive ||
+         (a.B <= 32 ? ((amask >> b) & 1u) != 0u : a.state[2 * b] != 0);
+}
+
+// The cols row of query b: a shared batch's cols are one row.
+__device__ __forceinline__ size_t cols_row(const Args& a, int b) {
+  return a.shared_cols ? size_t{0} : static_cast<size_t>(b) * a.S;
+}
+
+// Pulls one segment laid out as `segment_of` says, without scanning it:
+// item m = slot * B + b belongs to warp m mod W, which walks the item's
+// columns in order.  With `shared` (round 1 of a batch sharing its cols)
+// an item is a slot and is pulled once for all queries.  pq runs 32 / R
+// items of a warp at once, lane r + R*i on row r of item i.
+template <int TIER, bool ADAPTIVE, bool TRACK_VAR>
+__device__ void walk_segment(const Args& a, const Seg& g, int base,
+                             bool shared, unsigned amask, int W, int gw,
+                             int lane) {
+  const int T = min(g.T, a.n_tiles);
+  auto col_of = [&](int b, int step) {
+    if (step >= a.S) return -1;
+    const unsigned code = static_cast<unsigned>(__ldg(a.slotcode + step));
+    if ((code & kPullBit) == 0u) return -1;
+    const int col = __ldg(a.cols + cols_row(a, b) + step);
+    return col >= 0 && col < a.n_blocks ? col : -1;
+  };
+  if constexpr (TIER == kPQ) {
+    const int G = 32 / a.R, i = lane / a.R, r = lane % a.R;
+    const long long n_items = static_cast<long long>(T) * a.B;
+    for (long long m0 = gw; m0 < n_items; m0 += static_cast<long long>(W) * G) {
+      const long long m = m0 + static_cast<long long>(i) * W;
+      if (lane >= G * a.R || m >= n_items) continue;
+      const int s = static_cast<int>(m / a.B), b = static_cast<int>(m % a.B);
+      if (!query_active(a, ADAPTIVE, amask, b)) continue;
+      const int tile = a.surv[static_cast<size_t>(b) * a.n_tiles + s];
+      for (int p = 0; p < g.P; ++p) {
+        const int col = col_of(b, base + p * g.T + s);
+        if (col >= 0) pq_row<TRACK_VAR>(a, b, tile, col, r);
+      }
+    }
+  } else if (shared) {
+    for (int s = gw; s < T; s += W) {
+      const int tile = a.surv[s];
+      for (int p = 0; p < g.P; ++p) {
+        const int col = col_of(0, base + p * g.T + s);
+        if (col >= 0) pull_cell<TIER, TRACK_VAR>(a, tile, col, 0, a.B, 1, lane);
+      }
+    }
+  } else {
+    const long long n_items = static_cast<long long>(T) * a.B;
+    for (long long m = gw; m < n_items; m += W) {
+      const int s = static_cast<int>(m / a.B), b = static_cast<int>(m % a.B);
+      if (!query_active(a, ADAPTIVE, amask, b)) continue;
+      const int tile = a.surv[static_cast<size_t>(b) * a.n_tiles + s];
+      for (int p = 0; p < g.P; ++p) {
+        const int col = col_of(b, base + p * g.T + s);
+        if (col >= 0) pull_cell<TIER, TRACK_VAR>(a, tile, col, b, b + 1, 1, lane);
+      }
+    }
+  }
+}
+
+// Round end `rnd` of every query, one CTA per query: eliminate, then an
+// active query certifies.
+template <bool ADAPTIVE, bool TRACK_VAR>
+__device__ void round_end(const Args& a, int rnd, unsigned long long* keys,
+                          Smem& sm) {
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    const Query q(a, b);
+    eliminate(a, rnd, q, keys, sm);
+    if (ADAPTIVE && a.state[2 * b] != 0 && certify<TRACK_VAR>(a, rnd, q, sm)) {
+      if (threadIdx.x == 0) {
+        a.state[2 * b] = 0;
+        a.state[2 * b + 1] = __ldg(a.rmeta + 3 * rnd);
+        a.rused[b] = rnd + 1;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 template <int TIER, bool ADAPTIVE, bool TRACK_VAR>
 __global__ void __launch_bounds__(kThreads, 1) cascade_kernel(Args a) {
-  __shared__ int s_active, s_tstop, s_rused;
-  __shared__ unsigned long long red_key[kWarps + 1];
-  __shared__ float red_f[kWarps + 1];
-  const int b = blockIdx.x;
+  extern __shared__ unsigned long long dyn_keys[];
+  __shared__ Smem sm;
+  cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int R = a.R;
-  const size_t tile_cells = static_cast<size_t>(R) * a.Cs;
-  float* acc = a.acc + static_cast<size_t>(b) * a.n_tiles * R;
-  float* acc2 = TRACK_VAR ? a.acc2 + static_cast<size_t>(b) * a.n_tiles * R : nullptr;
-  int* surv = a.surv + static_cast<size_t>(b) * a.n_tiles;
-  int* tmp = a.tmp + static_cast<size_t>(b) * a.n_tiles;
-  unsigned long long* keys = a.keys + static_cast<size_t>(b) * a.P;
-  const int* cols = a.cols + static_cast<size_t>(b) * a.S;
-  const size_t q_off = static_cast<size_t>(b) * a.n_blocks * a.C;
-  float* lut = TIER == kPQ
-      ? a.lut + static_cast<size_t>(b) * a.n_blocks * a.Cs * a.n_codes : nullptr;
+  const int W = gridDim.x * kWarps, gw = blockIdx.x * kWarps + warp;
+  const size_t gtid = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const size_t gstride = static_cast<size_t>(gridDim.x) * kThreads;
+  unsigned long long* keys =
+      a.keys ? a.keys + static_cast<size_t>(blockIdx.x) * a.P : dyn_keys;
 
-  for (size_t i = threadIdx.x; i < static_cast<size_t>(a.n_tiles) * R; i += kThreads) {
-    acc[i] = 0.f;
-    if constexpr (TRACK_VAR) acc2[i] = 0.f;
+  const size_t n_rows = static_cast<size_t>(a.B) * a.n_tiles * a.R;
+  for (size_t i = gtid; i < n_rows; i += gstride) {
+    a.acc[i] = 0.f;
+    if constexpr (TRACK_VAR) a.acc2[i] = 0.f;
   }
-  for (int j = threadIdx.x; j < a.n_tiles; j += kThreads) surv[j] = j;
-  if constexpr (TIER == kPQ) build_lut(a, static_cast<const float*>(a.Qb) + q_off, lut);
-  if (threadIdx.x == 0) {
-    s_active = 1;
-    s_tstop = a.t_final;
-    s_rused = a.n_rounds;
-  }
-  __syncthreads();
-
-  int pos = 0, rnd = 0;
-  while (pos < a.S) {
-    // Every warp scans the same segment of steps, up to and including the
-    // next round-end step, and pulls the steps of its own slots in order;
-    // a certified query pulls nothing more.
-    const bool active = !ADAPTIVE || s_active;
-    int seg_end = a.S;
-    bool has_end = false;
-    for (int c = pos; c < a.S; c += 32) {
-      const int i = c + lane;
-      const unsigned code = i < a.S ? static_cast<unsigned>(__ldg(a.slotcode + i)) : 0u;
-      const unsigned ends = __ballot_sync(kFull, (code & kEndBit) != 0u);
-      const int lim = ends ? __ffs(ends) : 32;
-      const int slot = static_cast<int>(code & kSlotMask);
-      const bool mine = active && lane < lim && (code & kPullBit) != 0u &&
-                        slot % kWarps == warp;
-      unsigned todo = __ballot_sync(kFull, mine);
-      while (todo) {
-        const int bit = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const int s = __shfl_sync(kFull, slot, bit);
-        const int col = __ldg(cols + c + bit);
-        if (s >= a.n_tiles || col < 0 || col >= a.n_blocks) continue;
-        const int tile = surv[s];
-        const size_t cell = static_cast<size_t>(tile) * a.n_blocks + col;
-        float part;
-        if constexpr (TIER == kF32) {
-          part = pull_f32(a, static_cast<const float*>(a.V4) + cell * tile_cells,
-                          static_cast<const float*>(a.Qb) + q_off +
-                              static_cast<size_t>(col) * a.C, lane);
-        } else if constexpr (TIER == kPQ) {
-          part = pull_pq(a, static_cast<const uint8_t*>(a.V4) + cell * tile_cells,
-                         lut + static_cast<size_t>(col) * a.Cs * a.n_codes, lane);
-        } else {
-          const int8_t* v = static_cast<const int8_t*>(a.V4) + cell * tile_cells;
-          const int8_t* q = static_cast<const int8_t*>(a.Qb) + q_off +
-                            static_cast<size_t>(col) * a.C;
-          const int raw = TIER == kI8 ? pull_i8(a, v, q, lane) : pull_i4(a, v, q, lane);
-          const float scale = __fmul_rn(__ldg(a.vscale + cell),
-                                        __ldg(a.qscale + static_cast<size_t>(b) * a.n_blocks + col));
-          part = __fmul_rn(__int2float_rn(raw), scale);
-        }
-        if (lane < R) {
-          const size_t row = static_cast<size_t>(tile) * R + lane;
-          acc[row] = __fadd_rn(acc[row], part);
-          if constexpr (TRACK_VAR) acc2[row] = __fadd_rn(acc2[row], __fmul_rn(part, part));
-        }
-      }
-      if (ends) {
-        seg_end = c + lim;
-        has_end = true;
-        break;
-      }
-    }
-    pos = seg_end;
-    __syncthreads();
-    if (has_end) {
-      if (rnd < a.n_rounds) {
-        eliminate(a, rnd, acc, surv, tmp, keys);
-        if (ADAPTIVE && s_active &&
-            certify<TRACK_VAR>(a, rnd, acc, acc2, surv, red_key, red_f)) {
-          if (threadIdx.x == 0) {
-            s_active = 0;
-            s_tstop = __ldg(a.rmeta + 3 * rnd);
-            s_rused = rnd + 1;
-          }
-          __syncthreads();
-        }
-      }
-      ++rnd;
+  for (size_t i = gtid; i < static_cast<size_t>(a.B) * a.n_tiles; i += gstride)
+    a.surv[i] = static_cast<int>(i % a.n_tiles);
+  if constexpr (ADAPTIVE) {
+    for (size_t i = gtid; i < static_cast<size_t>(a.B); i += gstride) {
+      a.state[2 * i] = 1;
+      a.state[2 * i + 1] = a.t_final;
+      a.rused[i] = a.n_rounds;
     }
   }
-  finalize(a, acc, surv, keys, a.ids + static_cast<size_t>(b) * a.k_out,
-           a.vals + static_cast<size_t>(b) * a.k_out,
-           ADAPTIVE ? s_tstop : a.t_final);
-  if (ADAPTIVE && threadIdx.x == 0) a.rused[b] = s_rused;
+  if constexpr (TIER == kPQ) build_luts(a, gtid, gstride);
+  if (gtid == 0) *a.grid_out = static_cast<int>(gridDim.x);
+  grid.sync();
+
+  int pos = 0, t_prev = 0;
+  for (int rnd = 0;; ++rnd) {
+    const Seg g = segment_of(a, rnd, pos, t_prev);
+    if (g.len > 0) {
+      const unsigned amask = ADAPTIVE && a.B <= 32
+          ? __ballot_sync(kFull, lane < a.B && a.state[2 * lane] != 0) : kFull;
+      walk_segment<TIER, ADAPTIVE, TRACK_VAR>(
+          a, g, pos, a.shared_cols && rnd == 0, amask, W, gw, lane);
+      grid.sync();
+    }
+    if (rnd >= a.n_rounds) break;
+    round_end<ADAPTIVE, TRACK_VAR>(a, rnd, keys, sm);
+    grid.sync();
+    t_prev = __ldg(a.rmeta + 3 * rnd);
+    pos += g.len;
+  }
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x)
+    finalize(a, b, Query(a, b), keys, ADAPTIVE ? a.state[2 * b + 1] : a.t_final, sm);
+}
+
+// One cooperative launch over every SM: one CTA per SM, the round ends'
+// keys in dynamic shared memory unless the wrapper gave a workspace.
+template <int TIER, bool ADAPTIVE, bool TRACK_VAR>
+cudaError_t launch_inst(const Args& a, cudaStream_t stream) {
+  auto kern = cascade_kernel<TIER, ADAPTIVE, TRACK_VAR>;
+  // the shared-memory size this instance was last set up and checked for
+  // on a device; a smaller one fits too
+  static int ready_dev = -1;
+  static size_t ready_smem = 0;
+  int dev = 0, sms = 0, per_sm = 1;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t smem = a.keys ? 0 : static_cast<size_t>(a.P) * sizeof(unsigned long long);
+  if (err == cudaSuccess && (dev != ready_dev || smem > ready_smem)) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    if (err == cudaSuccess && per_sm >= 1) {
+      ready_dev = dev;
+      ready_smem = smem;
+    }
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  Args copy = a;
+  void* params[] = {&copy};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(sms),
+                                    dim3(kThreads), params, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int TIER>
-cudaError_t launch_tier(const Args& a, int B, int adaptive, int track_var,
+cudaError_t launch_tier(const Args& a, int adaptive, int track_var,
                         cudaStream_t stream) {
-  if (!adaptive)
-    cascade_kernel<TIER, false, false><<<B, kThreads, 0, stream>>>(a);
-  else if (!track_var)
-    cascade_kernel<TIER, true, false><<<B, kThreads, 0, stream>>>(a);
-  else
-    cascade_kernel<TIER, true, true><<<B, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
+  if (!adaptive) return launch_inst<TIER, false, false>(a, stream);
+  if (!track_var) return launch_inst<TIER, true, false>(a, stream);
+  return launch_inst<TIER, true, true>(a, stream);
 }
 
-cudaError_t launch(int tier, const Args& a, int B, int adaptive,
-                   int track_var, cudaStream_t stream) {
+cudaError_t launch(int tier, const Args& a, int adaptive, int track_var,
+                   cudaStream_t stream) {
   switch (tier) {
-    case kF32: return launch_tier<kF32>(a, B, adaptive, track_var, stream);
-    case kI8: return launch_tier<kI8>(a, B, adaptive, track_var, stream);
-    case kI4: return launch_tier<kI4>(a, B, adaptive, track_var, stream);
-    case kPQ: return launch_tier<kPQ>(a, B, adaptive, track_var, stream);
+    case kF32: return launch_tier<kF32>(a, adaptive, track_var, stream);
+    case kI8: return launch_tier<kI8>(a, adaptive, track_var, stream);
+    case kI4: return launch_tier<kI4>(a, adaptive, track_var, stream);
+    case kPQ: return launch_tier<kPQ>(a, adaptive, track_var, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// The grid of a launch on the current device: its SM count (one CTA each)
+// and how many 64-bit round-end keys fit in a CTA's shared memory (above
+// that the wrapper passes a keys workspace of (grid, P)).
+extern "C" int fused_cascade_config(int* sms, int* key_capacity) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *key_capacity = (optin - kStaticSmem) / static_cast<int>(sizeof(unsigned long long));
+  return static_cast<int>(err);
+}
+
 // The batched entry, for every tier: tier 0 fp32, 1 int8, 2 int4, 3 pq.
-// Returns the launch's cudaError_t (0 on success); the wrapper raises on
-// anything else.
+// With shared_cols every query reads cols row 0 (the wrapper sets it for
+// cols that are one row expanded over the batch).  Returns the launch's
+// cudaError_t (0 on success); the wrapper raises on anything else.
 extern "C" int fused_cascade_batched(
-    int tier, int adaptive, int track_var, const void* V4, const void* Qb,
-    const float* vscale, const float* qscale, const float* codebook,
-    const float* cert, const int* slotcode, const int* rmeta, const int* cols,
-    int* ids, float* vals, int* rused, float* acc, float* acc2, int* surv,
-    int* tmp, unsigned long long* keys, float* lut, int B, int n_tiles,
-    int n_blocks, int R, int C, int Cs, int S, int n_rounds, int t_final,
-    int n_final, int k_out, int n_codes, int k_cert, int P, int vec,
-    long long n_valid, cudaStream_t stream) {
+    int tier, int adaptive, int track_var, int shared_cols, const void* V4,
+    const void* Qb, const float* vscale, const float* qscale,
+    const float* codebook, const float* cert, const int* slotcode,
+    const int* rmeta, const int* cols, int* ids, float* vals, int* rused,
+    float* acc, float* acc2, int* surv, int* tmp, int* state, int* grid_out,
+    unsigned long long* keys, float* lut, int B, int n_tiles, int n_blocks,
+    int R, int C, int Cs, int S, int n_rounds, int t_final, int n_final,
+    int k_out, int n_codes, int k_cert, int P, int vec, long long n_valid,
+    cudaStream_t stream) {
   Args a{V4, Qb, vscale, qscale, codebook, cert, slotcode, rmeta, cols, ids,
-         vals, rused, acc, acc2, surv, tmp, keys, lut, n_tiles, n_blocks, R,
-         C, Cs, S, n_rounds, t_final, n_final, k_out, n_codes, k_cert, P, vec,
-         n_valid};
-  return static_cast<int>(launch(tier, a, B, adaptive, track_var, stream));
+         vals, rused, acc, acc2, surv, tmp, state, grid_out, keys, lut, B,
+         n_tiles, n_blocks, R, C, Cs, S, n_rounds, t_final, n_final, k_out,
+         n_codes, k_cert, P, vec, shared_cols, n_valid};
+  return static_cast<int>(launch(tier, a, adaptive, track_var, stream));
 }
 
 // The single-query entry (replaces `fused_cascade_pallas`): qb (n_blocks, C),
 // qscale (n_blocks,), cols (S,), ids and vals (k_out,), a scalar rused, and
 // workspace for one query.  The TPU's two kernels are one `_make_kernel`
-// body; here the same templated body runs as one block.  The layouts are
-// those of a B = 1 batch, so its outputs equal a B = 1 batched launch bit
-// for bit.
+// body; here the same templated body runs over the same grid.  The layouts
+// are those of a B = 1 batch, so its outputs equal a B = 1 batched launch
+// bit for bit.
 extern "C" int fused_cascade(
     int tier, int adaptive, int track_var, const void* V4, const void* qb,
     const float* vscale, const float* qscale, const float* codebook,
     const float* cert, const int* slotcode, const int* rmeta, const int* cols,
     int* ids, float* vals, int* rused, float* acc, float* acc2, int* surv,
-    int* tmp, unsigned long long* keys, float* lut, int n_tiles,
-    int n_blocks, int R, int C, int Cs, int S, int n_rounds, int t_final,
-    int n_final, int k_out, int n_codes, int k_cert, int P, int vec,
-    long long n_valid, cudaStream_t stream) {
+    int* tmp, int* state, int* grid_out, unsigned long long* keys, float* lut,
+    int n_tiles, int n_blocks, int R, int C, int Cs, int S, int n_rounds,
+    int t_final, int n_final, int k_out, int n_codes, int k_cert, int P,
+    int vec, long long n_valid, cudaStream_t stream) {
   Args a{V4, qb, vscale, qscale, codebook, cert, slotcode, rmeta, cols, ids,
-         vals, rused, acc, acc2, surv, tmp, keys, lut, n_tiles, n_blocks, R,
-         C, Cs, S, n_rounds, t_final, n_final, k_out, n_codes, k_cert, P, vec,
-         n_valid};
-  return static_cast<int>(launch(tier, a, 1, adaptive, track_var, stream));
+         vals, rused, acc, acc2, surv, tmp, state, grid_out, keys, lut, 1,
+         n_tiles, n_blocks, R, C, Cs, S, n_rounds, t_final, n_final, k_out,
+         n_codes, k_cert, P, vec, 0, n_valid};
+  return static_cast<int>(launch(tier, a, adaptive, track_var, stream));
 }
 
 extern "C" const char* cuda_error_string(int code) {

@@ -8,27 +8,32 @@ first use and binds it with ``ctypes``; nothing here imports or builds
 anything when the module is imported.
 
 Two entries share one templated body, as the two TPU kernels share
-``_make_kernel``: `fused_cascade_batched_cuda` (a (B, N) batch, one block
-per query) and `fused_cascade_cuda` (one query, one block).  Each
-launches on CUDA tensors and raises on anything else;
-`repro_torch.kernels.ops` chooses between them and the plain PyTorch
-versions by the tensors' device.
+``_make_kernel``: `fused_cascade_batched_cuda` (a (B, N) batch) and
+`fused_cascade_cuda` (one query).  Each is one cooperative launch of one
+CTA per SM (`launch_grid`; `launched_grid` reads back the grid a launch
+ran with); each launches on CUDA tensors and raises on anything else,
+and on a schedule not laid out as ``flatten_schedule`` lays it out
+(`check_layout`).  `repro_torch.kernels.ops` chooses between them and
+the plain PyTorch versions by the tensors' device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core.schedule import END_BIT, PULL_BIT, SLOT_MASK
 from repro_torch.kernels import library
 from repro_torch.kernels.library import launch_counts, reset_launch_counts
 
 __all__ = ["build", "fused_cascade_batched_cuda", "fused_cascade_cuda",
-           "resolve_tier", "TIERS", "launch_counts", "reset_launch_counts",
-           "SOURCE"]
+           "launch_grid", "launched_grid", "check_layout", "resolve_tier",
+           "TIERS", "launch_counts", "reset_launch_counts", "SOURCE"]
 
 SOURCE = library.CSRC / "fused_cascade.cu"
 
@@ -54,14 +59,101 @@ def _lib() -> ctypes.CDLL:
     lib = library.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     tail = [i] * 14 + [ctypes.c_longlong, p]
-    lib.fused_cascade_batched.argtypes = [i] * 3 + [p] * 18 + [i] + tail
-    lib.fused_cascade.argtypes = [i] * 3 + [p] * 18 + tail
+    lib.fused_cascade_batched.argtypes = [i] * 4 + [p] * 20 + [i] + tail
+    lib.fused_cascade.argtypes = [i] * 3 + [p] * 20 + tail
+    lib.fused_cascade_config.argtypes = [ctypes.POINTER(i)] * 2
     lib.fused_cascade_batched.restype = lib.fused_cascade.restype = i
+    lib.fused_cascade_config.restype = i
     return lib
 
 
-def _next_pow2(x: int) -> int:
-    return 1 << max(0, int(x) - 1).bit_length()
+@functools.lru_cache(maxsize=None)
+def launch_grid(device: torch.device) -> Tuple[int, int]:
+    """``(CTAs, key capacity)`` of a launch on ``device``: one CTA per SM,
+    and how many 64-bit round-end keys fit in a CTA's shared memory."""
+    lib = _lib()
+    sms, cap = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.fused_cascade_config(ctypes.byref(sms), ctypes.byref(cap))
+    library.check_launch(lib, rc, "fused_cascade_config")
+    return sms.value, cap.value
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_word(device: torch.device) -> torch.Tensor:
+    """The word every launch on ``device`` writes its ``gridDim.x`` to."""
+    return torch.zeros((1,), dtype=torch.int32, device=device)
+
+
+def launched_grid(device) -> int:
+    """The CTA count the last launch of either entry on ``device`` ran
+    with, as the kernel read it from its own ``gridDim.x``; 0 when none
+    launched since the last call.  Waits for the card, and clears it."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    word = _grid_word(dev)
+    n = int(word.item())
+    word.zero_()
+    return n
+
+
+# id(slotcode) -> (its weakref, rounds_meta's weakref, versions, n_final)
+# of every schedule `check_layout` has passed
+_LAYOUTS: dict = {}
+
+
+def _layout(meta: np.ndarray, S: int, n_final: int):
+    """``(slot | END_BIT per step, whether the step may pull)`` of an
+    ``S``-step schedule with rounds ``meta`` laid out as
+    ``flatten_schedule`` lays it out, or None when the rounds do not fit:
+    round r pulls ``P = t_cum - t_prev`` columns of its ``T = n_surv``
+    slots (step ``p * T + s`` is slot s of column p) and ends on its last
+    step, or is one step that pulls nothing when ``P = 0``; the steps
+    after the rounds walk ``n_final`` slots column by column."""
+    codes = np.zeros(S, np.int64)
+    may_pull = np.ones(S, bool)
+    pos = t_prev = 0
+    for t_cum, T, _ in meta[:-1].tolist():
+        P = t_cum - t_prev
+        n = P * T if P > 0 else 1
+        if P < 0 or T < 1 or pos + n > S:
+            return None
+        if P > 0:
+            codes[pos:pos + n] = np.arange(n) % T
+        else:
+            may_pull[pos] = False
+        codes[pos + n - 1] |= END_BIT
+        pos, t_prev = pos + n, t_cum
+    codes[pos:] = np.arange(S - pos) % max(n_final, 1)
+    return codes, may_pull
+
+
+def check_layout(slotcode: torch.Tensor, rounds_meta: torch.Tensor,
+                 n_final: int) -> None:
+    """Raise ValueError unless ``slotcode`` is laid out as
+    ``flatten_schedule`` (`FlatSchedule.packed`) lays out the rounds of
+    ``rounds_meta``: the kernel walks that layout without reading the
+    steps' slots and round ends.  A schedule that passed (the same
+    tensors, unmodified) is not read again; the first check of one
+    copies it to the host."""
+    key = (slotcode._version, rounds_meta._version, int(n_final))
+    seen = _LAYOUTS.get(id(slotcode))
+    if (seen is not None and seen[0]() is slotcode
+            and seen[1]() is rounds_meta and seen[2:] == key):
+        return
+    code = slotcode.cpu().numpy().astype(np.int64)
+    want = _layout(rounds_meta.cpu().numpy(), code.size, int(n_final))
+    if want is None or not (
+            np.array_equal(code & (SLOT_MASK | END_BIT), want[0])
+            and (want[1] | (code & PULL_BIT == 0)).all()):
+        raise ValueError("slotcode is not laid out as flatten_schedule "
+                         "lays out the rounds of rounds_meta; the kernel "
+                         "walks that layout only")
+    for k in [k for k, v in _LAYOUTS.items() if v[0]() is None]:
+        del _LAYOUTS[k]
+    _LAYOUTS[id(slotcode)] = (weakref.ref(slotcode),
+                              weakref.ref(rounds_meta), *key)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
@@ -121,7 +213,10 @@ def _launch(single: bool, V4: torch.Tensor, Qb: torch.Tensor,
     _check("V4", V4, {"fp32": torch.float32, "pq": torch.uint8}.get(
         tier, torch.int8), 4, dev)
     n_tiles, n_blocks, R, Cs = V4.shape
-    _check("cols", cols, torch.int32, 2, dev)
+    # one cols row expanded over the batch (stride 0): every query pulls
+    # the same columns, and round 1 is read once for the batch
+    shared = cols.dim() == 2 and (cols.shape[0] == 1 or cols.stride(0) == 0)
+    _check("cols", cols[:1] if shared else cols, torch.int32, 2, dev)
     B, S = cols.shape
     _check("Qb", Qb, torch.int8 if tier in ("int8", "int4")
            else torch.float32, (B, n_blocks, C), dev)
@@ -157,7 +252,9 @@ def _launch(single: bool, V4: torch.Tensor, Qb: torch.Tensor,
         raise ValueError(f"k_out={k_out} outside [1, n_final*R="
                          f"{n_final * R}]")
     n_valid = n_arms if n_valid is None else int(n_valid)
-    P = _next_pow2(max(n_tiles, n_final * R, 1))
+    check_layout(slotcode, rounds_meta, n_final)
+    P = max(n_tiles, n_final * R)
+    grid, capacity = launch_grid(dev)
     aligned = V4.data_ptr() % 16 == 0 and Qb.data_ptr() % 16 == 0
     vec = int(aligned and {"fp32": R == 8 and C in (128, 256, 512),
                            "int8": C % 16 == 0, "int4": Cs % 16 == 0,
@@ -165,27 +262,39 @@ def _launch(single: bool, V4: torch.Tensor, Qb: torch.Tensor,
     ids = torch.empty((B, k_out), dtype=torch.int32, device=dev)
     vals = torch.empty((B, k_out), dtype=torch.float32, device=dev)
     rused = torch.empty((B,), dtype=torch.int32, device=dev)
-    acc = torch.empty((B, n_tiles, R), dtype=torch.float32, device=dev)
-    acc2 = torch.empty_like(acc) if track_var else None
-    surv = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
-    tmp = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
-    keys = torch.empty((B, P), dtype=torch.int64, device=dev)
-    lut = (torch.empty((B, n_blocks * Cs * n_codes), dtype=torch.float32,
-                       device=dev) if tier == "pq" else None)
+    # the kernel's workspace, one allocation: accumulators, M2 (bernstein),
+    # survivors and their copy, per query active / t_stop, the pq tables,
+    # and the round-end keys when a CTA's shared memory cannot hold them;
+    # 4-byte words, each part 256-byte aligned
+    rows = B * n_tiles * R
+    parts = {"acc": rows, "acc2": rows if track_var else 0,
+             "surv": B * n_tiles, "tmp": B * n_tiles,
+             "state": 2 * B,
+             "lut": B * n_blocks * Cs * n_codes if tier == "pq" else 0,
+             "keys": 2 * grid * P if P > capacity else 0}
+    offsets, words = {}, 0
+    for name, n in parts.items():
+        offsets[name] = words if n else None
+        words += -(-n // 64) * 64
+    work = torch.empty((words,), dtype=torch.int32, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    def ptr(name):
+        off = offsets[name]
+        return None if off is None else work.data_ptr() + 4 * off
     lib = _lib()
     entry = "fused_cascade" if single else "fused_cascade_batched"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry)(
             TIERS.index(tier), int(cert is not None), int(track_var),
-            V4.data_ptr(), Qb.data_ptr(), ptr(vscale), ptr(qscale),
-            ptr(codebook), ptr(cert), slotcode.data_ptr(),
+            *(() if single else (int(shared),)), V4.data_ptr(),
+            Qb.data_ptr(), *(None if t is None else t.data_ptr()
+                             for t in (vscale, qscale, codebook, cert)),
+            slotcode.data_ptr(),
             rounds_meta.data_ptr(), cols.data_ptr(), ids.data_ptr(),
-            vals.data_ptr(), rused.data_ptr(), acc.data_ptr(), ptr(acc2),
-            surv.data_ptr(), tmp.data_ptr(), keys.data_ptr(), ptr(lut),
+            vals.data_ptr(), rused.data_ptr(), ptr("acc"), ptr("acc2"),
+            ptr("surv"), ptr("tmp"), ptr("state"), _grid_word(dev).data_ptr(),
+            ptr("keys"), ptr("lut"),
             *(() if single else (B,)), n_tiles, n_blocks, R, C, Cs, S,
             n_rounds, int(t_final), int(n_final), k_out, n_codes,
             int(k_cert), P, vec, n_valid, stream)
@@ -211,7 +320,10 @@ def fused_cascade_batched_cuda(V4: torch.Tensor, Qb: torch.Tensor,
     """Launch the fused cascade on CUDA tensors (one launch per batch).
 
     Operands as in `repro_torch.kernels.ops.fused_cascade_batched`, all
-    contiguous on one CUDA device; the tier follows from them
+    contiguous on one CUDA device except ``cols``, which may also be one
+    ``(S,)`` row expanded over the batch (stride 0): round 1 then reads
+    each pulled cell once for the whole batch, with results bitwise those
+    of a contiguous copy.  The tier follows from the operands
     (`resolve_tier`).  Returns ``(ids (B, k_out) int32, vals (B, k_out)
     float32)``, vals being unscaled block means, and with ``cert`` also
     ``rounds_used (B,) int32``.

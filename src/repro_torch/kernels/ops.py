@@ -124,6 +124,10 @@ def fused_cascade_batched(V4: torch.Tensor, Qb: torch.Tensor,
     descending score, vals being unscaled block means; entries past the
     live rows carry ``-inf``.  With ``cert`` a third output ``rounds_used
     (B,) int32`` counts the rounds each query pulled in.
+
+    A batch that shares one block permutation may pass ``cols`` as one
+    row expanded over the batch (stride 0): the kernel then reads round
+    1's cells once for the whole batch.  Results do not depend on it.
     """
     kw = dict(n_arms=n_arms, K=K, t_final=t_final, n_final=n_final,
               k_out=k_out, n_valid=n_valid, vscale=vscale, qscale=qscale,

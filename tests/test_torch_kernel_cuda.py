@@ -10,7 +10,11 @@ version's ``einsum``).  The int8 and int4 tiers are bitwise equal (exact
 integer dots, then the same rounded float ops), and so are the adaptive
 ``rounds_used``; pq scores are held to the fp32 tolerance.  The
 single-query cascade is held the same way and, bit for bit, against a
-B = 1 launch of the batched entry.  The gathered tile-dot and the blocked
+B = 1 launch of the batched entry.  The batched entry given one cols row
+expanded over the batch (its shared round-1 read) is bitwise the same
+launch on a contiguous copy; both entries launch one CTA per SM (read back
+from the kernel) and refuse a schedule off the flat layout.  The
+gathered tile-dot and the blocked
 matvec agree with their plain versions to rtol 1e-5 and atol 1e-5 *
 max|out| in f32 and bf16: the products are exact in f32 and only the
 order of the sums within a block or slab differs.
@@ -37,6 +41,8 @@ CASES = [
     (5000, 768, 4, 256, "row", 8, 5000, 4, True, 4),     # float4, C=256
     (777, 200, 2, 64, "row", 4, 700, 3, True, 2),        # R=4
     (64, 96, 64, 64, "row", 8, 64, 64, False, 2),        # no rounds
+    (40, 64, 2, 32, "row", 8, 37, 3, True, 2),           # 5 tiles < CTAs
+    (203, 300, 3, 64, "row", 8, 190, 5, True, 150),      # B > CTAs
 ]
 
 
@@ -121,7 +127,7 @@ def _tier(args, tier, bound=None):
 
 @pytest.mark.parametrize("tier", ["int8", "int4", "pq"])
 @pytest.mark.parametrize("n,N,K,block,mode,tile,n_valid,k_out,cover,B",
-                         [CASES[i] for i in (0, 1, 2, 3, 4, 6)])
+                         [CASES[i] for i in (0, 1, 2, 3, 4, 6, 8, 9)])
 def test_kernel_tiers_match_plain_version(card, tier, n, N, K, block, mode,
                                           tile, n_valid, k_out, cover, B):
     args, kw = _operands(n, N, K, block, mode, tile, cover, B, seed=n)
@@ -210,6 +216,196 @@ def test_kernel_wrapper_checks_tier_operands(card):
                                       track_var=True, **kw)
 
 
+@pytest.mark.parametrize("case", [8, 9, 4])      # 5 tiles, B = 150, C = 512
+def test_launch_uses_every_sm(card, case):
+    """The grid each entry ran with, read back from the kernel's own
+    gridDim: one CTA per SM, whatever the table or the batch."""
+    n, N, K, block, mode, tile, n_valid, k_out, cover, B = CASES[case]
+    args, kw = _operands(n, N, K, block, mode, tile, cover, B, seed=n)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    ctas, capacity = fc.launch_grid(card)
+    assert ctas == sms and capacity >= 19200   # the qwen1.5-0.5b tiles
+    V4, Qb, slotcode, rmeta, cols = (t.to(card) for t in args)
+    fc.launched_grid(card)
+    fc.fused_cascade_batched_cuda(V4, Qb, slotcode, rmeta, cols,
+                                  k_out=k_out, n_valid=n_valid, **kw)
+    assert fc.launched_grid(card) == sms
+    assert fc.launched_grid(card) == 0         # read once, then cleared
+    fc.fused_cascade_cuda(V4, Qb[0].contiguous(), slotcode, rmeta,
+                          cols[0].contiguous(), k_out=k_out, n_valid=n_valid,
+                          **kw)
+    assert fc.launched_grid(card) == sms
+
+
+def _plan_of(n, N, K, block, mode, bound="hoeffding"):
+    """The plan `_operands` builds, for its cert operand."""
+    return bt.make_plan(n, N, K=K, eps=0.5, delta=0.1, value_range=8.0,
+                        block=block, tile=8, pull_mode=mode,
+                        coord_block=32 if block < 128 else 128, bound=bound)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("tier", ["fp32", "int8", "int4", "pq"])
+@pytest.mark.parametrize("n,N,block,mode", [(4000, 1024, 512, "row"),
+                                            (1000, 256, 128, "coord"),
+                                            (203, 300, 64, "row")])
+def test_shared_cols_is_bitwise_the_same_launch(card, tier, adaptive, n, N,
+                                                block, mode):
+    args, kw = _operands(n, N, 4, block, mode, 8, not adaptive, 4, seed=7)
+    args, tkw = _tier(args, tier)
+    kw = dict(kw, k_out=5, n_valid=n - 7, **tkw)
+    if adaptive:
+        plan = _plan_of(n, N, 4, block, mode, "bernstein")
+        kw.update(cert=bt.cert_operand(plan.schedule, torch.device("cpu")),
+                  k_cert=4, track_var=True)
+    (V4, Qb, slotcode, rmeta, cols), dkw = _on(card, args, kw)
+    off = fc.fused_cascade_batched_cuda(V4, Qb, slotcode, rmeta, cols, **dkw)
+    on = fc.fused_cascade_batched_cuda(V4, Qb, slotcode, rmeta,    # stride 0
+                                       cols[:1].expand(cols.shape[0], -1),
+                                       **dkw)
+    torch.cuda.synchronize()
+    assert len(on) == len(off)
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_shared_cols_only_for_one_expanded_row(card):
+    """Cols with equal rows in a copy, or unequal rows, take the per-query
+    read; both agree with the plain version, and the copy is bitwise the
+    expanded row's launch."""
+    args, kw = _operands(203, 300, 3, 64, "row", 8, True, 3, seed=0)
+    kw = dict(kw, k_out=5, n_valid=190)
+    V4, Qb, slotcode, rmeta, cols = args
+    plan = _plan_of(203, 300, 3, 64, "row")
+    bpos = bt.schedule_operands(plan.schedule, True, torch.device("cpu"))[2]
+    mixed = cols.clone()
+    mixed[1] = torch.from_numpy(np.random.default_rng(3).permutation(
+        plan.n_blocks))[bpos].to(torch.int32)
+    assert not torch.equal(mixed[1], mixed[0])
+    for c in (cols, mixed):
+        want = ops.fused_cascade_batched(V4, Qb, slotcode, rmeta, c, **kw)
+        dev = [t.to(card) for t in (V4, Qb, slotcode, rmeta, c)]
+        got = ops.fused_cascade_batched(*dev, **kw)
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+        np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(),
+                                   rtol=1e-5, atol=1e-6 * float(
+                                       want[1].abs().max()))
+    dev = [t.to(card) for t in args]
+    one = ops.fused_cascade_batched(*dev[:4], dev[4][:1].expand(3, -1), **kw)
+    for a, b in zip(one, ops.fused_cascade_batched(*dev, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tier", ["fp32", "int8"])
+def test_adaptive_batch_mixes_round_one_exits_and_full_runs(card, tier):
+    n, N = 400, 4096
+    rng = np.random.default_rng(11)
+    V = rng.normal(size=(n, N)).astype(np.float32)
+    Q = rng.normal(size=(4, N)).astype(np.float32)
+    V[:3] += 0.6 * Q[0]              # queries 0 and 2 have clear winners,
+    V[200:203] += 0.6 * Q[2]         # queries 1 and 3 none
+    plan = bt.make_plan(n, N, K=3, eps=1.0, delta=0.1, value_range=8.0,
+                        block=64, pull_mode="row")
+    V4 = bt.tile_table(V, plan, "cpu")
+    Qb = bt._pad_operands(None, torch.from_numpy(Q), plan)[1].reshape(
+        4, plan.n_blocks, plan.block).contiguous()
+    slotcode, rmeta, bpos, t_final, n_final = bt.schedule_operands(
+        plan.schedule, False, torch.device("cpu"))
+    cols = torch.from_numpy(rng.permutation(plan.n_blocks))[bpos].to(
+        torch.int32).expand(4, -1).contiguous()
+    args, tkw = _tier((V4, Qb, slotcode, rmeta, cols), tier)
+    kw = dict(n_arms=n, K=3, t_final=t_final, n_final=n_final, k_out=5,
+              n_valid=390, k_cert=3, **tkw,
+              cert=bt.cert_operand(plan.schedule, torch.device("cpu")))
+    want = ops.fused_cascade_batched(*args, **kw)
+    n_rounds = len(plan.schedule.rounds)
+    assert want[2].tolist() == [1, n_rounds, 1, n_rounds]
+    dargs, dkw = _on(card, args, kw)
+    got = ops.fused_cascade_batched(*dargs, **dkw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].numpy())
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    g, w = got[1].cpu().numpy(), want[1].numpy()
+    if tier == "int8":
+        np.testing.assert_array_equal(g, w)
+    else:
+        np.testing.assert_allclose(g, w, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("tier", ["fp32", "int8", "pq"])
+def test_schedule_off_the_flat_layout_is_refused(card, tier):
+    """Slots reversed within every column of every round: the kernel walks
+    the flat layout without reading the steps' slots, so both entries
+    must refuse such a schedule before they launch, and take it once it
+    is laid out again."""
+    from repro_torch.core.schedule import SLOT_MASK
+    n, N, K, block, mode = 400, 4096, 3, 64, "coord"     # 5 rounds pull
+    args, kw = _operands(n, N, K, block, mode, 8, False, 3, seed=9)
+    args, tkw = _tier(args, tier)
+    plan = _plan_of(n, N, K, block, mode)
+    code = args[2].numpy().copy()
+    pos, t_prev = 0, 0
+    for r in plan.schedule.rounds:
+        if r.t_cum > t_prev:
+            for p in range(r.t_cum - t_prev):
+                seg = slice(pos + p * r.n_arms, pos + (p + 1) * r.n_arms)
+                code[seg] = ((code[seg] & ~SLOT_MASK)
+                             | (r.n_arms - 1 - (code[seg] & SLOT_MASK)))
+            pos += (r.t_cum - t_prev) * r.n_arms
+        else:
+            pos += 1
+        t_prev = r.t_cum
+    assert not np.array_equal(code, args[2].numpy())
+    kw = dict(kw, k_out=4, n_valid=n - 5, **tkw)
+    (V4, Qb, slotcode, rmeta, cols), dkw = _on(card, args, kw)
+    off = torch.from_numpy(code).to(card)
+    before = fc.launch_counts()
+    with pytest.raises(ValueError, match="flatten_schedule"):
+        ops.fused_cascade_batched(V4, Qb, off, rmeta, cols, **dkw)
+    skw = {k: (v[0].contiguous() if k == "qscale" else v)
+           for k, v in dkw.items()}
+    with pytest.raises(ValueError, match="flatten_schedule"):
+        ops.fused_cascade(V4, Qb[0].contiguous(), off, rmeta,
+                          cols[0].contiguous(), **skw)
+    assert fc.launch_counts() == before
+    off.copy_(slotcode)            # laid out again: the same tensor passes
+    got = ops.fused_cascade_batched(V4, Qb, off, rmeta, cols, **dkw)
+    want = ops.fused_cascade_batched(V4, Qb, slotcode, rmeta, cols, **dkw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_round_end_keys_past_shared_memory(card):
+    """A table with more tiles than a CTA's shared memory holds keys for:
+    the round ends run in the keys workspace, with the same results."""
+    _, capacity = fc.launch_grid(card)
+    n_tiles = capacity + 500
+    n, N = 8 * n_tiles, 64
+    g = torch.Generator().manual_seed(5)
+    V = torch.randn(n, N, generator=g)
+    Q = torch.randn(2, N, generator=g)
+    plan = bt.make_plan(n, N, K=4, eps=0.5, delta=0.1, value_range=8.0,
+                        block=32, pull_mode="row")
+    V4 = bt.tile_table(V, plan, card)
+    Qb = Q.reshape(2, plan.n_blocks, plan.block).to(card)
+    slotcode, rmeta, bpos, t_final, n_final = bt.schedule_operands(
+        plan.schedule, True, card)
+    cols = bpos.to(torch.int32).expand(2, -1).contiguous()
+    kw = dict(n_arms=n, K=4, t_final=t_final, n_final=n_final, k_out=6,
+              n_valid=n - 3)
+    got = fc.fused_cascade_batched_cuda(V4, Qb, slotcode, rmeta, cols, **kw)
+    want = ops.ref.fused_cascade_batched_ref(V4, Qb, slotcode, rmeta, cols,
+                                             **kw)
+    torch.cuda.synchronize()
+    assert plan.n_tiles > capacity
+    np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                  want[0].cpu().numpy())
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               rtol=1e-5, atol=1e-6 * float(
+                                   want[1].abs().max()))
+
+
 # ---- the single-query cascade, the gathered tile-dot, the matvec ----------
 
 def _single(args, tkw):
@@ -230,7 +426,7 @@ def _on(card, args, kw):
 @pytest.mark.parametrize("bound", [None, "hoeffding", "bernstein"])
 @pytest.mark.parametrize("tier", ["fp32", "int8", "int4", "pq"])
 @pytest.mark.parametrize("n,N,K,block,mode,tile,n_valid,k_out,cover,B",
-                         [CASES[i] for i in (0, 1, 2, 4)])
+                         [CASES[i] for i in (0, 1, 2, 4, 8)])
 def test_single_query_kernel_matches_plain_and_batch_of_one(
         card, tier, bound, n, N, K, block, mode, tile, n_valid, k_out, cover,
         B):
