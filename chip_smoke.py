@@ -32,7 +32,16 @@ Phases, one line each (any failure exits non-zero before the result):
    gathered tile-dot at the tiled table's row (all 19,200 tiles, both
    512-wide blocks) and coord (C = 128, 8 blocks) geometry, and the
    blocked matvec at (153600, 1024) with (256, 512) tiles, each in f32
-   and bf16;
+   and bf16.  Each is one persistent launch fed by bulk copies: it must
+   take the bulk branch (its ``[bulk]`` launch count) with a grid, read
+   back from the kernel, of min(chunks of work, SMs x CTAs per SM); its ring
+   geometry, ptxas report (registers, spills, barriers) and dynamic
+   shared memory are printed.  These two kernels and ``torch.matmul`` are
+   timed back to back (20 launches between two CUDA events, median of 5:
+   device time, the host's per-call work overlapped), with the achieved
+   GB/s and share of the bound; the matvec also against ``torch.matmul``
+   in 12 alternating pairs, the order swapped each pair (medians, spread,
+   pairs won);
 4. serve — the ``repro_torch.launch.serve --arch qwen1.5-0.5b --loop`` path
    in process, 64 requests, batch 4, row mode, through MIPSServeEngine,
    once per configuration: fp32, ``--precision int8``, ``--precision
@@ -47,9 +56,9 @@ Phases, one line each (any failure exits non-zero before the result):
    ``final_exact``) per tier and pull mode, and int8 with adaptive
    bernstein; launches of ``fused_cascade[<tier>]`` must equal the calls,
    served ids be distinct rows, served scores the float64 exact ones; the
-   recall@4 against exact search (through ``ops.blocked_matvec``) is
-   printed, and the served scores are recomputed through
-   ``ops.gather_block_dot``.  Then ``nns_topk`` on 2 queries against a
+   recall@4 against exact search (through ``ops.blocked_matvec``, every
+   launch on the bulk branch) is printed, and the served scores are
+   recomputed through ``ops.gather_block_dot`` (bulk branch too).  Then ``nns_topk`` on 2 queries against a
    float64 nearest-neighbour search, and ``bounded_me_batched`` on 4
    queries with per-query perms: one batched launch, bitwise equal to
    four single-query calls;
@@ -79,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -202,7 +212,9 @@ def phase_device() -> None:
         f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every kernel, one nvcc per source, all started together;
+    returns each source's ptxas report."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import blocked_matvec, fused_cascade, gather_dot
     builds = {"fused_cascade": fused_cascade.build,
@@ -217,6 +229,22 @@ def phase_build() -> None:
         say(f"build: {name} -> {path.name} {' '.join(regs)}")
     say(f"build: {len(builds)} kernel(s) in "
         f"{time.perf_counter() - t0:.2f} s")
+    return {name: log for name, (_, log) in results.items()}
+
+
+def ptxas_report(log: str, instance: str) -> str:
+    """The ptxas lines (registers, barriers, spills, static shared memory)
+    of the entry functions whose mangled names contain ``instance``."""
+    out, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?"
+                      r"([\w$]+)", line)
+        if m:
+            current = m.group(1)
+        elif current and instance in current and (
+                "Used" in line or "spill" in line or "smem" in line):
+            out.append(line.replace("ptxas info    :", "").strip())
+    return "; ".join(dict.fromkeys(out))
 
 
 def cascade_operands(plan, V4, Q, perm, *, adaptive=False, quantized=None):
@@ -502,10 +530,48 @@ def phase_kernel(table, n_valid) -> dict:
     return out, single
 
 
+def time_back_to_back(fn, n: int = 20, reps: int = 5, warmup: int = 3
+                      ) -> float:
+    """Median over ``reps`` of the milliseconds per launch of ``n``
+    launches of ``fn`` back to back between two CUDA events: the host's
+    per-call work overlaps the card's, so this is device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def alternate(fn, other, pairs: int = 12) -> dict:
+    """``pairs`` back-to-back timings of ``fn`` and ``other`` in turns,
+    the order swapped every pair (fn first, then other first)."""
+    a, b = [], []
+    for i in range(pairs):
+        for which in ((0, 1) if i % 2 == 0 else (1, 0)):
+            (a if which == 0 else b).append(time_back_to_back(
+                fn if which == 0 else other, reps=1))
+    return {"pairs": pairs, "kernel_ms": a, "library_ms": b,
+            "kernel_median_ms": statistics.median(a),
+            "library_median_ms": statistics.median(b),
+            "kernel_spread_ms": max(a) - min(a),
+            "library_spread_ms": max(b) - min(b),
+            "kernel_faster_pairs": sum(x < y for x, y in zip(a, b))}
+
+
 def time_kernel_aux(fn, ref, args, *, what: str, nbytes: int,
                     flops: int, flops_per_s: float, library=None) -> dict:
     """Hold ``fn(*args)`` against ``ref(*args)`` and time both, a library
-    call and the bound (bytes moved once, operations at peak)."""
+    call and the bound (bytes moved once, operations at peak).  The kernel
+    and the library call are timed back to back (device time)."""
     got, want = fn(*args), ref(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -514,21 +580,57 @@ def time_kernel_aux(fn, ref, args, *, what: str, nbytes: int,
           and torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale),
           f"{what}: kernel vs plain max abs {err:.3g} (scale {scale:.3g})")
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return {"bytes": nbytes, "bound_ms": 1e3 * max(t_bytes, t_ops),
+    kernel_ms = time_back_to_back(lambda: fn(*args))
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    return {"bytes": nbytes, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "kernel_ms": time_cuda(lambda: fn(*args), 10, 2),
+            "kernel_ms": kernel_ms, "gb_per_s": nbytes / kernel_ms / 1e6,
+            "share_of_bound": bound_ms / kernel_ms,
             "plain_ms": time_cuda(lambda: ref(*args), 3, 1),
-            "library_ms": (time_cuda(lambda: library(*args), 10, 2)
+            "library_ms": (time_back_to_back(lambda: library(*args))
                            if library else None),
             "max_abs_err": err}
 
 
-def phase_aux_kernels(table) -> dict:
+def stream_launch(module, name: str, fn, args, work: int, geo, logs,
+                  source: str) -> dict:
+    """One launch of a streaming kernel at full width: it must take the
+    bulk branch and run with a grid of min(chunks of the work, SMs x CTAs
+    per SM)."""
+    from repro_torch.kernels import ops as kops
+    dtype = args[0].dtype
+    code = module.DTYPES.index(dtype)
+    sms, per_sm = module.occupancy(args[0].device, code, geo.bulk, geo.smem)
+    before = kops.launch_counts()
+    module.launched_grid(args[0].device)
+    fn(*args)
+    ctas = module.launched_grid(args[0].device)
+    after = kops.launch_counts()
+    check(geo.bulk and after[f"{name}[bulk]"] == before[f"{name}[bulk]"] + 1,
+          f"{name} {dtype}: the full-width launch took the "
+          f"{geo.branch} branch")
+    chunks = geo.chunks(work)
+    check(ctas == min(chunks, sms * per_sm),
+          f"{name} {dtype}: grid {ctas}, expected min({chunks} chunks, "
+          f"{sms} x {per_sm})")
+    instance = ("If" if dtype == torch.float32 else "I13__nv_bfloat16") \
+        + "Lb1E"
+    return {"branch": geo.branch, "grid_ctas": ctas, "sms": sms,
+            "ctas_per_sm": per_sm, "chunks": chunks,
+            "chunk": geo.chunk, "stages": geo.stages,
+            "stage_bytes": geo.stage_bytes, "group": geo.group,
+            "dynamic_smem": geo.smem,
+            "ptxas": ptxas_report(logs[source], instance)}
+
+
+def phase_aux_kernels(table, logs) -> dict:
     """The gathered tile-dot and the blocked matvec at the serving table's
-    geometry, f32 and bf16, against their plain versions."""
+    geometry, f32 and bf16, against their plain versions; kernel 4 also
+    against ``torch.matmul`` in alternating pairs."""
     from repro_torch.core.boundedme_torch import make_plan, tile_table
-    from repro_torch.kernels.blocked_matvec import blocked_matvec_cuda
-    from repro_torch.kernels.gather_dot import gather_block_dot_cuda
+    from repro_torch.kernels import blocked_matvec as bmv
+    from repro_torch.kernels import gather_dot as gd
+    from repro_torch.kernels import stream
     from repro_torch.kernels.ref import (blocked_matvec_ref,
                                          gather_block_dot_ref)
     from repro_torch.launch.engine import seeded_perm
@@ -548,15 +650,21 @@ def phase_aux_kernels(table) -> dict:
             V4 = V4f.to(dtype)
             qsel = q.reshape(plan.n_blocks, block)[cols.long()].to(dtype)
             T, dt, R = plan.n_tiles, plan.n_blocks, plan.tile
+            geo = stream.gather_stream(R, block, V4.element_size(), dt,
+                                       V4.data_ptr())
+            launch = stream_launch(gd, "gather_block_dot",
+                                   gd.gather_block_dot_cuda,
+                                   (V4, idx, cols, qsel), T, geo, logs,
+                                   "gather_dot")
             nbytes = (V4.numel() * V4.element_size()
                       + qsel.numel() * qsel.element_size()
                       + 4 * (T + dt) + 4 * T * R)
             res = time_kernel_aux(
-                gather_block_dot_cuda, gather_block_dot_ref,
+                gd.gather_block_dot_cuda, gather_block_dot_ref,
                 (V4, idx, cols, qsel), what=f"gather_block_dot {mode} "
                 f"{dtype}", nbytes=nbytes, flops=2 * T * dt * R * block,
                 flops_per_s=rates[dtype])
-            res["shape"] = list(V4.shape)
+            res.update(launch, shape=list(V4.shape))
             out[("gather_block_dot", mode, dtype)] = res
             say(f"gather_block_dot {mode} {str(dtype)[6:]}: "
                 + json.dumps(res))
@@ -564,12 +672,18 @@ def phase_aux_kernels(table) -> dict:
         del V4f
     for dtype in (torch.float32, torch.bfloat16):
         W, qd = table.to(dtype), q.to(dtype)
+        geo = stream.matvec_stream(N, 512, W.element_size(), W.data_ptr())
+        launch = stream_launch(bmv, "blocked_matvec", bmv.blocked_matvec_cuda,
+                               (W, qd), n, geo, logs, "blocked_matvec")
         nbytes = (W.numel() + qd.numel()) * W.element_size() + 4 * n
         res = time_kernel_aux(
-            blocked_matvec_cuda, blocked_matvec_ref, (W, qd),
+            bmv.blocked_matvec_cuda, blocked_matvec_ref, (W, qd),
             what=f"blocked_matvec {dtype}", nbytes=nbytes, flops=2 * n * N,
             flops_per_s=rates[dtype], library=torch.matmul)
-        res["shape"] = [n, N]
+        res.update(launch, shape=[n, N])
+        res["against_matmul"] = alternate(
+            lambda: bmv.blocked_matvec_cuda(W, qd),
+            lambda: torch.matmul(W, qd))
         out[("blocked_matvec", dtype)] = res
         say(f"blocked_matvec {str(dtype)[6:]}: " + json.dumps(res))
         del W
@@ -738,8 +852,11 @@ def phase_mips(table, n_valid) -> dict:
     exact_ids = [torch.topk(kops.blocked_matvec(table, q)[:n_valid],
                             K).indices.tolist() for q in Q]
     matvec_launches = kops.launch_counts()["blocked_matvec"]
-    check(matvec_launches == len(Q),
-          f"mips: {matvec_launches} blocked_matvec launches for {len(Q)}")
+    check(matvec_launches == len(Q)
+          and kops.launch_counts()["blocked_matvec[bulk]"] == len(Q),
+          f"mips: {matvec_launches} blocked_matvec launches "
+          f"({kops.launch_counts()['blocked_matvec[bulk]']} bulk) for "
+          f"{len(Q)}")
     qerr = {mode: measured_plan_quant_err(V, precision="pq", block=(
         512 if mode == "row" else 128), device=DEV)
         for mode in ("row", "coord")}
@@ -772,8 +889,11 @@ def phase_mips(table, n_valid) -> dict:
               f"mips: gather_block_dot rescore {again.tolist()} vs served "
               f"{scores.tolist()}")
     gather_launches = kops.launch_counts()["gather_block_dot"]
-    check(gather_launches == len(Q),
-          f"mips: {gather_launches} gather_block_dot launches for {len(Q)}")
+    check(gather_launches == len(Q)
+          and kops.launch_counts()["gather_block_dot[bulk]"] == len(Q),
+          f"mips: {gather_launches} gather_block_dot launches "
+          f"({kops.launch_counts()['gather_block_dot[bulk]']} bulk) for "
+          f"{len(Q)}")
     del V4
 
     # nearest neighbours: queries near known rows
@@ -912,13 +1032,13 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         phase_device()
-        phase_build()
+        logs = phase_build()
         from repro_torch.configs import get_config
         from repro_torch.convert import make_serving_table
         table, n_valid = make_serving_table(get_config("qwen1.5-0.5b"), 0,
                                             DEV)
         kern, single = phase_kernel(table, n_valid)
-        aux = phase_aux_kernels(table)
+        aux = phase_aux_kernels(table, logs)
         served = {}
         for tier in TIERS:
             served[tier[0]] = serve_run(*tier)
@@ -974,12 +1094,21 @@ def main() -> int:
                  "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "shape": r["shape"],
+                 "share_of_bound": r["share_of_bound"],
+                 "grid_ctas": r["grid_ctas"], "branch": r["branch"],
                  "held_against_plain": True}
+        if "against_matmul" in r:
+            entry["against_matmul"] = {
+                k: v for k, v in r["against_matmul"].items()
+                if not k.endswith("_ms")
+                or k.endswith(("median_ms", "spread_ms"))}
         for tag, key in alt.items():
             entry.update({f"{tag}_ms": aux[key]["kernel_ms"],
                           f"{tag}_plain_ms": aux[key]["plain_ms"],
                           f"{tag}_bound_ms": aux[key]["bound_ms"],
-                          f"{tag}_library_ms": aux[key]["library_ms"]})
+                          f"{tag}_library_ms": aux[key]["library_ms"],
+                          f"{tag}_share_of_bound":
+                              aux[key]["share_of_bound"]})
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

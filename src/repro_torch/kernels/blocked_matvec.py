@@ -4,7 +4,11 @@ Hand-written CUDA C++ in ``csrc/blocked_matvec.cu`` (it replaces
 ``blocked_matvec_pallas`` of the JAX package; its source note says what
 bounds it and what its design does), built by
 `repro_torch.kernels.library` at first use.  `blocked_matvec_cuda`
-launches it on CUDA tensors and raises on anything else;
+launches it on CUDA tensors and raises on anything else: one persistent
+launch whose grid and ring geometry `repro_torch.kernels.stream` decides
+(`launched_grid` reads back the grid a launch ran with), counted as
+``blocked_matvec`` and as ``blocked_matvec[bulk]`` or ``[ldg]`` by the
+branch it took;
 `repro_torch.kernels.ops.blocked_matvec` chooses between it and the plain
 PyTorch version by the tensors' device.
 """
@@ -17,17 +21,22 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import library
+from repro_torch.kernels import library, stream
 
 __all__ = ["build", "check_operands", "tiles", "blocked_matvec_cuda",
-           "SOURCE"]
+           "launched_grid", "SOURCE"]
 
 SOURCE = library.CSRC / "blocked_matvec.cu"
 
 #: operand dtypes, in the CUDA entry's dtype-code order
 DTYPES = (torch.float32, torch.bfloat16)
 
-library.register(["blocked_matvec"])
+library.register(["blocked_matvec", "blocked_matvec[bulk]",
+                  "blocked_matvec[ldg]"])
+
+_GRID = library.DeviceWords()
+# the chunk counter of launches on each (device, stream)
+_COUNTER = library.DeviceWords(2)
 
 
 def build():
@@ -40,9 +49,38 @@ def build():
 def _lib() -> ctypes.CDLL:
     lib = library.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.blocked_matvec.argtypes = [i] + [p] * 3 + [i] * 5 + [p]
+    lib.blocked_matvec.argtypes = [i] + [p] * 6 + [i] * 17 + [p]
     lib.blocked_matvec.restype = i
+    lib.blocked_matvec_config.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 2
+    lib.blocked_matvec_config.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(device: torch.device, dtype: int, bulk: bool,
+              smem: int) -> Tuple[int, int]:
+    """``(SMs, CTAs per SM)`` of a launch on ``device`` with this dtype
+    code, branch and dynamic shared memory."""
+    return library.occupancy(_lib(), "blocked_matvec_config", device, dtype,
+                             int(bulk), smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(device: torch.device, code: int, n: int, d: int, tile_d: int,
+          elt: int, misalign: int):
+    """``(geometry, chunks, grid, chunk bounds on the device)`` of a
+    launch, made once per shape; ``misalign`` is W's address mod 16."""
+    geo = stream.matvec_stream(d, tile_d, elt, misalign)
+    n_chunks = geo.chunks(n)
+    grid = stream.grid_ctas(n_chunks,
+                            *occupancy(device, code, geo.bulk, geo.smem))
+    return geo, n_chunks, grid, stream.bounds_on(device, n, n_chunks)
+
+
+def launched_grid(device) -> int:
+    """The CTA count of the last launch on ``device``
+    (`library.DeviceWords.read`)."""
+    return _GRID.read(device)
 
 
 def tiles(n: int, d: int, tile_n: int, tile_d: int) -> Tuple[int, int]:
@@ -82,16 +120,20 @@ def blocked_matvec_cuda(W: torch.Tensor, q: torch.Tensor, *,
         raise ValueError(f"q is on {q.device}, W on {W.device}")
     if not (W.is_contiguous() and q.is_contiguous()):
         raise ValueError("W and q must be contiguous")
-    per16 = 16 // W.element_size()
-    vec = int(d % per16 == 0 and tile_d % per16 == 0
-              and W.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
     out = torch.empty((n,), dtype=torch.float32, device=W.device)
+    if n == 0:
+        return out
+    dev, code = W.device, DTYPES.index(W.dtype)
+    geo, n_chunks, grid, bounds = _plan(dev, code, n, d, tile_d,
+                                        W.element_size(), W.data_ptr() % 16)
     lib = _lib()
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        rc = lib.blocked_matvec(DTYPES.index(W.dtype), W.data_ptr(),
-                                q.data_ptr(), out.data_ptr(), n, d, tile_n,
-                                tile_d, vec, stream)
+    with library.on_device(dev):
+        s = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.blocked_matvec(code, W.data_ptr(), q.data_ptr(),
+                                out.data_ptr(), bounds.data_ptr(),
+                                _COUNTER.on(dev, s).data_ptr(),
+                                _GRID.on(dev).data_ptr(), n_chunks, grid, d,
+                                tile_d, *geo.ints(), s)
     library.check_launch(lib, rc, "blocked_matvec")
-    library.count("blocked_matvec")
+    library.count("blocked_matvec", f"blocked_matvec[{geo.branch}]")
     return out

@@ -9,59 +9,255 @@
 //
 // What bounds it.  Every entry of W is read once for one multiply-add, so
 // the work is memory-bound: the least time is the bytes of W (plus q and
-// the output) over the card's memory rate.
+// the output) over the card's memory rate, 3.35 TB/s.  To keep that rate a
+// card needs some 25 KB in flight per SM without a break; a grid of one
+// block per tile_n rows leaves a tail where only part of the SMs stream,
+// and a warp that loads, then stops to reduce, leaves gaps.
 //
-// What the design does.  One block of 8 warps per tile_n rows; warp w takes
-// rows w, w + 8, ... and for each row walks the d / tile_d slabs in order:
-// a coalesced dot of the slab (16-byte loads where aligned, row_dot.cuh),
-// a warp reduction, then one f32 add into the row's sum, as the TPU grid's
-// inner axis adds its tiles.  The wrapper refuses shapes the tiles do not
-// divide before any launch, as the TPU wrapper does.  No tensor cores: a
-// matvec does two operations per loaded entry, far below what they need.
+// What the design does (stream.cuh, repro_torch/kernels/stream.py).
+//  * A persistent grid of min(chunks, SMs x CTAs per SM) CTAs.  The rows
+//    are cut on the host into chunks of about one stage, contiguous and
+//    balanced to within one row (bounds); each CTA takes its next chunk
+//    from counter[0] when it is ready for one.  SMs do not stream at one
+//    rate: with one fixed range per CTA the fastest CTAs finished a
+//    quarter of the run early, so this keeps every SM streaming to the
+//    end.  The last CTA to finish sets the counter back to 0.  Block 0
+//    writes gridDim.x to grid_out.
+//  * Bulk branch: one producer lane copies W into a ring of S stages
+//    (about 64 KB per CTA), one 1-D bulk copy per stage: `rows` whole rows,
+//    or `slabs` tile_d slabs of one row where a row exceeds a stage, and
+//    notes the stage's chunk beside it.  The copies run ahead of the
+//    consumers by up to S stages, with no load instruction and no
+//    register in the consumers' way.
+//  * q is copied into shared memory once per CTA.  Consumers read only
+//    shared memory: one dot per (row, slab), over `group` lanes (about
+//    eight 16-byte vectors a lane: 16 lanes for a 512-wide f32 slab, so a
+//    warp reduces two dots at once in four steps), partial sums to shared
+//    memory; after one barrier of the consumer warps each row's slab sums
+//    are added in slab order b = 0 ... d / tile_d - 1, as the TPU grid's
+//    inner axis adds its tiles.  A row split over stages carries its sum
+//    from stage to stage.
+//  * Plain-load branch (ldg), for a W whose pointer or slab bytes are not
+//    16-byte aligned: the same grid, chunks, stages and sums (the ring
+//    carries the notes only), each entry loaded from device memory.
+// The wrapper refuses shapes the tiles do not divide before any launch, as
+// the TPU wrapper does.  No tensor cores: a matvec does two operations per
+// loaded entry, far below what they need.
 
-#include "row_dot.cuh"
+#include "stream.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace stream;
+
+struct Args {
+  const void* W;
+  const void* q;
+  float* out;
+  const int* bounds;   // (n_chunks + 1,) row ranges of the chunks
+  int* counter;        // (2,): next chunk, CTAs done; 0 between launches
+  int* grid_out;       // (1,): block 0 writes gridDim.x here
+  int d, tile_d, n_slabs, n_chunks;
+  int rows, slabs, stages, stage_bytes, group, pairs;
+  int info_off, ring_off, q_off, part_off;
+};
+
+// Stage sl of a chunk of rows [r0, r1): `rows` rows starting at `row`,
+// slabs [s0, s0 + sh) of each; `first` / `last` where the stage begins or
+// ends its rows' sums.
+struct Stage {
+  int row, rows, s0, sh;
+  bool first, last;
+};
+
+__device__ __forceinline__ int pieces_of(const Args& a) {
+  return (a.n_slabs + a.slabs - 1) / a.slabs;
+}
+
+__device__ __forceinline__ Stage stage_of(const Args& a, int r0, int r1,
+                                          int sl) {
+  const int pieces = pieces_of(a);
+  Stage st;
+  const int pc = sl % pieces;
+  st.row = r0 + (sl / pieces) * a.rows;
+  st.rows = min(a.rows, r1 - st.row);
+  st.s0 = pc * a.slabs;
+  st.sh = min(a.slabs, a.n_slabs - st.s0);
+  st.first = pc == 0;
+  st.last = pc == pieces - 1;
+  return st;
+}
+
+template <typename T, bool BULK>
+__global__ void __launch_bounds__(kThreads) matvec_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const T* W = static_cast<const T*>(a.W);
+  const T* q = static_cast<const T*>(a.q);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.grid_out = gridDim.x;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + a.stages;
+  // per ring slot: chunk (-1: no more work), stage, the chunk's rows r0, r1
+  int* info = reinterpret_cast<int*>(smem + a.info_off);
+  unsigned char* ring = smem + a.ring_off;
+  T* qs = reinterpret_cast<T*>(smem + a.q_off);
+  float* part = reinterpret_cast<float*>(smem + a.part_off);
+  const size_t d = a.d;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.stages; ++i) {
+      bar_init(full + i, 1);
+      bar_init(empty + i, kConsumerWarps);
+    }
+    fence_bar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {            // the producer warp
+    if (threadIdx.x == kConsumers) {
+      int s = 0, c = atomicAdd(a.counter, 1), r0 = 0, r1 = 0;
+      if (c < a.n_chunks) r0 = a.bounds[c], r1 = a.bounds[c + 1];
+      while (c < a.n_chunks) {
+        const int next = atomicAdd(a.counter, 1);   // in flight meanwhile
+        const int n_sl = (r1 - r0 + a.rows - 1) / a.rows * pieces_of(a);
+        for (int sl = 0; sl < n_sl; ++sl, ++s) {
+          const int slot = s % a.stages;
+          if (s >= a.stages) wait(empty + slot, ((s / a.stages) - 1) & 1);
+          int* note = info + 4 * slot;
+          note[0] = c;
+          note[1] = sl;
+          note[2] = r0;
+          note[3] = r1;
+          if (BULK) {
+            const Stage st = stage_of(a, r0, r1, sl);
+            const uint32_t bytes = static_cast<uint32_t>(st.rows) * st.sh *
+                                   a.tile_d * sizeof(T);
+            arrive_expect(full + slot, bytes);
+            bulk_copy(ring + static_cast<size_t>(slot) * a.stage_bytes,
+                      W + st.row * d + static_cast<size_t>(st.s0) * a.tile_d,
+                      bytes, full + slot);
+          } else {
+            arrive(full + slot);
+          }
+        }
+        // the next chunk's rows, loaded while the consumers drain this one
+        c = next;
+        if (c < a.n_chunks) r0 = a.bounds[c], r1 = a.bounds[c + 1];
+      }
+      const int slot = s % a.stages;          // no more work
+      if (s >= a.stages) wait(empty + slot, ((s / a.stages) - 1) & 1);
+      info[4 * slot] = -1;
+      arrive(full + slot);
+    }
+    return;
+  }
+
+  if (BULK) {
+    // the query, while the first copies are in flight
+    for (int i = threadIdx.x; i < a.d; i += kConsumers) qs[i] = q[i];
+    consumers_sync();
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = a.group, per_warp = 32 / group;
+  const int gi = lane / group, gl = lane % group;
+  const int n_groups = kConsumerWarps * per_warp;
+  const int n16 = a.tile_d * static_cast<int>(sizeof(T)) / 16;
+  const int rot = BULK && n16 % group == 0 ? (lane - gl) % n16 : 0;
+  float carry = 0.f;
+  for (int s = 0;; ++s) {
+    const int slot = s % a.stages;
+    wait(full + slot, (s / a.stages) & 1);
+    const int* note = info + 4 * slot;
+    if (note[0] < 0) break;
+    const Stage st = stage_of(a, note[2], note[3], note[1]);
+    const int pairs = st.rows * st.sh;
+    const T* src =
+        BULK ? reinterpret_cast<const T*>(ring + static_cast<size_t>(slot) *
+                                                     a.stage_bytes)
+             : W + st.row * d + static_cast<size_t>(st.s0) * a.tile_d;
+    float* pb = part + (s & 1) * a.pairs;
+    // dot p of the stage: row p / sh, slab s0 + p % sh, at p * tile_d
+    for (int base = warp * per_warp; base < pairs; base += n_groups) {
+      const int p = base + gi;
+      float v = 0.f;
+      if (p < pairs) {
+        const int qo = (st.s0 + p % st.sh) * a.tile_d;
+        const T* vp = src + static_cast<size_t>(p) * a.tile_d;
+        v = BULK ? dot_shared<T>(vp, qs + qo, n16, gl, group, rot)
+                 : dot_global<T>(vp, q + qo, a.tile_d, gl, group);
+      }
+      v = group_sum(v, group);
+      if (p < pairs && gl == 0) pb[p] = v;
+    }
+    __syncwarp();
+    if (lane == 0) arrive(empty + slot);
+    consumers_sync();
+    // each row's slab sums in slab order; only a one-row stage carries
+    for (int j = threadIdx.x; j < st.rows; j += kConsumers) {
+      float v = st.first ? 0.f : carry;
+      for (int b = 0; b < st.sh; ++b) v += pb[j * st.sh + b];
+      if (st.last)
+        a.out[st.row + j] = v;
+      else
+        carry = v;
+    }
+  }
+  if (threadIdx.x == 0) finish(a.counter);
+}
+
+template <typename T, bool BULK>
+cudaError_t launch_inst(const Args& a, int grid, int smem,
+                        cudaStream_t stream) {
+  cudaError_t err = set_smem<matvec_kernel<T, BULK>>(smem);
+  if (err != cudaSuccess) return err;
+  matvec_kernel<T, BULK><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) matvec_kernel(
-    const T* __restrict__ W, const T* __restrict__ q, float* __restrict__ out,
-    int d, int tile_n, int tile_d, int vec) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * tile_n;
-  for (int r = warp; r < tile_n; r += kWarps) {
-    const T* w = W + (row0 + r) * static_cast<size_t>(d);
-    float acc = 0.f;
-    for (int j = 0; j < d; j += tile_d)
-      acc += rowdot::warp_sum(
-          rowdot::row_dot<T>(w + j, q + j, tile_d, vec != 0, lane));
-    if (lane == 0) out[row0 + r] = acc;
-  }
+cudaError_t config(int bulk, int smem, int* sms, int* per_sm) {
+  return bulk ? occupancy<matvec_kernel<T, true>>(smem, sms, per_sm)
+              : occupancy<matvec_kernel<T, false>>(smem, sms, per_sm);
 }
 
 }  // namespace
 
-// dtype 0: f32 operands, 1: bf16.  n % tile_n == 0 and d % tile_d == 0 (the
-// wrapper checks).  Returns the launch's cudaError_t.
+// How many CTAs of a launch with this dtype (0 f32, 1 bf16), branch and
+// dynamic shared memory fit on one SM, and the SM count.
+extern "C" int blocked_matvec_config(int dtype, int bulk, int smem, int* sms,
+                                     int* per_sm) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dtype == 0 ? config<float>(bulk, smem, sms, per_sm)
+                                     : config<__nv_bfloat16>(bulk, smem, sms,
+                                                             per_sm));
+}
+
+// dtype 0: f32 operands, 1: bf16.  d % tile_d == 0 (the wrapper checks);
+// bounds cut the rows into n_chunks chunks; counter is 0 before the launch
+// and after it; the geometry (bulk ... smem) is stream.Stream.ints().
+// Returns the launch's cudaError_t.
 extern "C" int blocked_matvec(int dtype, const void* W, const void* q,
-                              float* out, int n, int d, int tile_n, int tile_d,
-                              int vec, cudaStream_t stream) {
-  if (n == 0) return 0;
-  const int grid = n / tile_n;
+                              float* out, const int* bounds, int* counter,
+                              int* grid_out, int n_chunks, int grid, int d,
+                              int tile_d, int bulk, int rows, int slabs,
+                              int stages, int stage_bytes, int group,
+                              int pairs, int info_off, int ring_off,
+                              int q_off, int part_off, int carry_off,
+                              int smem, cudaStream_t stream) {
+  (void)carry_off;
+  if (grid == 0) return 0;
+  Args a{W,        q,      out,        bounds,   counter, grid_out,
+         d,        tile_d, d / tile_d, n_chunks, rows,    slabs,
+         stages,   stage_bytes, group, pairs,    info_off, ring_off,
+         q_off,    part_off};
+  cudaError_t err;
   if (dtype == 0)
-    matvec_kernel<float><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(W), static_cast<const float*>(q), out, d,
-        tile_n, tile_d, vec);
+    err = bulk ? launch_inst<float, true>(a, grid, smem, stream)
+               : launch_inst<float, false>(a, grid, smem, stream);
   else if (dtype == 1)
-    matvec_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(W),
-        static_cast<const __nv_bfloat16*>(q), out, d, tile_n, tile_d, vec);
+    err = bulk ? launch_inst<__nv_bfloat16, true>(a, grid, smem, stream)
+               : launch_inst<__nv_bfloat16, false>(a, grid, smem, stream);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 extern "C" const char* cuda_error_string(int code) {

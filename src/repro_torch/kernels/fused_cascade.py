@@ -79,23 +79,14 @@ def launch_grid(device: torch.device) -> Tuple[int, int]:
     return sms.value, cap.value
 
 
-@functools.lru_cache(maxsize=None)
-def _grid_word(device: torch.device) -> torch.Tensor:
-    """The word every launch on ``device`` writes its ``gridDim.x`` to."""
-    return torch.zeros((1,), dtype=torch.int32, device=device)
+_GRID = library.DeviceWords()
 
 
 def launched_grid(device) -> int:
     """The CTA count the last launch of either entry on ``device`` ran
     with, as the kernel read it from its own ``gridDim.x``; 0 when none
     launched since the last call.  Waits for the card, and clears it."""
-    dev = torch.device(device)
-    if dev.index is None:
-        dev = torch.device(dev.type, torch.cuda.current_device())
-    word = _grid_word(dev)
-    n = int(word.item())
-    word.zero_()
-    return n
+    return _GRID.read(device)
 
 
 # id(slotcode) -> (its weakref, rounds_meta's weakref, versions, n_final)
@@ -293,7 +284,7 @@ def _launch(single: bool, V4: torch.Tensor, Qb: torch.Tensor,
             slotcode.data_ptr(),
             rounds_meta.data_ptr(), cols.data_ptr(), ids.data_ptr(),
             vals.data_ptr(), rused.data_ptr(), ptr("acc"), ptr("acc2"),
-            ptr("surv"), ptr("tmp"), ptr("state"), _grid_word(dev).data_ptr(),
+            ptr("surv"), ptr("tmp"), ptr("state"), _GRID.on(dev).data_ptr(),
             ptr("keys"), ptr("lut"),
             *(() if single else (B,)), n_tiles, n_blocks, R, C, Cs, S,
             n_rounds, int(t_final), int(n_final), k_out, n_codes,

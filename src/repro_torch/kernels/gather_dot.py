@@ -4,7 +4,11 @@ Hand-written CUDA C++ in ``csrc/gather_dot.cu`` (it replaces
 ``gather_block_dot_pallas`` of the JAX package; its source note says what
 bounds it and what its design does), built by
 `repro_torch.kernels.library` at first use.  `gather_block_dot_cuda`
-launches it on CUDA tensors and raises on anything else;
+launches it on CUDA tensors and raises on anything else: one persistent
+launch whose grid and ring geometry `repro_torch.kernels.stream` decides
+(`launched_grid` reads back the grid a launch ran with), counted as
+``gather_block_dot`` and as ``gather_block_dot[bulk]`` or ``[ldg]`` by
+the branch it took;
 `repro_torch.kernels.ops.gather_block_dot` chooses between it and the
 plain PyTorch version by the tensors' device.
 """
@@ -13,19 +17,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import library
+from repro_torch.kernels import library, stream
 
-__all__ = ["build", "check_operands", "gather_block_dot_cuda", "SOURCE"]
+__all__ = ["build", "check_operands", "gather_block_dot_cuda",
+           "launched_grid", "SOURCE"]
 
 SOURCE = library.CSRC / "gather_dot.cu"
 
 #: operand dtypes, in the CUDA entry's dtype-code order
 DTYPES = (torch.float32, torch.bfloat16)
 
-library.register(["gather_block_dot"])
+library.register(["gather_block_dot", "gather_block_dot[bulk]",
+                  "gather_block_dot[ldg]"])
+
+_GRID = library.DeviceWords()
+# the chunk counter of launches on each (device, stream)
+_COUNTER = library.DeviceWords(2)
 
 
 def build():
@@ -38,9 +49,38 @@ def build():
 def _lib() -> ctypes.CDLL:
     lib = library.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gather_block_dot.argtypes = [i] + [p] * 5 + [i] * 7 + [p]
+    lib.gather_block_dot.argtypes = [i] + [p] * 8 + [i] * 20 + [p]
     lib.gather_block_dot.restype = i
+    lib.gather_block_dot_config.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 2
+    lib.gather_block_dot_config.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(device: torch.device, dtype: int, bulk: bool,
+              smem: int) -> Tuple[int, int]:
+    """``(SMs, CTAs per SM)`` of a launch on ``device`` with this dtype
+    code, branch and dynamic shared memory."""
+    return library.occupancy(_lib(), "gather_block_dot_config", device, dtype,
+                             int(bulk), smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(device: torch.device, code: int, T: int, R: int, C: int, elt: int,
+          dt: int, misalign: int):
+    """``(geometry, chunks, grid, chunk bounds on the device)`` of a
+    launch, made once per shape; ``misalign`` is V4's address mod 16."""
+    geo = stream.gather_stream(R, C, elt, dt, misalign)
+    n_chunks = geo.chunks(T)
+    grid = stream.grid_ctas(n_chunks,
+                            *occupancy(device, code, geo.bulk, geo.smem))
+    return geo, n_chunks, grid, stream.bounds_on(device, T, n_chunks)
+
+
+def launched_grid(device) -> int:
+    """The CTA count of the last launch on ``device``
+    (`library.DeviceWords.read`)."""
+    return _GRID.read(device)
 
 
 def check_operands(V4: torch.Tensor, idx: torch.Tensor, cols: torch.Tensor,
@@ -86,17 +126,25 @@ def gather_block_dot_cuda(V4: torch.Tensor, idx: torch.Tensor,
     cols = cols.to(torch.int32).contiguous()
     n_tiles, n_blocks, R, C = V4.shape
     T, dt = idx.shape[0], cols.shape[0]
-    per16 = 16 // V4.element_size()
-    vec = int(C % per16 == 0 and V4.data_ptr() % 16 == 0
-              and qsel.data_ptr() % 16 == 0)
+    if T * max(dt, 1) >= 2 ** 31 or n_tiles * n_blocks >= 2 ** 31:
+        raise ValueError(f"T * dt = {T * dt} gathered cells or "
+                         f"{n_tiles * n_blocks} cells of V4 exceed the "
+                         f"kernel's int32 indices")
     out = torch.empty((T, R), dtype=torch.float32, device=dev)
+    if T == 0 or dt == 0:
+        return out.zero_()          # an empty sum: nothing to launch
+    code = DTYPES.index(V4.dtype)
+    geo, n_chunks, grid, bounds = _plan(dev, code, T, R, C,
+                                        V4.element_size(), dt,
+                                        V4.data_ptr() % 16)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with library.on_device(dev):
+        s = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gather_block_dot(
-            DTYPES.index(V4.dtype), V4.data_ptr(), idx.data_ptr(),
-            cols.data_ptr(), qsel.data_ptr(), out.data_ptr(), n_tiles,
-            n_blocks, R, C, T, dt, vec, stream)
+            code, V4.data_ptr(), idx.data_ptr(), cols.data_ptr(),
+            qsel.data_ptr(), out.data_ptr(), bounds.data_ptr(),
+            _COUNTER.on(dev, s).data_ptr(), _GRID.on(dev).data_ptr(),
+            n_chunks, grid, n_tiles, n_blocks, R, C, dt, *geo.ints(), s)
     library.check_launch(lib, rc, "gather_block_dot")
-    library.count("gather_block_dot")
+    library.count("gather_block_dot", f"gather_block_dot[{geo.branch}]")
     return out

@@ -8,11 +8,13 @@ library whose name carries a hash of the source; `load` opens it with
 
 The launch counts of every kernel wrapper live here too: a wrapper adds
 one to its names (`count`) where it launches its kernel, and nowhere
-else.
+else; so do the words launches keep state in (`DeviceWords`) and the
+occupancy query of a source's ``<entry>_config``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -22,8 +24,11 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+import torch
+
 __all__ = ["CSRC", "build", "load", "check_launch", "register", "count",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "on_device",
+           "occupancy", "DeviceWords"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = CSRC.parent / "build"
@@ -114,3 +119,55 @@ def check_launch(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (no switch
+    where it already is)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def occupancy(lib: ctypes.CDLL, entry: str, device: torch.device,
+              *args: int) -> Tuple[int, int]:
+    """``(SMs, CTAs per SM)`` from ``lib.<entry>(*args, &sms, &per_sm)`` on
+    ``device``; raises where not one CTA fits."""
+    sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args, ctypes.byref(sms),
+                                 ctypes.byref(per_sm))
+    check_launch(lib, rc, entry)
+    if per_sm.value < 1:
+        raise RuntimeError(f"{entry}{args}: no CTA fits on an SM")
+    return sms.value, per_sm.value
+
+
+class DeviceWords:
+    """Small int32 buffers that launches keep state in (the grid a launch
+    ran with, a counter of work handed out), one per device and key, made
+    zeroed at first use and kept for the process."""
+
+    def __init__(self, n: int = 1) -> None:
+        self._n = n
+        self._words: Dict[tuple, torch.Tensor] = {}
+
+    def on(self, device: torch.device, key: int = 0) -> torch.Tensor:
+        words = self._words.get((device, key))
+        if words is None:
+            words = torch.zeros((self._n,), dtype=torch.int32, device=device)
+            self._words[(device, key)] = words
+        return words
+
+    def read(self, device) -> int:
+        """The first word of ``device``'s key-0 buffer, then cleared: for a
+        grid word, the CTA count of the last launch as the kernel read it
+        from its own ``gridDim.x`` (0 when none launched since the last
+        read).  Waits for the card."""
+        dev = torch.device(device)
+        if dev.index is None:
+            dev = torch.device(dev.type, torch.cuda.current_device())
+        word = self.on(dev)[:1]
+        n = int(word.item())
+        word.zero_()
+        return n

@@ -473,41 +473,193 @@ def test_single_query_kernel_matches_plain_and_batch_of_one(
         assert torch.equal(a, b[0])
 
 
+def _grid_of(module, device, dtype, geo, work):
+    """The grid a launch must run with: one CTA per chunk of work, at most
+    every resident slot of the card (SMs x CTAs per SM for its shared
+    memory); and the launch left its chunk counter at 0."""
+    from repro_torch.kernels import blocked_matvec as bmv
+    sms, per_sm = module.occupancy(device, bmv.DTYPES.index(dtype),
+                                   geo.bulk, geo.smem)
+    s = torch.cuda.current_stream(device).cuda_stream
+    assert module._COUNTER.on(device, s).tolist() == [0, 0]
+    return min(geo.chunks(work), sms * per_sm)
+
+
+def _branch(nbytes: int, ptr: int) -> str:
+    """The bulk-copy rule: 16-byte-aligned data and unit bytes."""
+    return "bulk" if nbytes % 16 == 0 and ptr % 16 == 0 else "ldg"
+
+
+# T = 20 < SMs, T = 257 and 33 not multiples of the grid, dt = 1, a
+# 32 KB cell (two 16 KB stages' worth), C * 2 bytes % 16 != 0 in bf16
 @pytest.mark.parametrize("R,C,T,dt", [(8, 512, 300, 2), (8, 128, 257, 8),
-                                      (4, 256, 33, 3), (16, 100, 20, 5)])
+                                      (4, 256, 33, 3), (16, 100, 20, 5),
+                                      (8, 128, 20, 8), (8, 128, 301, 1),
+                                      (16, 512, 50, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gather_block_dot_kernel_matches_plain(card, R, C, T, dt, dtype):
+    from repro_torch.kernels import gather_dot as gd
+    from repro_torch.kernels import stream
     g = torch.Generator().manual_seed(R * C + T)
     V4 = torch.randn(40, 9, R, C, generator=g).to(dtype)
     idx = torch.randint(0, 40, (T,), generator=g)       # repeats included
     cols = torch.randint(0, 9, (dt,), generator=g)
     qsel = torch.randn(dt, C, generator=g).to(dtype)
-    before = ops.launch_counts()["gather_block_dot"]
-    out = ops.gather_block_dot(*(t.to(card) for t in (V4, idx, cols, qsel)))
+    dev = [t.to(card) for t in (V4, idx, cols, qsel)]
+    branch = _branch(C * V4.element_size(), dev[0].data_ptr())
+    name = f"gather_block_dot[{branch}]"
+    before = ops.launch_counts()
+    gd.launched_grid(card)
+    out = ops.gather_block_dot(*dev)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["gather_block_dot"] == before + 1
+    after = ops.launch_counts()
+    assert after["gather_block_dot"] == before["gather_block_dot"] + 1
+    assert after[name] == before[name] + 1
+    geo = stream.gather_stream(R, C, V4.element_size(), dt,
+                               dev[0].data_ptr())
+    assert gd.launched_grid(card) == _grid_of(gd, dev[0].device, dtype, geo,
+                                              T)
     want = ops.gather_block_dot(V4, idx, cols, qsel)
     assert out.dtype == torch.float32 and out.shape == (T, R)
     np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
 
 
+# n = 64 < SMs, n = 300 and 768 not multiples of the grid, one slab
+# (dt = 1), a row of 64 KB (f32) or 32 KB (bf16) beyond one stage, and
+# slabs of 40 or 20 bytes (not a multiple of 16)
 @pytest.mark.parametrize("n,d,tn,td", [(1024, 1024, 256, 512),
                                        (768, 640, 256, 128),
-                                       (300, 96, 100, 96), (64, 30, 32, 10)])
+                                       (300, 96, 100, 96), (64, 30, 32, 10),
+                                       (64, 1024, 64, 512),
+                                       (1000, 512, 200, 512),
+                                       (40, 16384, 40, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_blocked_matvec_kernel_matches_plain(card, n, d, tn, td, dtype):
+    from repro_torch.kernels import blocked_matvec as bmv
+    from repro_torch.kernels import stream
     g = torch.Generator().manual_seed(n + d)
     W = torch.randn(n, d, generator=g).to(dtype)
     q = torch.randn(d, generator=g).to(dtype)
-    before = ops.launch_counts()["blocked_matvec"]
-    out = ops.blocked_matvec(W.to(card), q.to(card), tile_n=tn, tile_d=td)
+    Wd, qd = W.to(card), q.to(card)
+    branch = _branch(td * W.element_size(), Wd.data_ptr())
+    name = f"blocked_matvec[{branch}]"
+    before = ops.launch_counts()
+    bmv.launched_grid(card)
+    out = ops.blocked_matvec(Wd, qd, tile_n=tn, tile_d=td)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["blocked_matvec"] == before + 1
+    after = ops.launch_counts()
+    assert after["blocked_matvec"] == before["blocked_matvec"] + 1
+    assert after[name] == before[name] + 1
+    geo = stream.matvec_stream(d, td, W.element_size(), Wd.data_ptr())
+    assert bmv.launched_grid(card) == _grid_of(bmv, Wd.device, dtype, geo, n)
     want = ops.blocked_matvec(W, q, tile_n=tn, tile_d=td)
     assert out.dtype == torch.float32 and out.shape == (n,)
     np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("kernel", ["gather_block_dot", "blocked_matvec"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unaligned_operands_take_the_ldg_branch(card, kernel, dtype):
+    """A table whose data starts 4 or 2 bytes past a 16-byte boundary (a
+    storage offset) cannot be bulk-copied: the same kernel's plain-load
+    branch runs and agrees with the plain version."""
+    g = torch.Generator().manual_seed(7)
+    if kernel == "gather_block_dot":
+        shape, numel = (12, 5, 8, 128), 12 * 5 * 8 * 128
+        flat = torch.randn(numel + 1, generator=g).to(dtype).to(card)
+        args = (flat[1:].view(shape),
+                torch.randint(0, 12, (70,), generator=g).to(card),
+                torch.randint(0, 5, (4,), generator=g).to(card),
+                torch.randn(4, 128, generator=g).to(dtype).to(card))
+        run = ops.gather_block_dot
+    else:
+        flat = torch.randn(256 * 512 + 1, generator=g).to(dtype).to(card)
+        args = (flat[1:].view(256, 512),
+                torch.randn(512, generator=g).to(dtype).to(card))
+        run = ops.blocked_matvec
+    assert args[0].data_ptr() % 16 != 0
+    before = ops.launch_counts()
+    out = run(*args)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after[f"{kernel}[ldg]"] == before[f"{kernel}[ldg]"] + 1
+    assert after[f"{kernel}[bulk]"] == before[f"{kernel}[bulk]"]
+    want = run(*(t.cpu() for t in args))
+    np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gather_out_of_range_indices_give_nan_rows(card, aligned):
+    """idx or cols entries out of range (negative or too large) give NaN
+    rows on either branch, no copy from a wild address; the other rows
+    agree with the plain version."""
+    g = torch.Generator().manual_seed(11)
+    flat = torch.randn(6 * 4 * 8 * 64 + 1, generator=g).to(card)
+    V4 = (flat[:-1] if aligned else flat[1:]).view(6, 4, 8, 64)
+    qsel = torch.randn(3, 64, generator=g).to(card)
+    idx = torch.tensor([0, 6, 5, -1, 2], dtype=torch.int32, device=card)
+    cols = torch.tensor([1, 0, 3], dtype=torch.int32, device=card)
+    out = ops.gather_block_dot(V4, idx, cols, qsel)
+    torch.cuda.synchronize()
+    bad = torch.tensor([False, True, False, True, False])
+    assert bool(out[bad.to(card)].isnan().all())
+    ok = torch.tensor([0, 2, 4])
+    want = ops.gather_block_dot(V4.cpu(), idx.cpu()[ok], cols.cpu(),
+                                qsel.cpu())
+    np.testing.assert_allclose(out.cpu()[ok].numpy(), want.numpy(),
+                               rtol=1e-5, atol=1e-5 * float(
+                                   want.abs().max()))
+    out = ops.gather_block_dot(V4, idx[ok.to(card)], torch.tensor(
+        [1, 4, 0], dtype=torch.int32, device=card), qsel)
+    assert bool(out.isnan().all())           # column 4 of 4 blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qwen_geometry_takes_bulk_branch(card, dtype):
+    """Both kernels at the qwen1.5-0.5b table's full geometry: the
+    (153600, 1024) matvec and the (19200, 2, 8, 512) row and
+    (19200, 8, 8, 128) coord gathers take the bulk branch with a grid of
+    min(work, SMs x CTAs per SM) and agree with their plain versions."""
+    from repro_torch.kernels import blocked_matvec as bmv
+    from repro_torch.kernels import gather_dot as gd
+    from repro_torch.kernels import ref, stream
+    g = torch.Generator(device=card).manual_seed(3)
+    table = (0.02 * torch.randn(153600, 1024, generator=g, device=card)
+             ).to(dtype)
+    q = torch.randn(1024, generator=g, device=card).to(dtype)
+    before = ops.launch_counts()
+    out = ops.blocked_matvec(table, q)
+    geo = stream.matvec_stream(1024, 512, table.element_size(),
+                               table.data_ptr())
+    assert geo.bulk
+    assert bmv.launched_grid(card) == _grid_of(bmv, table.device, dtype,
+                                               geo, 153600)
+    want = ref.blocked_matvec_ref(table, q)
+    torch.testing.assert_close(out, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    for R, C in ((8, 512), (8, 128)):
+        V4 = table.view(19200, R, 1024 // C, C).transpose(1, 2).contiguous()
+        idx = torch.arange(19200, dtype=torch.int32, device=card)
+        cols = torch.randperm(1024 // C, generator=g, device=card).to(
+            torch.int32)
+        qsel = q.view(-1, C)[cols.long()].contiguous()
+        out = ops.gather_block_dot(V4, idx, cols, qsel)
+        geo = stream.gather_stream(R, C, V4.element_size(), 1024 // C,
+                                   V4.data_ptr())
+        assert geo.bulk
+        assert gd.launched_grid(card) == _grid_of(gd, V4.device, dtype, geo,
+                                                  19200)
+        want = ref.gather_block_dot_ref(V4, idx, cols, qsel)
+        torch.testing.assert_close(out, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+        del V4
+    after = ops.launch_counts()
+    assert after["blocked_matvec[bulk]"] == before["blocked_matvec[bulk]"] + 1
+    assert (after["gather_block_dot[bulk]"]
+            == before["gather_block_dot[bulk]"] + 2)
 
 
 def test_new_wrappers_check_operands(card):
