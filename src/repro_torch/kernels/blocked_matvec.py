@@ -34,9 +34,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 library.register(["blocked_matvec", "blocked_matvec[bulk]",
                   "blocked_matvec[ldg]"])
 
-_GRID = library.DeviceWords()
-# the chunk counter of launches on each (device, stream)
-_COUNTER = library.DeviceWords(2)
+_GRID = library.GridWord()
+#: the `stream.Stream` fields the C entry takes, in its order
+GEOMETRY = ("bulk", "rows", "slabs", "stages", "stage_bytes", "group",
+            "pairs", "info_off", "ring_off", "q_off", "part_off", "smem")
 
 
 def build():
@@ -49,7 +50,8 @@ def build():
 def _lib() -> ctypes.CDLL:
     lib = library.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.blocked_matvec.argtypes = [i] + [p] * 6 + [i] * 17 + [p]
+    lib.blocked_matvec.argtypes = ([i] + [p] * 4 + [i] * (4 + len(GEOMETRY))
+                                   + [p])
     lib.blocked_matvec.restype = i
     lib.blocked_matvec_config.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 2
     lib.blocked_matvec_config.restype = i
@@ -68,18 +70,17 @@ def occupancy(device: torch.device, dtype: int, bulk: bool,
 @functools.lru_cache(maxsize=256)
 def _plan(device: torch.device, code: int, n: int, d: int, tile_d: int,
           elt: int, misalign: int):
-    """``(geometry, chunks, grid, chunk bounds on the device)`` of a
-    launch, made once per shape; ``misalign`` is W's address mod 16."""
+    """``(geometry, grid)`` of a launch, made once per shape;
+    ``misalign`` is W's address mod 16."""
     geo = stream.matvec_stream(d, tile_d, elt, misalign)
-    n_chunks = geo.chunks(n)
-    grid = stream.grid_ctas(n_chunks,
+    grid = stream.grid_ctas(geo.chunks(n),
                             *occupancy(device, code, geo.bulk, geo.smem))
-    return geo, n_chunks, grid, stream.bounds_on(device, n, n_chunks)
+    return geo, grid
 
 
 def launched_grid(device) -> int:
     """The CTA count of the last launch on ``device``
-    (`library.DeviceWords.read`)."""
+    (`library.GridWord.read`)."""
     return _GRID.read(device)
 
 
@@ -124,16 +125,14 @@ def blocked_matvec_cuda(W: torch.Tensor, q: torch.Tensor, *,
     if n == 0:
         return out
     dev, code = W.device, DTYPES.index(W.dtype)
-    geo, n_chunks, grid, bounds = _plan(dev, code, n, d, tile_d,
-                                        W.element_size(), W.data_ptr() % 16)
+    geo, grid = _plan(dev, code, n, d, tile_d, W.element_size(),
+                      W.data_ptr() % 16)
     lib = _lib()
     with library.on_device(dev):
         s = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.blocked_matvec(code, W.data_ptr(), q.data_ptr(),
-                                out.data_ptr(), bounds.data_ptr(),
-                                _COUNTER.on(dev, s).data_ptr(),
-                                _GRID.on(dev).data_ptr(), n_chunks, grid, d,
-                                tile_d, *geo.ints(), s)
+                                out.data_ptr(), _GRID.on(dev).data_ptr(), n,
+                                grid, d, tile_d, *geo.ints(GEOMETRY), s)
     library.check_launch(lib, rc, "blocked_matvec")
     library.count("blocked_matvec", f"blocked_matvec[{geo.branch}]")
     return out

@@ -15,14 +15,13 @@
 // and a warp that loads, then stops to reduce, leaves gaps.
 //
 // What the design does (stream.cuh, repro_torch/kernels/stream.py).
-//  * A persistent grid of min(chunks, SMs x CTAs per SM) CTAs.  The rows
-//    are cut on the host into chunks of about one stage, contiguous and
-//    balanced to within one row (bounds); each CTA takes its next chunk
-//    from counter[0] when it is ready for one.  SMs do not stream at one
-//    rate: with one fixed range per CTA the fastest CTAs finished a
-//    quarter of the run early, so this keeps every SM streaming to the
-//    end.  The last CTA to finish sets the counter back to 0.  Block 0
-//    writes gridDim.x to grid_out.
+//  * A persistent grid of min(chunks, SMs x CTAs per SM) CTAs.  Chunk c
+//    is the `rows` rows of one stage from row c * rows on (stream.py);
+//    CTA i takes chunks i, i + grid, i + 2 grid, ...  SMs do not stream at
+//    one rate: with one contiguous range per CTA the fastest CTAs finished
+//    a quarter of the run early; interleaved chunks of one stage keep
+//    every SM streaming until the last round of chunks.  Block 0 writes
+//    gridDim.x to grid_out.
 //  * Bulk branch: one producer lane copies W into a ring of S stages
 //    (about 64 KB per CTA), one 1-D bulk copy per stage: `rows` whole rows,
 //    or `slabs` tile_d slabs of one row where a row exceeds a stage, and
@@ -54,17 +53,16 @@ struct Args {
   const void* W;
   const void* q;
   float* out;
-  const int* bounds;   // (n_chunks + 1,) row ranges of the chunks
-  int* counter;        // (2,): next chunk, CTAs done; 0 between launches
   int* grid_out;       // (1,): block 0 writes gridDim.x here
-  int d, tile_d, n_slabs, n_chunks;
+  int n, d, tile_d, n_slabs, n_chunks;   // chunk c: rows [c, c + 1) * rows
   int rows, slabs, stages, stage_bytes, group, pairs;
   int info_off, ring_off, q_off, part_off;
 };
 
-// Stage sl of a chunk of rows [r0, r1): `rows` rows starting at `row`,
-// slabs [s0, s0 + sh) of each; `first` / `last` where the stage begins or
-// ends its rows' sums.
+// Stage sl of chunk c: its `rows` rows starting at `row`, slabs
+// [s0, s0 + sh) of each; `first` / `last` where the stage begins or ends
+// its rows' sums.  A chunk of whole rows is one stage; a chunk of one row
+// longer than a stage is `pieces` stages of `slabs` slabs.
 struct Stage {
   int row, rows, s0, sh;
   bool first, last;
@@ -74,17 +72,15 @@ __device__ __forceinline__ int pieces_of(const Args& a) {
   return (a.n_slabs + a.slabs - 1) / a.slabs;
 }
 
-__device__ __forceinline__ Stage stage_of(const Args& a, int r0, int r1,
-                                          int sl) {
-  const int pieces = pieces_of(a);
+__device__ __forceinline__ Stage stage_of(const Args& a, int c, int sl) {
   Stage st;
-  const int pc = sl % pieces;
-  st.row = r0 + (sl / pieces) * a.rows;
-  st.rows = min(a.rows, r1 - st.row);
-  st.s0 = pc * a.slabs;
+  int r1;
+  chunk_span(c, a.rows, a.n, &st.row, &r1);
+  st.rows = r1 - st.row;
+  st.s0 = sl * a.slabs;
   st.sh = min(a.slabs, a.n_slabs - st.s0);
-  st.first = pc == 0;
-  st.last = pc == pieces - 1;
+  st.first = sl == 0;
+  st.last = sl == pieces_of(a) - 1;
   return st;
 }
 
@@ -96,7 +92,7 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(const Args a) {
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.grid_out = gridDim.x;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + a.stages;
-  // per ring slot: chunk (-1: no more work), stage, the chunk's rows r0, r1
+  // per ring slot: chunk (-1: no more work), stage
   int* info = reinterpret_cast<int*>(smem + a.info_off);
   unsigned char* ring = smem + a.ring_off;
   T* qs = reinterpret_cast<T*>(smem + a.q_off);
@@ -113,21 +109,17 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(const Args a) {
 
   if (threadIdx.x >= kConsumers) {            // the producer warp
     if (threadIdx.x == kConsumers) {
-      int s = 0, c = atomicAdd(a.counter, 1), r0 = 0, r1 = 0;
-      if (c < a.n_chunks) r0 = a.bounds[c], r1 = a.bounds[c + 1];
-      while (c < a.n_chunks) {
-        const int next = atomicAdd(a.counter, 1);   // in flight meanwhile
-        const int n_sl = (r1 - r0 + a.rows - 1) / a.rows * pieces_of(a);
+      int s = 0;
+      const int n_sl = pieces_of(a);
+      for (int c = blockIdx.x; c < a.n_chunks; c += gridDim.x) {
         for (int sl = 0; sl < n_sl; ++sl, ++s) {
           const int slot = s % a.stages;
           if (s >= a.stages) wait(empty + slot, ((s / a.stages) - 1) & 1);
-          int* note = info + 4 * slot;
+          int* note = info + kSlotInts * slot;
           note[0] = c;
           note[1] = sl;
-          note[2] = r0;
-          note[3] = r1;
           if (BULK) {
-            const Stage st = stage_of(a, r0, r1, sl);
+            const Stage st = stage_of(a, c, sl);
             const uint32_t bytes = static_cast<uint32_t>(st.rows) * st.sh *
                                    a.tile_d * sizeof(T);
             arrive_expect(full + slot, bytes);
@@ -138,13 +130,10 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(const Args a) {
             arrive(full + slot);
           }
         }
-        // the next chunk's rows, loaded while the consumers drain this one
-        c = next;
-        if (c < a.n_chunks) r0 = a.bounds[c], r1 = a.bounds[c + 1];
       }
       const int slot = s % a.stages;          // no more work
       if (s >= a.stages) wait(empty + slot, ((s / a.stages) - 1) & 1);
-      info[4 * slot] = -1;
+      info[kSlotInts * slot] = -1;
       arrive(full + slot);
     }
     return;
@@ -165,9 +154,9 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(const Args a) {
   for (int s = 0;; ++s) {
     const int slot = s % a.stages;
     wait(full + slot, (s / a.stages) & 1);
-    const int* note = info + 4 * slot;
+    const int* note = info + kSlotInts * slot;
     if (note[0] < 0) break;
-    const Stage st = stage_of(a, note[2], note[3], note[1]);
+    const Stage st = stage_of(a, note[0], note[1]);
     const int pairs = st.rows * st.sh;
     const T* src =
         BULK ? reinterpret_cast<const T*>(ring + static_cast<size_t>(slot) *
@@ -200,7 +189,6 @@ __global__ void __launch_bounds__(kThreads) matvec_kernel(const Args a) {
         carry = v;
     }
   }
-  if (threadIdx.x == 0) finish(a.counter);
 }
 
 template <typename T, bool BULK>
@@ -230,24 +218,21 @@ extern "C" int blocked_matvec_config(int dtype, int bulk, int smem, int* sms,
                                                              per_sm));
 }
 
-// dtype 0: f32 operands, 1: bf16.  d % tile_d == 0 (the wrapper checks);
-// bounds cut the rows into n_chunks chunks; counter is 0 before the launch
-// and after it; the geometry (bulk ... smem) is stream.Stream.ints().
-// Returns the launch's cudaError_t.
+// dtype 0: f32 operands, 1: bf16.  W is (n, d), d % tile_d == 0 (the
+// wrapper checks); the geometry (bulk ... smem) is the wrapper's GEOMETRY
+// fields of a stream.Stream.  Returns the launch's cudaError_t.
 extern "C" int blocked_matvec(int dtype, const void* W, const void* q,
-                              float* out, const int* bounds, int* counter,
-                              int* grid_out, int n_chunks, int grid, int d,
-                              int tile_d, int bulk, int rows, int slabs,
-                              int stages, int stage_bytes, int group,
-                              int pairs, int info_off, int ring_off,
-                              int q_off, int part_off, int carry_off,
-                              int smem, cudaStream_t stream) {
-  (void)carry_off;
+                              float* out, int* grid_out, int n,
+                              int grid, int d, int tile_d, int bulk,
+                              int rows, int slabs, int stages,
+                              int stage_bytes, int group, int pairs,
+                              int info_off, int ring_off, int q_off,
+                              int part_off, int smem, cudaStream_t stream) {
   if (grid == 0) return 0;
-  Args a{W,        q,      out,        bounds,   counter, grid_out,
-         d,        tile_d, d / tile_d, n_chunks, rows,    slabs,
-         stages,   stage_bytes, group, pairs,    info_off, ring_off,
-         q_off,    part_off};
+  Args a{W,      q,           out,   grid_out,
+         n,      d,           tile_d, d / tile_d, (n + rows - 1) / rows,
+         rows,   slabs,       stages, stage_bytes, group,
+         pairs,  info_off,    ring_off, q_off,   part_off};
   cudaError_t err;
   if (dtype == 0)
     err = bulk ? launch_inst<float, true>(a, grid, smem, stream)

@@ -15,19 +15,19 @@
 // What the design does (stream.cuh, repro_torch/kernels/stream.py).  The
 // TPU grid (T, dt) gathers one cell per step through scalar-prefetched
 // idx/cols and carries out[t] across the inner axis.  Here:
-//  * A persistent grid of min(chunks, SMs x CTAs per SM) CTAs.  The tiles
-//    are cut on the host into chunks of the whole tiles about one stage
-//    holds, contiguous and balanced to within one tile (bounds); each CTA
-//    takes its next chunk from counter[0] when it is ready for one and
-//    walks the chunk's (t, b) cells in order, so SMs that stream faster
-//    take more chunks and all finish together.  The last CTA to finish
-//    sets the counter back to 0.  Block 0 writes gridDim.x to grid_out.
-//  * Bulk branch: one producer lane reads idx and cols and copies whole
-//    cells (one contiguous span each) into a ring of S stages, `rows` cells
-//    a stage, one 1-D bulk copy per cell, and notes the stage's chunk and
-//    each cell's block b beside it.  A cell whose tile or column index is
+//  * A persistent grid of min(chunks, SMs x CTAs per SM) CTAs.  Chunk c
+//    is the `chunk` tiles from tile c * chunk on, the whole tiles about
+//    one stage holds (stream.py); CTA i takes chunks i, i + grid, ... and
+//    walks each chunk's (t, b) cells in order.  Block 0 writes gridDim.x
+//    to grid_out.
+//  * Bulk branch: the producer warp's lanes read idx and cols and copy
+//    whole cells (one contiguous span each) into a ring of S stages, `rows`
+//    cells a stage, one 1-D bulk copy per cell, and note the stage's chunk
+//    and each cell's block b beside it.  A cell whose tile or column index is
 //    out of range is not copied (a copy from a wild address faults) and
-//    noted -1: its rows come out NaN.
+//    noted -1: its rows come out NaN.  The notes are written before the
+//    arrive that sets the stage's bytes: a stage of no valid cell expects
+//    none and completes on that arrive.
 //  * qsel is copied into shared memory once per CTA.  Consumers read only
 //    shared memory: one dot per cell row, over `group` lanes (about eight
 //    16-byte vectors a lane: 2 lanes a row at C = 128 in bf16, so a warp
@@ -52,11 +52,9 @@ struct Args {
   const int* cols;
   const void* qsel;
   float* out;
-  const int* bounds;   // (n_chunks + 1,) tile ranges of the chunks
-  int* counter;        // (2,): next chunk, CTAs done; 0 between launches
   int* grid_out;       // (1,): block 0 writes gridDim.x here
-  int n_tiles, n_blocks, R, C, dt, n_chunks;
-  int rows, stages, stage_bytes, group, pairs;
+  int T, n_tiles, n_blocks, R, C, dt, n_chunks;
+  int chunk, rows, stages, stage_bytes, group, pairs;
   int info_off, ring_off, q_off, part_off, carry_off;
 };
 
@@ -77,9 +75,9 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(const Args a) {
   const size_t cell_elems = static_cast<size_t>(R) * C;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + a.stages;
-  // per ring slot: chunk (-1: no more work), stage, the chunk's tiles t0,
-  // t1, and on the bulk branch two notes per cell (below)
-  const int slot_ints = 4 + (BULK ? 2 * a.rows : 0);
+  // per ring slot: chunk (-1: no more work), stage, and on the bulk branch
+  // two notes per cell (below)
+  const int slot_ints = kSlotInts + (BULK ? 2 * a.rows : 0);
   int* info = reinterpret_cast<int*>(smem + a.info_off);
   unsigned char* ring = smem + a.ring_off;
   T* qs = reinterpret_cast<T*>(smem + a.q_off);
@@ -95,68 +93,61 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(const Args a) {
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {            // the producer warp
-    // Lane 0 takes the chunks and hands out the stages; on the bulk branch
-    // the warp's lanes look up a stage's cells and copy them in parallel.
+    // The warp walks the CTA's chunks; lane 0 notes each stage and arrives
+    // on its slot, and on the bulk branch the lanes look up a stage's cells
+    // and copy them in parallel.
     const int pl = threadIdx.x - kConsumers;
     const uint32_t cell_bytes = static_cast<uint32_t>(cell_elems * sizeof(T));
-    int s = 0, c = 0, t0 = 0, t1 = 0;
-    if (pl == 0) {
-      c = atomicAdd(a.counter, 1);
-      if (c < a.n_chunks) t0 = a.bounds[c], t1 = a.bounds[c + 1];
-    }
-    c = __shfl_sync(kFull, c, 0);
-    while (c < a.n_chunks) {
-      t0 = __shfl_sync(kFull, t0, 0);
-      t1 = __shfl_sync(kFull, t1, 0);
-      int next = 0;
-      if (pl == 0) next = atomicAdd(a.counter, 1);   // in flight meanwhile
+    int s = 0, t0, t1;
+    for (int c = blockIdx.x; c < a.n_chunks; c += gridDim.x) {
+      chunk_span(c, a.chunk, a.T, &t0, &t1);
       const int n_items = (t1 - t0) * dt;
       for (int i0 = 0, sl = 0; i0 < n_items; i0 += a.rows, ++sl, ++s) {
         const int slot = s % a.stages;
         if (s >= a.stages) wait(empty + slot, ((s / a.stages) - 1) & 1);
         int* note = info + slot * slot_ints;
+        // Every note of the slot is written before lane 0's arrive below:
+        // the arrive releases them, and a stage that expects no bytes (no
+        // valid cell) completes on it.
+        if (pl == 0) {
+          note[0] = c;
+          note[1] = sl;
+        }
         if (BULK) {
-          // note[4 + j]: cell j's block b, or -1 where it is not copied;
-          // note[4 + rows + j]: the cell's index in V4
+          // note[kSlotInts + j]: cell j's block b, or -1 where it is not
+          // copied; note[kSlotInts + rows + j]: the cell's index in V4
+          int* cell_b = note + kSlotInts;
+          int* cell_at = cell_b + a.rows;
           const int cnt = min(a.rows, n_items - i0);
           int valid = 0;
           for (int j = pl; j < cnt; j += 32) {
             const int item = i0 + j, b = item % dt;
             const long long cell = cell_of(a, t0 + item / dt, b);
-            note[4 + j] = cell >= 0 ? b : -1;
-            note[4 + a.rows + j] = static_cast<int>(cell);
+            cell_b[j] = cell >= 0 ? b : -1;
+            cell_at[j] = static_cast<int>(cell);
             valid += cell >= 0;
           }
           valid = __reduce_add_sync(kFull, valid);
+          __syncwarp();                 // the lanes' notes before the arrive
           if (pl == 0) arrive_expect(full + slot, valid * cell_bytes);
-          __syncwarp();
-          unsigned char* dst = ring + static_cast<size_t>(slot) * a.stage_bytes;
+          __syncwarp();                 // the bytes expected before a copy
+          unsigned char* dst =
+              ring + static_cast<size_t>(slot) * a.stage_bytes;
           for (int j = pl; j < cnt; j += 32) {
-            const int cell = note[4 + a.rows + j];
+            const int cell = cell_at[j];
             if (cell >= 0)
               bulk_copy(dst + static_cast<size_t>(j) * cell_bytes,
                         V4 + static_cast<size_t>(cell) * cell_elems,
                         cell_bytes, full + slot);
           }
-        }
-        if (pl == 0) {
-          note[0] = c;
-          note[1] = sl;
-          note[2] = t0;
-          note[3] = t1;
-          if (!BULK) arrive(full + slot);
+        } else if (pl == 0) {
+          arrive(full + slot);
         }
       }
-      // the next chunk's tiles and their idx entries, fetched while the
-      // consumers drain this one
-      if (pl == 0) {
-        c = next;
-        if (c < a.n_chunks) {
-          t0 = a.bounds[c], t1 = a.bounds[c + 1];
-          prefetch_l1(a.idx + t0);
-        }
-      }
-      c = __shfl_sync(kFull, c, 0);
+      // the next chunk's idx entries, fetched while the consumers drain
+      // this one
+      if (pl == 0 && c + gridDim.x < a.n_chunks)
+        prefetch_l1(a.idx + (c + gridDim.x) * a.chunk);
     }
     const int slot = s % a.stages;            // no more work
     if (s >= a.stages) wait(empty + slot, ((s / a.stages) - 1) & 1);
@@ -183,7 +174,9 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(const Args a) {
     wait(full + slot, (s / a.stages) & 1);
     const int* note = info + slot * slot_ints;
     if (note[0] < 0) break;
-    const int t0 = note[2], n_items = (note[3] - t0) * dt;
+    int t0, t1;
+    chunk_span(note[0], a.chunk, a.T, &t0, &t1);
+    const int n_items = (t1 - t0) * dt;
     const int i0 = note[1] * a.rows, cnt = min(a.rows, n_items - i0);
     const int pairs = cnt * R;
     const T* src = reinterpret_cast<const T*>(
@@ -197,7 +190,7 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(const Args a) {
       if (p < pairs) {
         const int j = p / R;
         if (BULK) {
-          const int b = note[4 + j];
+          const int b = note[kSlotInts + j];
           bad = b < 0;
           if (!bad)
             v = dot_shared<T>(src + static_cast<size_t>(p) * C,
@@ -232,7 +225,6 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(const Args a) {
       carry[r] = acc;
     }
   }
-  if (threadIdx.x == 0) finish(a.counter);
 }
 
 template <typename T, bool BULK>
@@ -262,26 +254,25 @@ extern "C" int gather_block_dot_config(int dtype, int bulk, int smem,
                                                              per_sm));
 }
 
-// dtype 0: f32 operands, 1: bf16; bounds cut the T tiles into n_chunks
-// chunks; counter is 0 before the launch and after it; the geometry
-// (bulk ... smem) is stream.Stream.ints() (`slabs` unused).  Returns the
+// dtype 0: f32 operands, 1: bf16; idx holds T tiles, cols dt blocks; the
+// geometry (bulk ... smem) is the wrapper's GEOMETRY fields of a
+// stream.Stream.  Returns the
 // launch's cudaError_t.
 extern "C" int gather_block_dot(int dtype, const void* V4, const int* idx,
                                 const int* cols, const void* qsel, float* out,
-                                const int* bounds, int* counter,
-                                int* grid_out, int n_chunks, int grid,
+                                int* grid_out, int T, int grid,
                                 int n_tiles, int n_blocks, int R, int C,
-                                int dt, int bulk, int rows, int slabs,
+                                int dt, int bulk, int chunk, int rows,
                                 int stages, int stage_bytes, int group,
                                 int pairs, int info_off, int ring_off,
                                 int q_off, int part_off, int carry_off,
                                 int smem, cudaStream_t stream) {
-  (void)slabs;
   if (grid == 0) return 0;
-  Args a{V4,      idx,      cols,     qsel,  out,         bounds,
-         counter, grid_out, n_tiles,  n_blocks, R,        C,
-         dt,      n_chunks, rows,     stages,   stage_bytes, group,
-         pairs,   info_off, ring_off, q_off,    part_off, carry_off};
+  Args a{V4,       idx,      cols,     qsel,   out,
+         grid_out, T,        n_tiles,  n_blocks,
+         R,        C,        dt,       (T + chunk - 1) / chunk,
+         chunk,    rows,     stages,   stage_bytes, group,
+         pairs,    info_off, ring_off, q_off,  part_off, carry_off};
   cudaError_t err;
   if (dtype == 0)
     err = bulk ? launch_inst<float, true>(a, grid, smem, stream)

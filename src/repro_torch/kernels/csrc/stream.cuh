@@ -1,12 +1,14 @@
 // The streaming ring shared by blocked_matvec.cu and gather_dot.cu.
 //
 // A CTA of either kernel has eight consumer warps and one producer warp.
-// The producer's first lane takes chunks of work from a counter in device
-// memory and hands their stages to the consumers through an S-stage ring
-// in dynamic shared memory: on the bulk branch it fills each stage with
-// 1-D bulk copies (cp.async.bulk ... mbarrier::complete_tx::bytes), on the
-// plain-load branch the ring carries only its notes of which stage is
-// which.  Stage s waits on full[s % S] with parity (s / S) & 1, and the
+// The producer's first lane takes the CTA's chunks of work (CTA i: chunks
+// i, i + grid, i + 2 grid, ...) and hands their stages to the consumers
+// through an S-stage ring in dynamic shared memory: on the bulk branch it
+// fills each stage with 1-D bulk copies (cp.async.bulk ...
+// mbarrier::complete_tx::bytes), on the plain-load branch the ring carries
+// only its notes of which stage is which.  A slot's notes are written
+// before the producer arrives on its full barrier, since a stage that
+// expects no bytes completes on that arrive.  Stage s waits on full[s % S] with parity (s / S) & 1, and the
 // producer refills a slot once the eight consumer warps have arrived on
 // empty[s % S].  The host decides the geometry and the shared-memory layout
 // (repro_torch/kernels/stream.py) and passes it in.
@@ -29,6 +31,16 @@ constexpr int kConsumerWarps = 8;
 constexpr int kConsumers = kConsumerWarps * 32;
 constexpr int kThreads = kConsumers + 32;   // + the producer warp
 constexpr unsigned kFull = 0xffffffffu;
+// ints noted per ring slot (stream.SLOT_INTS): the stage's chunk (-1: no
+// more work) and its stage within the chunk
+constexpr int kSlotInts = 2;
+
+// Chunk c of `work` units cut into chunks of `chunk`: units [*lo, *hi).
+__device__ __forceinline__ void chunk_span(int c, int chunk, int work, int* lo,
+                                           int* hi) {
+  *lo = c * chunk;
+  *hi = min(*lo + chunk, work);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -89,17 +101,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
-}
-
-// Once per CTA, by one thread, after its consumers saw the end of the
-// work (so its producer has taken its last chunk): the last CTA to get
-// here sets the chunk counter and the count of CTAs done back to 0.
-__device__ __forceinline__ void finish(int* counter) {
-  __threadfence();
-  if (atomicAdd(counter + 1, 1) == static_cast<int>(gridDim.x) - 1) {
-    counter[0] = 0;
-    counter[1] = 0;
-  }
 }
 
 // the eight consumer warps only (the producer warp never joins)

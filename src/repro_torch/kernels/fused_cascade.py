@@ -79,7 +79,7 @@ def launch_grid(device: torch.device) -> Tuple[int, int]:
     return sms.value, cap.value
 
 
-_GRID = library.DeviceWords()
+_GRID = library.GridWord()
 
 
 def launched_grid(device) -> int:

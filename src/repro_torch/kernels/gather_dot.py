@@ -34,9 +34,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 library.register(["gather_block_dot", "gather_block_dot[bulk]",
                   "gather_block_dot[ldg]"])
 
-_GRID = library.DeviceWords()
-# the chunk counter of launches on each (device, stream)
-_COUNTER = library.DeviceWords(2)
+_GRID = library.GridWord()
+#: the `stream.Stream` fields the C entry takes, in its order
+GEOMETRY = ("bulk", "chunk", "rows", "stages", "stage_bytes", "group",
+            "pairs", "info_off", "ring_off", "q_off", "part_off",
+            "carry_off", "smem")
 
 
 def build():
@@ -49,7 +51,8 @@ def build():
 def _lib() -> ctypes.CDLL:
     lib = library.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gather_block_dot.argtypes = [i] + [p] * 8 + [i] * 20 + [p]
+    lib.gather_block_dot.argtypes = ([i] + [p] * 6 + [i] * (7 + len(GEOMETRY))
+                                     + [p])
     lib.gather_block_dot.restype = i
     lib.gather_block_dot_config.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 2
     lib.gather_block_dot_config.restype = i
@@ -68,18 +71,17 @@ def occupancy(device: torch.device, dtype: int, bulk: bool,
 @functools.lru_cache(maxsize=256)
 def _plan(device: torch.device, code: int, T: int, R: int, C: int, elt: int,
           dt: int, misalign: int):
-    """``(geometry, chunks, grid, chunk bounds on the device)`` of a
-    launch, made once per shape; ``misalign`` is V4's address mod 16."""
+    """``(geometry, grid)`` of a launch, made once per shape;
+    ``misalign`` is V4's address mod 16."""
     geo = stream.gather_stream(R, C, elt, dt, misalign)
-    n_chunks = geo.chunks(T)
-    grid = stream.grid_ctas(n_chunks,
+    grid = stream.grid_ctas(geo.chunks(T),
                             *occupancy(device, code, geo.bulk, geo.smem))
-    return geo, n_chunks, grid, stream.bounds_on(device, T, n_chunks)
+    return geo, grid
 
 
 def launched_grid(device) -> int:
     """The CTA count of the last launch on ``device``
-    (`library.DeviceWords.read`)."""
+    (`library.GridWord.read`)."""
     return _GRID.read(device)
 
 
@@ -134,17 +136,15 @@ def gather_block_dot_cuda(V4: torch.Tensor, idx: torch.Tensor,
     if T == 0 or dt == 0:
         return out.zero_()          # an empty sum: nothing to launch
     code = DTYPES.index(V4.dtype)
-    geo, n_chunks, grid, bounds = _plan(dev, code, T, R, C,
-                                        V4.element_size(), dt,
-                                        V4.data_ptr() % 16)
+    geo, grid = _plan(dev, code, T, R, C, V4.element_size(), dt,
+                      V4.data_ptr() % 16)
     lib = _lib()
     with library.on_device(dev):
         s = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gather_block_dot(
             code, V4.data_ptr(), idx.data_ptr(), cols.data_ptr(),
-            qsel.data_ptr(), out.data_ptr(), bounds.data_ptr(),
-            _COUNTER.on(dev, s).data_ptr(), _GRID.on(dev).data_ptr(),
-            n_chunks, grid, n_tiles, n_blocks, R, C, dt, *geo.ints(), s)
+            qsel.data_ptr(), out.data_ptr(), _GRID.on(dev).data_ptr(), T, grid,
+            n_tiles, n_blocks, R, C, dt, *geo.ints(GEOMETRY), s)
     library.check_launch(lib, rc, "gather_block_dot")
     library.count("gather_block_dot", f"gather_block_dot[{geo.branch}]")
     return out

@@ -8,7 +8,7 @@ library whose name carries a hash of the source; `load` opens it with
 
 The launch counts of every kernel wrapper live here too: a wrapper adds
 one to its names (`count`) where it launches its kernel, and nowhere
-else; so do the words launches keep state in (`DeviceWords`) and the
+else; so do the word a launch writes its grid into (`GridWord`) and the
 occupancy query of a source's ``<entry>_config``.
 """
 
@@ -28,7 +28,7 @@ import torch
 
 __all__ = ["CSRC", "build", "load", "check_launch", "register", "count",
            "launch_counts", "reset_launch_counts", "on_device",
-           "occupancy", "DeviceWords"]
+           "occupancy", "GridWord"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = CSRC.parent / "build"
@@ -143,31 +143,29 @@ def occupancy(lib: ctypes.CDLL, entry: str, device: torch.device,
     return sms.value, per_sm.value
 
 
-class DeviceWords:
-    """Small int32 buffers that launches keep state in (the grid a launch
-    ran with, a counter of work handed out), one per device and key, made
-    zeroed at first use and kept for the process."""
+class GridWord:
+    """One int32 word per device that a launch writes its own
+    ``gridDim.x`` into, made zeroed at first use and kept for the
+    process."""
 
-    def __init__(self, n: int = 1) -> None:
-        self._n = n
-        self._words: Dict[tuple, torch.Tensor] = {}
+    def __init__(self) -> None:
+        self._words: Dict[torch.device, torch.Tensor] = {}
 
-    def on(self, device: torch.device, key: int = 0) -> torch.Tensor:
-        words = self._words.get((device, key))
-        if words is None:
-            words = torch.zeros((self._n,), dtype=torch.int32, device=device)
-            self._words[(device, key)] = words
-        return words
+    def on(self, device: torch.device) -> torch.Tensor:
+        word = self._words.get(device)
+        if word is None:
+            word = torch.zeros((1,), dtype=torch.int32, device=device)
+            self._words[device] = word
+        return word
 
     def read(self, device) -> int:
-        """The first word of ``device``'s key-0 buffer, then cleared: for a
-        grid word, the CTA count of the last launch as the kernel read it
-        from its own ``gridDim.x`` (0 when none launched since the last
-        read).  Waits for the card."""
+        """The CTA count of the last launch on ``device`` as the kernel
+        read it from its own ``gridDim.x`` (0 when none launched since the
+        last read), then cleared.  Waits for the card."""
         dev = torch.device(device)
         if dev.index is None:
             dev = torch.device(dev.type, torch.cuda.current_device())
-        word = self.on(dev)[:1]
+        word = self.on(dev)
         n = int(word.item())
         word.zero_()
         return n

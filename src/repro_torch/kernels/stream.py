@@ -2,17 +2,17 @@
 
 ``csrc/blocked_matvec.cu`` and ``csrc/gather_dot.cu`` share one design:
 a persistent grid of at most ``SMs x CTAs_per_SM`` CTAs over work cut
-into *chunks*, contiguous ranges of rows of W or of gathered tiles t,
-balanced to within one unit (`split`) and about one ring stage each.  A
-CTA takes its next chunk from a counter in device memory when it is
-ready for one, so CTAs on SMs that stream faster take more chunks and
-all of them finish together.  In a CTA one producer thread hands the
-chunks' stages to eight consumer warps through an S-stage ring in shared
-memory, filled with 1-D bulk copies; the consumers dot what arrives
-against the query, which the CTA holds in shared memory.  Everything
-here decides that geometry on the host, from shapes and pointers alone,
-so the CPU tests reach it; the kernels read the numbers as they are
-given.
+into *chunks* of ``chunk`` units (rows of W, or gathered tiles t; the
+last chunk may be shorter), about one ring stage each.  Chunk c is units
+``[c * chunk, min((c + 1) * chunk, work))``; CTA i takes chunks i,
+i + grid, i + 2 grid, ..., so every SM streams until the last round of
+chunks, and a launch keeps no state in device memory.  In a CTA one
+producer thread hands the chunks' stages to eight consumer warps through
+an S-stage ring in shared memory, filled with 1-D bulk copies; the
+consumers dot what arrives against the query, which the CTA holds in
+shared memory.  Everything here decides that geometry on the host, from
+shapes and pointers alone, so the CPU tests reach it; the kernels read
+the numbers as they are given.
 
 A stage holds whole units of work: ``rows`` rows of W (or, where a row
 exceeds a stage, ``slabs`` of its ``tile_d`` slabs), or ``rows`` gathered
@@ -32,17 +32,13 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
-import torch
-
 __all__ = ["SMEM_MAX", "STAGE_BYTES", "RING_BYTES", "MAX_PAIRS",
-           "LANE_VECTORS", "SLOT_INTS", "Stream", "split", "grid_ctas",
-           "group_lanes",
-           "matvec_stream", "gather_stream", "bounds_on"]
+           "LANE_VECTORS", "SLOT_INTS", "Stream", "grid_ctas", "group_lanes",
+           "matvec_stream", "gather_stream"]
 
-#: ints noted per ring slot beside a stage: its chunk (-1: no more work),
-#: its stage within the chunk and the chunk's first and end unit
-SLOT_INTS = 4
+#: ints noted per ring slot beside a stage: its chunk (-1: no more work)
+#: and its stage within the chunk
+SLOT_INTS = 2
 
 #: dynamic shared memory one CTA may take on the H100 (227 KB)
 SMEM_MAX = 232_448
@@ -84,22 +80,9 @@ class Stream:
         """Chunks of ``work`` units (rows or tiles)."""
         return -(-work // self.chunk)
 
-    def ints(self):
-        """The integers the C entries take, in their order."""
-        return (int(self.bulk), self.rows, self.slabs, self.stages,
-                self.stage_bytes, self.group, self.pairs, self.info_off,
-                self.ring_off, self.q_off, self.part_off, self.carry_off,
-                self.smem)
-
-
-def split(work: int, parts: int) -> np.ndarray:
-    """``(parts + 1,)`` int32 bounds: part i is units ``[b[i], b[i+1])``,
-    contiguous ranges covering ``range(work)`` once, sizes within one."""
-    if work < 0 or parts < 1:
-        raise ValueError(f"split needs work >= 0 and parts >= 1, got "
-                         f"{work} and {parts}")
-    i = np.arange(parts + 1, dtype=np.int64)
-    return (i * work // parts).astype(np.int32)
+    def ints(self, fields):
+        """The named fields as ints, in the order a C entry takes them."""
+        return tuple(int(getattr(self, f)) for f in fields)
 
 
 def grid_ctas(chunks: int, sms: int, per_sm: int) -> int:
@@ -149,8 +132,8 @@ def matvec_stream(d: int, tile_d: int, elt: int, w_ptr: int) -> Stream:
     entries at ``w_ptr`` and ``tile_d`` slabs (``d % tile_d == 0``).
 
     A stage holds whole rows where a row fits ``STAGE_BYTES``, else
-    ``slabs`` slabs of one row; one dot per (row, slab).  A chunk is one
-    stage of whole rows, or one row."""
+    ``slabs`` slabs of one row; one dot per (row, slab).  A chunk is the
+    ``rows`` rows of one stage, or one row."""
     n_slabs = d // tile_d
     row_bytes, slab_bytes = d * elt, tile_d * elt
     if row_bytes <= STAGE_BYTES and n_slabs <= MAX_PAIRS:
@@ -185,8 +168,3 @@ def gather_stream(R: int, C: int, elt: int, dt: int, v_ptr: int) -> Stream:
                       dt * row_bytes, R, 2 * rows)
     return geo or _layout(False, chunk, rows, 1, 0, group_lanes(C),
                           rows * R, 0, R, 0)
-
-
-def bounds_on(device: torch.device, work: int, parts: int) -> torch.Tensor:
-    """`split` as an int32 tensor on ``device``."""
-    return torch.from_numpy(split(work, parts)).to(device)

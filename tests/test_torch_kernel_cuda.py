@@ -476,12 +476,10 @@ def test_single_query_kernel_matches_plain_and_batch_of_one(
 def _grid_of(module, device, dtype, geo, work):
     """The grid a launch must run with: one CTA per chunk of work, at most
     every resident slot of the card (SMs x CTAs per SM for its shared
-    memory); and the launch left its chunk counter at 0."""
+    memory)."""
     from repro_torch.kernels import blocked_matvec as bmv
     sms, per_sm = module.occupancy(device, bmv.DTYPES.index(dtype),
                                    geo.bulk, geo.smem)
-    s = torch.cuda.current_stream(device).cuda_stream
-    assert module._COUNTER.on(device, s).tolist() == [0, 0]
     return min(geo.chunks(work), sms * per_sm)
 
 
@@ -615,6 +613,43 @@ def test_gather_out_of_range_indices_give_nan_rows(card, aligned):
     out = ops.gather_block_dot(V4, idx[ok.to(card)], torch.tensor(
         [1, 4, 0], dtype=torch.int32, device=card), qsel)
     assert bool(out.isnan().all())           # column 4 of 4 blocks
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("where", ["idx", "cols"])
+def test_gather_stages_wholly_out_of_range_give_nan_rows(card, aligned,
+                                                         where):
+    """Stages in which every cell is out of range expect no bytes, so their
+    ring slot is released by the producer's arrive alone: their tiles'
+    rows are NaN, and the tiles of the stages around them (more chunks
+    than CTAs, so a CTA reuses its slots) agree with the plain version.
+    With every ``cols`` entry out of range, every row is NaN."""
+    from repro_torch.kernels import stream
+    g = torch.Generator().manual_seed(13)
+    flat = torch.randn(6 * 4 * 8 * 64 + 1, generator=g).to(card)
+    V4 = (flat[:-1] if aligned else flat[1:]).view(6, 4, 8, 64)
+    qsel = torch.randn(3, 64, generator=g).to(card)
+    geo = stream.gather_stream(8, 64, 4, 3, V4.data_ptr())
+    assert geo.bulk == aligned
+    T = 600 * geo.chunk                       # more chunks than CTAs
+    idx = torch.randint(0, 6, (T,), generator=g, dtype=torch.int32)
+    cols = torch.tensor([1, 0, 3], dtype=torch.int32)
+    # every third chunk's tiles wholly out of range, alternately -1 and 6
+    chunk_of = torch.arange(T) // geo.chunk
+    bad = chunk_of % 3 == 1
+    idx[bad] = torch.where(chunk_of[bad] % 2 == 0, -1, 6).to(torch.int32)
+    if where == "cols":
+        cols = torch.tensor([4, -1, 7], dtype=torch.int32)
+        bad = torch.ones(T, dtype=torch.bool)
+    out = ops.gather_block_dot(V4, idx.to(card), cols.to(card), qsel)
+    torch.cuda.synchronize()
+    out = out.cpu()
+    assert bool(out[bad].isnan().all())
+    if where == "idx":
+        want = ops.gather_block_dot(V4.cpu(), idx[~bad], cols, qsel.cpu())
+        np.testing.assert_allclose(out[~bad].numpy(), want.numpy(),
+                                   rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -5,8 +5,9 @@ how `blocked_matvec` and `gather_block_dot` split their work over a
 persistent grid and lay out their ring in shared memory; the kernels
 read those numbers as given.  Checked here:
 
-* `split` covers every row or tile exactly once, in contiguous ranges
-  balanced to within one: the chunks of work the kernels' CTAs take;
+* the chunks the kernels' CTAs take (chunk c: units
+  ``[c * chunk, min((c + 1) * chunk, work))``, as ``chunk_span`` in
+  ``csrc/stream.cuh`` cuts them) cover every row or tile exactly once;
 * stage bytes are multiples of 16 (bulk copies need it) and the layout
   fits the 227 KB a CTA may take, with its parts 16-byte aligned and
   apart;
@@ -15,37 +16,68 @@ read those numbers as given.  Checked here:
   over each chunk's stages as the kernels walk them meets every
   (row, slab) or (tile, block) once, in the order the sums are taken;
 * the bulk / plain-load branch follows the alignment rule;
+* each C entry takes the geometry fields its wrapper passes, in order;
 * ``ops.blocked_matvec`` still raises ``ValueError`` on the CPU for the
   shapes ``blocked_matvec_pallas`` refuses.
 """
 
-import numpy as np
+import re
+
 import pytest
 import torch
 
-from repro_torch.kernels import ops, stream
+from repro_torch.kernels import (blocked_matvec, gather_dot, library, ops,
+                                 stream)
+
+_GEOS = {"matvec": stream.matvec_stream(1024, 512, 4, 0),
+         "matvec_long_row": stream.matvec_stream(16384, 512, 4, 0),
+         "gather_row": stream.gather_stream(8, 512, 2, 2, 0),
+         "gather_coord": stream.gather_stream(8, 128, 2, 8, 0)}
 
 
-@pytest.mark.parametrize("work,parts", [(0, 1), (1, 1), (5, 5), (7, 3),
-                                        (64, 8), (300, 38), (19200, 19200),
-                                        (153600, 19200), (153600, 396),
-                                        (1000, 7)])
-def test_split_covers_each_unit_once_balanced(work, parts):
-    b = stream.split(work, parts)
-    assert b.dtype == np.int32 and b.shape == (parts + 1,)
-    assert b[0] == 0 and b[-1] == work
-    sizes = np.diff(b.astype(np.int64))
-    assert (sizes >= 0).all() and sizes.max() - sizes.min() <= 1
-    units = np.concatenate([np.arange(b[i], b[i + 1])
-                            for i in range(parts)])
-    np.testing.assert_array_equal(units, np.arange(work))
+def _spans(work, geo):
+    """Each chunk's units, as ``chunk_span`` in ``csrc/stream.cuh`` cuts
+    them."""
+    return [(c * geo.chunk, min((c + 1) * geo.chunk, work))
+            for c in range(geo.chunks(work))]
 
 
-def test_split_refuses_no_ctas():
-    with pytest.raises(ValueError):
-        stream.split(10, 0)
-    with pytest.raises(ValueError):
-        stream.split(-1, 4)
+@pytest.mark.parametrize("work", [0, 1, 7, 13, 64, 300, 1000, 19200, 153600])
+@pytest.mark.parametrize("geo", sorted(_GEOS))
+def test_chunks_cover_each_unit_once(work, geo):
+    spans = _spans(work, _GEOS[geo])
+    units = [u for lo, hi in spans for u in range(lo, hi)]
+    assert units == list(range(work))
+    # every chunk holds units, all but the last exactly ``chunk`` of them
+    assert all(0 < hi - lo <= _GEOS[geo].chunk for lo, hi in spans)
+    assert all(hi - lo == _GEOS[geo].chunk for lo, hi in spans[:-1])
+
+
+def _c_params(source, entry):
+    """The parameter names of ``extern "C" int <entry>(...)`` in source."""
+    text = (library.CSRC / source).read_text()
+    m = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", text,
+                  re.S)
+    return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("module,source,entry,before", [
+    (blocked_matvec, "blocked_matvec.cu", "blocked_matvec", "tile_d"),
+    (gather_dot, "gather_dot.cu", "gather_block_dot", "dt")])
+def test_c_entry_takes_the_geometry_fields(module, source, entry, before):
+    """The wrapper passes ``geo.ints(GEOMETRY)`` right after ``before``
+    and then the stream: the C entry names exactly those fields there, so
+    no field is passed that the kernel does not read."""
+    names = _c_params(source, entry)
+    at = names.index(before) + 1
+    assert tuple(names[at:-1]) == module.GEOMETRY
+    assert names[-1] == "stream"
+    geo = stream.matvec_stream(1024, 512, 4, 0)
+    assert geo.ints(module.GEOMETRY) == tuple(
+        int(getattr(geo, f)) for f in module.GEOMETRY)
+    cuh = (library.CSRC / "stream.cuh").read_text()
+    assert re.search(r"constexpr int kSlotInts = (\d+);",
+                     cuh).group(1) == str(stream.SLOT_INTS)
 
 
 @pytest.mark.parametrize("chunks,sms,per_sm,want", [
@@ -88,12 +120,6 @@ def _check_layout(geo: stream.Stream, q_bytes: int, carry: int,
         assert geo.stage_bytes == 0
 
 
-def _chunks(work, geo):
-    b = stream.split(work, geo.chunks(work))
-    assert np.diff(b).max(initial=0) <= geo.chunk
-    return [(int(b[c]), int(b[c + 1])) for c in range(len(b) - 1)]
-
-
 def _matvec_walk(r0, r1, d, tile_d, geo):
     """The (row, slab) order the stages of a chunk of rows [r0, r1) visit,
     and each stage's copy size, as blocked_matvec.cu walks them."""
@@ -123,7 +149,7 @@ def test_matvec_stream_geometry(d, tile_d, elt, n_rows):
     geo = stream.matvec_stream(d, tile_d, elt, w_ptr=1 << 20)
     _check_layout(geo, d * elt if geo.bulk else 0, 0, 0)
     n_slabs = d // tile_d
-    for r0, r1 in _chunks(n_rows, geo):
+    for r0, r1 in _spans(n_rows, geo):
         seen, copies = _matvec_walk(r0, r1, d, tile_d, geo)
         # per row, its slabs in order, rows in order: each exactly once
         assert seen == [(r, b) for r in range(r0, r1)
@@ -150,7 +176,7 @@ def test_gather_stream_geometry(R, C, dt, elt, T):
     # a chunk is whole tiles, one stage of cells where whole tiles fit one
     assert geo.chunk * dt <= geo.rows or geo.chunk == 1
     seen = []
-    for t0, t1 in _chunks(T, geo):
+    for t0, t1 in _spans(T, geo):
         n_items = (t1 - t0) * dt
         for i0 in range(0, n_items, geo.rows):
             cnt = min(geo.rows, n_items - i0)

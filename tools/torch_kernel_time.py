@@ -8,41 +8,27 @@ so two commits can be compared in one call on one card (parent, change,
 change, parent).  At the qwen1.5-0.5b table's geometry (N(0, 0.02),
 torch seed 0) it times ``gather_block_dot`` (row (19200, 2, 8, 512) and
 coord (19200, 8, 8, 128)) and ``blocked_matvec`` ((153600, 1024)) in f32
-and bf16, and ``torch.matmul`` on the matvec's operands: 20 launches back
-to back between two CUDA events, median of 5.  Prints one JSON line.
+and bf16, and ``torch.matmul`` on the matvec's operands, with
+``chip_smoke.py``'s timer: 20 launches back to back between two CUDA
+events, median of 5.  Prints one JSON line.
 """
 
 from __future__ import annotations
 
 import json
-import statistics
 import sys
 from pathlib import Path
 
 import torch
 
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 
-def back_to_back(fn, n: int = 20, reps: int = 5) -> float:
-    """Median milliseconds per launch of ``n`` launches between events."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return statistics.median(times)
+from chip_smoke import time_back_to_back as back_to_back  # noqa: E402
 
 
 def main() -> int:
-    src = Path(sys.argv[1] if len(sys.argv) > 1 else
-               Path(__file__).resolve().parent.parent / "src").resolve()
+    src = Path(sys.argv[1] if len(sys.argv) > 1 else ROOT / "src").resolve()
     sys.path.insert(0, str(src))
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
