@@ -51,7 +51,27 @@ Phases, one line each (any failure exits non-zero before the result):
    dispatch.  Every flush is then held against the plain version on the
    same permutation, and the served scores must be the exact inner
    products of the served ids;
-5. mips — the library API on the unpadded vocab table (151936, 1024):
+5. runtime — the ``--loop --runtime`` path in process on the same table:
+   the continuous-batching ``ServeRuntime`` (K = 4, eps = delta = 0.1,
+   ``--eps-floor 0.4``, 3 rungs, 4 lanes, ``--deadline-ms 2``,
+   ``--queue-capacity 16``, ``--request-deadline-ms 20``, ``--max-retries
+   2``), 256 requests of the CLI's class mix, bursty open-loop arrivals
+   0.1 ms apart (seed 0), four poison queries (NaN, Inf, two wrong
+   widths), seeded faults (``--inject-error-rate 0.25
+   --inject-latency-rate 0.05 --fault-seed 0``), for fp32 and for
+   ``--precision int8 --adaptive --bound bernstein``.  ``warmup()`` runs
+   before traffic.  It fails unless ``--check-outcomes`` holds, all five
+   outcomes occur, two rungs or more launched, launches of the tier equal
+   the rung executors' dispatches (warm-up included), every answered
+   dispatch agrees with the plain version on its buffer, permutation and
+   rung plan, served scores are the exact ones, every dispatch error was
+   an injected one, and ``tools/check_obs_artifacts.py`` passes on the
+   metrics, trace and flight artifacts.  It prints the outcomes, requests
+   served per rung, p50 / p95 / p99, throughput, lane use, executed pull
+   fraction, retries, failed batches, each launched rung's median
+   measured dispatch time, and the device memory allocated before the
+   rungs were built and at the stream's peak;
+6. mips — the library API on the unpadded vocab table (151936, 1024):
    8 seeded queries through ``mips_topk`` (K = 4, eps = delta = 0.1,
    ``final_exact``) per tier and pull mode, and int8 with adaptive
    bernstein; launches of ``fused_cascade[<tier>]`` must equal the calls,
@@ -62,13 +82,14 @@ Phases, one line each (any failure exits non-zero before the result):
    float64 nearest-neighbour search, and ``bounded_me_batched`` on 4
    queries with per-query perms: one batched launch, bitwise equal to
    four single-query calls;
-6. quickstart — the recommender table of ``examples/quickstart.py``
+7. quickstart — the recommender table of ``examples/quickstart.py``
    (``mf_dataset(20000, 8192, rank=32, seed=0)``, block 128, K = 5,
    delta = 0.1, eps in {0.5, 2, 8} sigma, fp32, ``final_exact``):
    kernel held against the plain version, exact scores; prints the top-5
    overlap with exact search, the plan's speedup, and the kernel and call
    ms against ``torch.matmul`` + ``torch.topk``;
-7. a ``kernels`` JSON line, one entry per kernel and tier, and last the
+8. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+   cascade's launches are the serve and runtime phases'), and last the
    ``ok`` JSON line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
@@ -92,6 +113,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -122,6 +144,18 @@ TIERS = [("fp32", "fp32", False, "hoeffding"),
          ("int4", "int4", False, "hoeffding"),
          ("pq", "pq", False, "hoeffding"),
          ("int8+adaptive", "int8", True, "bernstein")]
+#: the tiers the runtime phase serves
+RUNTIME_TIERS = [TIERS[0], TIERS[4]]
+#: ``--loop --runtime`` under overload and injected faults
+RUNTIME_ARGV = [
+    "--arch", "qwen1.5-0.5b", "--loop", "--runtime", "--requests", "256",
+    "--batch", "4", "--topk", str(K), "--eps", str(EPS), "--delta",
+    str(DELTA), "--eps-floor", "0.4", "--degrade-rungs", "3",
+    "--deadline-ms", "2", "--queue-capacity", "16",
+    "--request-deadline-ms", "20", "--max-retries", "2",
+    "--pattern", "bursty", "--interarrival-ms", "0.1", "--stream-seed", "0",
+    "--inject-error-rate", "0.25", "--inject-latency-rate", "0.05",
+    "--fault-seed", "0", "--check-outcomes"]
 
 
 class SmokeFailure(Exception):
@@ -706,6 +740,24 @@ def plain_route():
         kops.fused_cascade_batched_cuda, kops.fused_cascade_cuda = kernels
 
 
+def untiled(ex, n: int, N: int) -> torch.Tensor:
+    """The (n, N) table an executor serves, from its tile-major copy."""
+    V4 = ex.tiled_table
+    return V4.permute(0, 2, 1, 3).reshape(-1, V4.shape[1] * V4.shape[3])[
+        :n, :N]
+
+
+def check_served(table, q, ids, scores, n_valid, what: str) -> None:
+    """Served ids distinct live rows, served scores the exact ones."""
+    check(len(set(ids.tolist())) == K and int(ids.max()) < n_valid,
+          f"{what}: ids {ids.tolist()}")
+    exact = (table[torch.from_numpy(ids.astype(np.int64)).cuda()].double()
+             @ torch.from_numpy(q).cuda().double()) / table.shape[1]
+    check(np.allclose(scores, exact.cpu().numpy(), rtol=EXACT_RTOL,
+                      atol=0.0),
+          f"{what}: scores {scores.tolist()} vs exact {exact.tolist()}")
+
+
 def serve_run(label, precision, adaptive, bound) -> dict:
     from repro_torch.core.boundedme_torch import decode_tiled
     from repro_torch.kernels import ops as kops
@@ -750,8 +802,7 @@ def serve_run(label, precision, adaptive, bound) -> dict:
           f"serve {label}: {stats['completed']} of {args.requests} "
           f"completed")
 
-    table = ex.tiled_table.permute(0, 2, 1, 3).reshape(
-        -1, ex.tiled_table.shape[1] * plan.block)[:engine.n, :engine.N]
+    table = untiled(ex, engine.n, engine.N)
     errs, ties = [], 0
     for Qbuf, perm, out in flushes:
         Q = torch.from_numpy(Qbuf).cuda()
@@ -768,15 +819,8 @@ def serve_run(label, precision, adaptive, bound) -> dict:
     for rid in range(args.requests):
         res = engine.result(rid)
         check(res is not None, f"serve {label}: request {rid} has no result")
-        ids, scores = res
-        check(len(set(ids.tolist())) == K and int(ids.max()) < ex.n_valid,
-              f"serve {label}: request {rid} ids {ids.tolist()}")
-        exact = (table[torch.from_numpy(ids.astype(np.int64)).cuda()].double()
-                 @ torch.from_numpy(qs[rid]).cuda().double()) / engine.N
-        check(np.allclose(scores, exact.cpu().numpy(), rtol=EXACT_RTOL,
-                          atol=0.0),
-              f"serve {label}: request {rid} scores {scores.tolist()} vs "
-              f"exact {exact.tolist()}")
+        check_served(table, qs[rid], *res, ex.n_valid,
+                     f"serve {label}: request {rid}")
     lat = stats["latency_ms"]
     res = {"launches": launches, "dispatches": ex.n_dispatches,
            "max_abs_err": max(errs), "near_tie_queries": ties,
@@ -788,6 +832,125 @@ def serve_run(label, precision, adaptive, bound) -> dict:
     if adaptive:
         res["adaptive"] = stats["adaptive"]
     say(f"serve {label}: " + json.dumps(res))
+    return res
+
+
+def runtime_run(label, precision, adaptive, bound) -> dict:
+    """Phase 5: ``--loop --runtime`` under overload and injected faults."""
+    from repro_torch.core.boundedme_torch import decode_tiled
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+
+    tmp = tempfile.TemporaryDirectory()
+    art = {k: str(Path(tmp.name) / f"{k}.{ext}") for k, ext in
+           (("metrics", "prom"), ("trace", "json"), ("flight", "json"))}
+    argv = RUNTIME_ARGV + [
+        "--precision", precision, "--bound", bound,
+        "--metrics-out", art["metrics"], "--trace-out", art["trace"],
+        "--flight-recorder-path", art["flight"]] + (
+            ["--adaptive"] if adaptive else [])
+    args = serve.parse_args(argv)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    engine, qs = serve.build_loop(args)
+    execs = engine.executors
+    qs = list(qs)
+    N = engine.N
+    for i, bad in zip((5, 70, 140, 210), (
+            np.full(N, np.nan, np.float32), np.full(N, np.inf, np.float32),
+            np.ones(N + 1, np.float32), np.ones(N - 3, np.float32))):
+        qs[i] = bad
+    say(f"runtime {label}: table=({engine.n},{N}) rungs "
+        f"{engine.ladder.eps_values} rounds "
+        f"{[len(ex.plan.schedule.rounds) for ex in execs]} lanes "
+        f"{engine.lanes} queue {args.queue_capacity}")
+    name = f"fused_cascade_batched[{label}]"
+    kops.reset_launch_counts()
+    warm_s = engine.warmup()
+    dispatches = []
+    for rung, ex in enumerate(execs):
+        def recording(Qbuf, perm, rung=rung, real=ex.dispatch):
+            out = real(Qbuf, perm)
+            dispatches.append((rung, Qbuf.copy(), perm, out))
+            return out
+        ex.dispatch = recording
+    t0 = time.perf_counter()
+    stats = serve.serve_stream(args, engine, qs)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = kops.launch_counts()
+    n_disp = sum(ex.n_dispatches for ex in execs)
+    check(counts[name] == n_disp == counts["fused_cascade_batched"]
+          and n_disp == len(execs) + len(dispatches),
+          f"runtime {label}: {counts[name]} {name} launches "
+          f"({counts['fused_cascade_batched']} in all) for {n_disp} rung "
+          f"dispatches, {len(dispatches)} of them after warm-up")
+    try:
+        serve.check_outcomes(args, stats)
+    except SystemExit as e:
+        raise SmokeFailure(f"runtime {label}: {e}") from None
+    o = stats["outcomes"]
+    check(all(o[s] > 0 for s in ("ok", "degraded", "overloaded",
+                                 "rejected", "failed")),
+          f"runtime {label}: an outcome is missing: {o}")
+    rungs = sorted({r for r, *_ in dispatches})
+    check(len(rungs) >= 2, f"runtime {label}: only rungs {rungs} launched")
+    f = stats["faults"]
+    check(f["dispatch_errors"] == f["injected"]["dispatch_errors"],
+          f"runtime {label}: {f['dispatch_errors']} dispatch errors, "
+          f"{f['injected']['dispatch_errors']} of them injected")
+    table = untiled(execs[0], engine.n, N)
+    errs, ties = [], 0
+    for rung, Qbuf, perm, out in dispatches:
+        ex = execs[rung]
+        Q = torch.from_numpy(Qbuf).cuda()
+        with plain_route():
+            ref = decode_tiled(ex.tiled_table, Q, perm, plan=ex.plan,
+                               final_exact=True, n_valid=ex.n_valid,
+                               quantized=ex.quantized, adaptive=adaptive)
+        got = [torch.from_numpy(t) for t in out[:3 if adaptive else 2]]
+        r = compare(table, Q, got, ref,
+                    what=f"runtime {label} rung {rung} dispatch")
+        errs.append(r["max_abs_err"])
+        ties += r["near_tie_queries"]
+    answered = 0
+    for rid in range(args.requests):
+        res = engine.result(rid)
+        check(res is not None, f"runtime {label}: request {rid} has no "
+              f"result")
+        if res.answered:
+            answered += 1
+            check_served(table, qs[rid], res.ids, res.scores,
+                         execs[0].n_valid, f"runtime {label}: request {rid}")
+    obs = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_obs_artifacts.py"),
+         "--metrics", art["metrics"], "--trace", art["trace"],
+         "--flight", art["flight"]], capture_output=True, text=True)
+    check(obs.returncode == 0, f"runtime {label}: obs artifacts: "
+          f"{obs.stdout.strip()} {obs.stderr.strip()}")
+    tmp.cleanup()
+    lat, lanes = stats["latency_ms"], stats["lanes"]
+    res = {"launches": counts[name], "dispatches": stats["dispatches"],
+           "rungs_launched": rungs, "max_abs_err": max(errs),
+           "near_tie_queries": ties, "answered": answered,
+           "p50_ms": lat["p50"], "p95_ms": lat["p95"], "p99_ms": lat["p99"],
+           "throughput_rps": stats["throughput_rps"],
+           "virtual_s": stats["virtual_s"], "outcomes": o,
+           "served_per_rung": stats["degradation"]["served_per_rung"],
+           "mean_lane_util": lanes["mean_lane_util"],
+           "mean_executed_pull_frac": lanes["mean_executed_pull_frac"],
+           "retries": f["retries"], "failed_batches": f["failed_batches"],
+           "injected": {k: f["injected"][k] for k in (
+               "latency_spikes", "injected_latency_ms", "dispatch_errors",
+               "persistent_errors")},
+           "dispatch_ms_median_per_rung": [
+               statistics.median(o[3] * 1e3 for r, _, _, o in dispatches
+                                 if r == rung) for rung in rungs],
+           "speedup_per_rung": [ex.plan.schedule.speedup for ex in execs],
+           "mem_before_gb": base_gb, "peak_mem_gb": peak_gb,
+           "warmup_s": warm_s, "wall_s": wall}
+    say(f"runtime {label}: " + json.dumps(res))
     return res
 
 
@@ -833,7 +996,7 @@ def mips_run(V, Q, label, precision, adaptive, bound, mode, quant_err,
 
 
 def phase_mips(table, n_valid) -> dict:
-    """Phase 5: the library API on the unpadded vocab table."""
+    """Phase 6: the library API on the unpadded vocab table."""
     from repro_torch.core import mips
     from repro_torch.core.boundedme_torch import (bounded_me_batched,
                                                   bounded_me_blocked,
@@ -951,7 +1114,7 @@ def phase_mips(table, n_valid) -> dict:
 
 
 def phase_quickstart() -> dict:
-    """Phase 6: examples/quickstart.py's regime on the card."""
+    """Phase 7: examples/quickstart.py's regime on the card."""
     from repro_torch.core import mips
     from repro_torch.core.boundedme_torch import (draw_perms, make_plan,
                                                   tile_table)
@@ -1043,6 +1206,10 @@ def main() -> int:
         for tier in TIERS:
             served[tier[0]] = serve_run(*tier)
             torch.cuda.empty_cache()
+        runtime = {}
+        for tier in RUNTIME_TIERS:
+            runtime[tier[0]] = runtime_run(*tier)
+            torch.cuda.empty_cache()
         lib = phase_mips(table, n_valid)
         del table
         torch.cuda.empty_cache()
@@ -1054,9 +1221,12 @@ def main() -> int:
         return 1
     entries = []
     for label, precision, adaptive, bound in TIERS:
+        rt = runtime.get(label, {"launches": 0, "max_abs_err": 0.0})
         for name, res, launches, extra, replaces in (
-                ("fused_cascade_batched", kern, served[label]["launches"],
-                 served[label]["max_abs_err"], TPU_KERNEL),
+                ("fused_cascade_batched", kern,
+                 served[label]["launches"] + rt["launches"],
+                 max(served[label]["max_abs_err"], rt["max_abs_err"]),
+                 TPU_KERNEL),
                 ("fused_cascade", single,
                  lib[(label, "row")]["launches"]
                  + lib[(label, "coord")]["launches"], 0.0,

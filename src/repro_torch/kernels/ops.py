@@ -52,6 +52,10 @@ def gather_block_dot(V4: torch.Tensor, idx: torch.Tensor,
     ``V4 (n_tiles, n_blocks, R, C)`` and ``qsel (dt, C)`` both float32 or
     both bfloat16, integer ``idx (T,)`` and ``cols (dt,)`` (indices may
     repeat).  Returns ``(T, R)`` float32, the blocks added in order.
+    Both routes give NaN for row t when ``idx[t]`` is outside ``[0,
+    n_tiles)``, and for every row when a ``cols`` entry is outside ``[0,
+    n_blocks)``; the JAX package's interpret mode clamps such indices,
+    and on the TPU its result is undefined.
     """
     if on_cuda(V4, idx, cols, qsel):
         return gather_block_dot_cuda(V4, idx, cols, qsel)

@@ -314,15 +314,25 @@ def gather_block_dot_ref(V4: torch.Tensor, idx: torch.Tensor,
     bfloat16 (widened to f32: bf16 products are exact in f32), integer
     ``idx (T,)`` and ``cols (dt,)``; indices may repeat.  Each block's
     ``(R, C) @ (C,)`` dots are added in block order b = 0 ... dt - 1.
+
+    The card kernel's rule for indices out of range: row t is NaN when
+    ``idx[t]`` lies outside ``[0, n_tiles)`` or any ``cols`` entry
+    outside ``[0, n_blocks)`` (then every row is).  The JAX package's
+    interpret mode clamps such indices instead, and on the TPU its
+    result is undefined.
     """
     gather_dot.check_operands(V4, idx, cols, qsel)
     idx, cols = idx.long(), cols.long()
+    n_tiles, n_blocks = V4.shape[:2]
+    bad_t = (idx < 0) | (idx >= n_tiles)
+    bad_b = (cols < 0) | (cols >= n_blocks)
+    idx, cols = idx.masked_fill(bad_t, 0), cols.masked_fill(bad_b, 0)
     out = torch.zeros((idx.shape[0], V4.shape[2]), dtype=torch.float32,
                       device=V4.device)
     for b in range(cols.shape[0]):
         out = out + torch.einsum("trc,c->tr", V4[idx, cols[b]].float(),
                                  qsel[b].float())
-    return out
+    return out.masked_fill((bad_t | bad_b.any())[:, None], float("nan"))
 
 
 def blocked_matvec_ref(W: torch.Tensor, q: torch.Tensor, tile_n: int = 256,

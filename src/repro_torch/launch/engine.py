@@ -1,7 +1,10 @@
-"""Serving engine internals of the port: executor and micro-batch engine.
+"""Serving engine internals of the port: executor, micro-batch engine and
+continuous-batching runtime.
 
 The PyTorch counterpart of ``repro.launch.engine`` for a static table on
-one device:
+one device (the admission/policy half lives in
+`repro_torch.launch.admission`, fault injection in
+`repro_torch.launch.faults`):
 
   * :class:`CascadeExecutor` — owns the table (re-laid tile-major once,
     and on the int8, int4 and pq tiers quantized once), the calibrated
@@ -10,18 +13,26 @@ one device:
     arrays plus the measured seconds.
   * :class:`MIPSServeEngine` — the micro-batching request loop over one
     executor: batch/deadline triggers, `QuantizedLRU`, sampled recall.
+  * :class:`ServeRuntime` — the continuous-batching runtime: a bounded
+    priority queue (`AdmissionController`) feeds fixed kernel lanes that
+    are refilled between dispatches, a `DegradationLadder` of executors
+    (one per eps rung) relaxes eps toward a floor under pressure before
+    anything is refused, and every dispatch runs under
+    `dispatch_with_retries` with poison quarantine; every request ends
+    as a typed `ServeResult`.
 
-The engine draws each flush's block permutation from a ``torch.Generator``
-seeded from ``(seed, batch sequence)``; ``perm_source`` replaces that
-draw (tests inject the JAX package's permutations through it).  Dynamic
-stores, meshes and the continuous-batching ``ServeRuntime`` are later
-slices (ROADMAP.md) and are refused here.
+The engine and the runtime draw each dispatch's block permutation from a
+``torch.Generator`` seeded from ``(seed, dispatch sequence)``
+(`seeded_perm`); ``perm_source`` replaces that draw (tests inject the
+JAX package's permutations through it).  Dynamic stores and meshes are
+later slices (ROADMAP.md queue 1 items 4 and 6) and are refused here.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import struct
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -35,9 +46,72 @@ from repro_torch.core.boundedme_torch import (decode_operands, decode_tiled,
                                               tile_table)
 from repro_torch.core.mips import exact_topk, table_abs_max
 from repro_torch.core.schedule import pulls_through_round
-from repro_torch.obs.metrics import MetricsRegistry, summarize_latencies
+from repro_torch.distributed.sharding import dispatch_lane_stats
+from repro_torch.launch.admission import (AdmissionController,
+                                          DegradationLadder, PriorityClass,
+                                          ServeResult, Ticket)
+from repro_torch.obs.metrics import (PULL_FRAC_BUCKETS, MetricsRegistry,
+                                     summarize_latencies)
 
-__all__ = ["QuantizedLRU", "CascadeExecutor", "MIPSServeEngine"]
+__all__ = ["QuantizedLRU", "CascadeExecutor", "MIPSServeEngine",
+           "ServeRuntime", "DispatchFailed", "dispatch_with_retries",
+           "seeded_perm"]
+
+
+class DispatchFailed(RuntimeError):
+    """A dispatch exhausted its retry budget (`dispatch_with_retries`).
+
+    Carries the last ``cause`` exception, the number of ``retries``
+    burned and the accumulated virtual ``backoff`` seconds so the
+    caller can fail the batch with honest accounting.
+    """
+
+    def __init__(self, cause: Exception, retries: int, backoff: float):
+        super().__init__(f"dispatch failed after {retries} retries: {cause}")
+        self.cause = cause
+        self.retries = retries
+        self.backoff = backoff
+
+
+def dispatch_with_retries(ex, Qbuf, perm, *, didx: int, injector=None,
+                          max_retries: int = 2,
+                          retry_backoff_s: float = 1e-3,
+                          on_error=None, on_retry=None):
+    """One executor dispatch under the runtime's fault contract.
+
+    Runs ``ex.dispatch(Qbuf, perm)`` with exponential-backoff retries,
+    consulting the deterministic fault ``injector`` (attempt-level
+    injected errors, post-success latency spikes); every retry of one
+    ``didx`` reuses its ``perm``.  ``on_error(exc, attempt, injected)``
+    fires per failing attempt, ``on_retry(attempt, backoff)`` per retry
+    decision — both before the backoff grows.  Returns ``(ids, scores,
+    rounds, dt, retries, backoff, spike)`` where ``dt`` already includes
+    the injected ``spike`` and accumulated ``backoff`` (virtual seconds);
+    raises `DispatchFailed` past ``max_retries``.  Every exception is
+    caught by design: a caller that must tell a real fault from an
+    injected one compares its error count with the injector's.
+    """
+    attempt = 0
+    backoff = 0.0
+    while True:
+        injected = (injector.dispatch_error(didx, attempt)
+                    if injector is not None else None)
+        try:
+            if injected is not None:
+                raise injected
+            ids, scores, rounds, dt = ex.dispatch(Qbuf, perm)
+            break
+        except Exception as e:
+            if on_error is not None:
+                on_error(e, attempt, injected is not None)
+            if attempt >= max_retries:
+                raise DispatchFailed(e, attempt, backoff) from e
+            if on_retry is not None:
+                on_retry(attempt, backoff)
+            backoff += retry_backoff_s * (2.0 ** attempt)
+            attempt += 1
+    spike = injector.latency_s(didx) if injector is not None else 0.0
+    return ids, scores, rounds, dt + spike + backoff, attempt, backoff, spike
 
 
 class QuantizedLRU:
@@ -125,12 +199,13 @@ class CascadeExecutor:
                  coord_block: int = 128, quant_err: Optional[float] = None,
                  pq_subdims: int = 8, pq_codes: int = 16,
                  metrics: Optional[MetricsRegistry] = None,
+                 metrics_labels: Optional[Dict[str, str]] = None,
                  device="cuda"):
         if not isinstance(table, (torch.Tensor, np.ndarray)):
             _refuse(f"serving a {type(table).__name__}",
-                    "queue 1 item 7 (dynamic stores)")
+                    "queue 1 item 4 (dynamic stores)")
         if mesh is not None:
-            _refuse("sharded serving", "queue 1 item 10")
+            _refuse("sharded serving", "queue 1 item 6")
         self.device = resolve_device(device)
         self._table = torch.as_tensor(table, dtype=torch.float32).to(
             self.device)
@@ -167,23 +242,37 @@ class CascadeExecutor:
         # the first request's dispatch
         decode_operands(self.plan, final_exact=True, adaptive=self.adaptive,
                         device=self.device)
+        # cascade_* metrics: one labeled row per executor identity, so the
+        # runtime's rung executors (a "rung" label via metrics_labels)
+        # share metric families without colliding
         self.metrics = metrics if metrics is not None else MetricsRegistry()
-        lbl = {"precision": self.plan.precision,
-               "pull_mode": self.plan.pull_mode, "eps": f"{self.eps:.6g}"}
+        lbl = {"precision": str(precision), "pull_mode": str(pull_mode),
+               "eps": f"{self.eps:.6g}"}
+        lbl.update({str(k): str(v) for k, v in (metrics_labels or {}).items()})
         self._mlabels = lbl
         keys = tuple(lbl)
         self._c_dispatch = self.metrics.counter(
-            "cascade_dispatches_total", "Fused-cascade kernel launches.",
-            keys)
+            "cascade_dispatches_total",
+            "Fused-cascade kernel launches (includes warmup).", keys)
+        self._c_recal = self.metrics.counter(
+            "cascade_recalibrations_total",
+            "Plan re-derivations triggered by store growth.", keys)
         self._h_dispatch = self.metrics.histogram(
             "cascade_dispatch_ms",
             "Measured blocking compute time per dispatch (ms).", keys)
         self._c_dispatch.seed(**lbl)
+        self._c_recal.seed(**lbl)
 
     @property
     def n_dispatches(self) -> int:
         """Dispatches served (registry-backed)."""
         return int(self._c_dispatch.get(**self._mlabels))
+
+    @property
+    def n_recalibrations(self) -> int:
+        """Plan re-derivations (registry-backed); stays 0 until a store
+        can grow under the executor (ROADMAP.md queue 1 item 4)."""
+        return int(self._c_recal.get(**self._mlabels))
 
     @property
     def tiled_table(self) -> torch.Tensor:
@@ -525,3 +614,715 @@ class MIPSServeEngine:
                      "pull_speedup": self.plan.schedule.speedup},
             "adaptive": self._adaptive_stats(),
         }
+
+
+class ServeRuntime:
+    """Continuous-batching serving runtime with admission + degradation.
+
+    The port of ``repro.launch.engine.ServeRuntime`` for a static table
+    on one device.  Three layers:
+
+      * **admission** (`AdmissionController`): every `submit` is
+        validated (poison NaN/Inf/wrong-dim queries are rejected at the
+        door), checked against the quarantine, and enqueued into a
+        bounded priority queue — a full queue refuses with a typed
+        ``overloaded`` result or displaces lower-priority sheddable work;
+      * **scheduler** (this class): `poll` assembles dispatch batches in
+        (priority, FIFO) order onto ``lanes`` fixed kernel lanes and is
+        *work-conserving* — while the executor is busy, freed lanes are
+        refilled from the queue between dispatches instead of waiting
+        out the batch deadline.  Requests queued past their class
+        deadline are shed (typed ``overloaded``/``deadline``);
+      * **executor** (`CascadeExecutor`, one per degradation rung, each
+        dispatch one fused-cascade launch): under queue pressure the
+        `DegradationLadder` relaxes eps toward ``eps_floor`` — each
+        response records the ``eps_served`` it met, degraded responses
+        are never written to the full-quality cache, and only when the
+        ladder is exhausted does admission refuse outright.  Dispatch
+        runs under `dispatch_with_retries`; a micro-batch that keeps
+        failing is failed *alone* (typed ``failed`` results +
+        fingerprint quarantine) and the runtime keeps serving.
+
+    Dispatch ``didx`` serves its batch under the block permutation
+    ``perm_source(didx, n_blocks)`` (default `seeded_perm` from
+    ``seed``), ``n_blocks`` of the chosen rung's own plan: under
+    ``pull_mode="hybrid"`` rungs may resolve different modes.
+    `stats()` exports p50/p95/p99 latency, queue depth/peak, outcome and
+    shed/reject/retry/degraded counters, per-rung eps_served counts and
+    per-dispatch lane accounting, with the reference's keys in its
+    order.  Drive it like the engine: ``submit(q, now=...)`` /
+    ``poll(now=...)`` / ``result(rid)`` — traffic never raises.
+    """
+
+    def __init__(self, table, *, K: int = 1, eps: float = 0.1,
+                 delta: float = 0.1, eps_floor: Optional[float] = None,
+                 degrade_rungs: int = 3, degrade_start: float = 0.5,
+                 lanes: int = 8, batch_wait_ms: float = 2.0,
+                 queue_capacity: int = 64,
+                 classes: Optional[Dict[str, PriorityClass]] = None,
+                 default_class: str = "default",
+                 max_retries: int = 2, retry_backoff_ms: float = 1.0,
+                 dispatch_timeout_ms: Optional[float] = None,
+                 fault_injector=None,
+                 cache_entries: int = 512, cache_resolution: float = 1e-3,
+                 recall_sample_rate: float = 0.0,
+                 value_range: Optional[float] = None,
+                 qmax_hint: float = 1.0, tile: int = 8, block: int = 512,
+                 mesh=None, n_valid: Optional[int] = None,
+                 precision: str = "fp32", adaptive: bool = False,
+                 bound: str = "hoeffding", pull_mode: str = "row",
+                 coord_block: int = 128, quant_err: Optional[float] = None,
+                 pq_subdims: int = 8, pq_codes: int = 16, seed: int = 0,
+                 metrics: Optional[MetricsRegistry] = None,
+                 tracer=None, flight=None,
+                 perm_source: Optional[Callable[[int, int], object]] = None,
+                 device="cuda"):
+        if batch_wait_ms <= 0:
+            raise ValueError(f"batch_wait_ms must be > 0, "
+                             f"got {batch_wait_ms}")
+        if lanes < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes}")
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        #: optional `repro_torch.obs.SpanTracer` / `FlightRecorder`; None
+        #: disables that pillar entirely
+        self.tracer = tracer
+        self.flight = flight
+        self.ladder = DegradationLadder(eps, eps_floor, rungs=degrade_rungs,
+                                        start=degrade_start)
+        dev = resolve_device(device)
+        if isinstance(table, np.ndarray):
+            # one device copy shared by every rung (each still re-lays
+            # its own tiled, and on quantized tiers quantized, table)
+            table = torch.as_tensor(table, dtype=torch.float32).to(dev)
+        self._rung_execs = [CascadeExecutor(
+            table, K=K, eps=e, delta=delta, value_range=value_range,
+            qmax_hint=qmax_hint, tile=tile, block=block, mesh=mesh,
+            n_valid=n_valid, precision=precision, adaptive=adaptive,
+            bound=bound, pull_mode=pull_mode, coord_block=coord_block,
+            quant_err=quant_err, pq_subdims=pq_subdims, pq_codes=pq_codes,
+            metrics=self.metrics, metrics_labels={"rung": str(i)},
+            device=dev)
+            for i, e in enumerate(self.ladder.eps_values)]
+        ex0 = self._rung_execs[0]
+        self.K = K
+        self.lanes = int(lanes)
+        self.batch_wait_s = float(batch_wait_ms) * 1e-3
+        self._eps, self._delta = float(eps), float(delta)
+        self.max_retries = int(max_retries)
+        self.retry_backoff_s = float(retry_backoff_ms) * 1e-3
+        self.dispatch_timeout_s = (None if dispatch_timeout_ms is None
+                                   else float(dispatch_timeout_ms) * 1e-3)
+        self.admission = AdmissionController(
+            ex0.N, queue_capacity=queue_capacity, classes=classes,
+            default_class=default_class, metrics=self.metrics)
+        self.injector = fault_injector
+        if fault_injector is not None:
+            self.metrics.adopt(fault_injector.metrics)
+        #: table version salting the LRU keys (bumped by store flushes,
+        #: ROADMAP.md queue 1 item 4; constant on a static table)
+        self._version = 0
+        self._seed = int(seed)
+        self._perm_source = (perm_source if perm_source is not None else
+                             (lambda didx, nb: seeded_perm(self._seed, didx,
+                                                           nb)))
+        self.cache = QuantizedLRU(cache_entries, cache_resolution)
+        self._results: Dict[int, ServeResult] = {}
+        self._next_id = 0
+        self._recall_rate = float(recall_sample_rate)
+        self._recall_rng = np.random.default_rng(seed)
+        self._lat: List[float] = []
+        self._occupancy: List[int] = []
+        self._pull_fracs: List[float] = []
+        self._recalls: List[float] = []
+        self._c_requests = self.metrics.counter(
+            "serve_requests_total", "Requests submitted, by class.",
+            ("priority_class",))
+        self._c_outcomes = self.metrics.counter(
+            "serve_outcomes_total",
+            "Terminal request outcomes (the typed ServeResult statuses).",
+            ("outcome",))
+        for s in ("ok", "degraded", "rejected", "overloaded", "failed"):
+            self._c_outcomes.seed(outcome=s)
+        self._c_class = self.metrics.counter(
+            "serve_class_events_total",
+            "Per-priority-class accounting events.",
+            ("priority_class", "event"))
+        self._c_rung = self.metrics.counter(
+            "serve_rung_served_total",
+            "Requests answered per degradation-ladder rung.", ("rung",))
+        for i in range(self.ladder.n_rungs):
+            self._c_rung.seed(rung=str(i))
+        self._c_cache_hits = self.metrics.counter(
+            "serve_cache_hits_total", "Requests answered from the LRU.")
+        self._c_dispatches = self.metrics.counter(
+            "serve_dispatches_total",
+            "Batch dispatches, by lane occupancy.", ("filled",))
+        self._c_dispatches.seed(filled="full")
+        self._c_dispatches.seed(filled="partial")
+        self._c_retries = self.metrics.counter(
+            "serve_retries_total", "Dispatch retry attempts.")
+        self._c_dispatch_errors = self.metrics.counter(
+            "serve_dispatch_errors_total",
+            "Dispatch attempts that raised (injected or real).")
+        self._c_failed_batches = self.metrics.counter(
+            "serve_failed_batches_total",
+            "Micro-batches failed past the retry budget.")
+        self._c_slow = self.metrics.counter(
+            "serve_slow_dispatches_total",
+            "Dispatches exceeding dispatch_timeout_ms.")
+        self._c_flush_failures = self.metrics.counter(
+            "serve_store_flush_failures_total",
+            "Store flushes failed by StoreFlushError (retried later).")
+        self._c_update_errors = self.metrics.counter(
+            "serve_update_errors_total",
+            "Store flushes that raised a non-flush error.")
+        self._c_update_rows = self.metrics.counter(
+            "serve_update_rows_total", "Store mutations applied.")
+        self._h_latency = self.metrics.histogram(
+            "serve_latency_ms",
+            "Answered-request latency (ms), by outcome.", ("outcome",))
+        self._h_queue_wait = self.metrics.histogram(
+            "serve_queue_wait_ms",
+            "Submit-to-dispatch queue wait (ms) of dispatched requests.")
+        self._h_occupancy = self.metrics.histogram(
+            "serve_batch_occupancy", "Filled lanes per dispatch.",
+            buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0))
+        self._h_pull_frac = self.metrics.histogram(
+            "serve_pull_frac",
+            "Executed pull fraction per dispatch (pulls / budget).",
+            buckets=PULL_FRAC_BUCKETS)
+        self.metrics.gauge(
+            "serve_cache_entries", "Live LRU cache entries.",
+        ).set_fn(lambda: len(self.cache))
+        #: plain dispatch sequence for the permutation draw — deliberately
+        #: NOT registry-backed so metric wiring can never perturb sampling
+        self._dispatch_seq = 0
+
+    # ---- counter surface (registry-backed) -------------------------------
+
+    @property
+    def outcomes(self) -> Dict[str, int]:
+        """Terminal outcome counts keyed by status (registry-backed)."""
+        return {s: int(self._c_outcomes.get(outcome=s))
+                for s in ("ok", "degraded", "rejected", "overloaded",
+                          "failed")}
+
+    @property
+    def rung_served(self) -> List[int]:
+        """Requests answered per ladder rung (registry-backed)."""
+        return [int(self._c_rung.get(rung=str(i)))
+                for i in range(self.ladder.n_rungs)]
+
+    @property
+    def per_class(self) -> Dict[str, Dict[str, int]]:
+        """Per-class event counts, classes in first-seen order
+        (registry-backed)."""
+        out: Dict[str, Dict[str, int]] = {}
+        for labels, value in self._c_class.rows():
+            cls = labels["priority_class"]
+            out.setdefault(cls, {})[labels["event"]] = int(value)
+        return out
+
+    @property
+    def n_requests(self) -> int:
+        """Requests submitted (registry-backed)."""
+        return int(self._c_requests.total())
+
+    @property
+    def n_cache_hits(self) -> int:
+        """Cache-answered requests (registry-backed)."""
+        return int(self._c_cache_hits.total())
+
+    @property
+    def n_dispatches(self) -> int:
+        """Batch dispatches issued (registry-backed)."""
+        return int(self._c_dispatches.total())
+
+    @property
+    def n_full_dispatches(self) -> int:
+        """Dispatches with every lane filled (registry-backed)."""
+        return int(self._c_dispatches.get(filled="full"))
+
+    @property
+    def n_retries(self) -> int:
+        """Dispatch retry attempts (registry-backed)."""
+        return int(self._c_retries.total())
+
+    @property
+    def n_dispatch_errors(self) -> int:
+        """Dispatch attempts that raised (registry-backed)."""
+        return int(self._c_dispatch_errors.total())
+
+    @property
+    def n_failed_batches(self) -> int:
+        """Micro-batches failed past retries (registry-backed)."""
+        return int(self._c_failed_batches.total())
+
+    @property
+    def n_slow_dispatches(self) -> int:
+        """Dispatches past the timeout (registry-backed)."""
+        return int(self._c_slow.total())
+
+    @property
+    def n_flush_failures(self) -> int:
+        """Store flush failures (registry-backed; 0 without a store)."""
+        return int(self._c_flush_failures.total())
+
+    @property
+    def n_update_errors(self) -> int:
+        """Store update errors (registry-backed; 0 without a store)."""
+        return int(self._c_update_errors.total())
+
+    @property
+    def n_updates(self) -> int:
+        """Store mutations applied (registry-backed; 0 without a store)."""
+        return int(self._c_update_rows.total())
+
+    # ---- compat surface for simulate_stream ------------------------------
+
+    @property
+    def N(self) -> int:
+        """Query dimensionality (executor-owned)."""
+        return self._rung_execs[0].N
+
+    @property
+    def n(self) -> int:
+        """Rows of the served table (executor-owned)."""
+        return self._rung_execs[0].n
+
+    @property
+    def plan(self):
+        """The full-quality (rung 0) executor's calibrated plan."""
+        return self._rung_execs[0].plan
+
+    @property
+    def executors(self) -> List[CascadeExecutor]:
+        """The rung executors, rung 0 (full quality) first."""
+        return list(self._rung_execs)
+
+    @property
+    def deadline_s(self) -> float:
+        """Batch-assembly wait in seconds (simulate_stream drain step)."""
+        return self.batch_wait_s
+
+    @property
+    def pending_count(self) -> int:
+        """Requests admitted but not yet dispatched (the queue depth)."""
+        return self.admission.depth
+
+    # ---- request path -----------------------------------------------------
+
+    def _class_counter(self, cls: str, key: str) -> None:
+        # seed the full event set on a class's first touch so the
+        # per-class dict keeps its fixed key order
+        for ev in ("requests", "answered", "degraded", "shed"):
+            self._c_class.seed(priority_class=cls, event=ev)
+        self._c_class.inc(priority_class=cls, event=key)
+
+    def _finish(self, rid: int, res: ServeResult,
+                t: Optional[float] = None) -> None:
+        self._results[rid] = res
+        self._c_outcomes.inc(outcome=res.status)
+        if res.answered:
+            self._class_counter(res.cls, "answered")
+            if res.status == "degraded":
+                self._class_counter(res.cls, "degraded")
+            self._lat.append(res.latency_s)
+            self._h_latency.observe(res.latency_s * 1e3,
+                                    outcome=res.status)
+            if len(self._lat) > 100_000:
+                self._lat = self._lat[-10_000:]
+        elif res.status in ("overloaded", "failed"):
+            self._class_counter(res.cls, "shed")
+        if self.tracer is not None and t is not None:
+            self.tracer.request_end(
+                rid, t, res.status,
+                **({"reason": res.reason} if res.reason else {}))
+        if self.flight is not None and res.status == "failed":
+            self.flight.record("request_failed", t, rid=rid,
+                               cls=res.cls, reason=res.reason)
+
+    def _salted(self, base_key: bytes) -> bytes:
+        """Prefix an LRU base key with the live (version, K) salt."""
+        return struct.pack("<qi", self._version, self.K) + base_key
+
+    def submit(self, q, now: Optional[float] = None,
+               cls: Optional[str] = None) -> int:
+        """Accept one query; always returns a request id, never raises.
+
+        The query runs the admission pipeline: poison validation ->
+        quarantine -> cache (full-quality hits answer immediately at
+        eps_served = eps) -> bounded priority queue.  Refused requests
+        get their typed `ServeResult` immediately; admitted ones resolve
+        at a later `poll`/`drain`.  ``cls`` names a configured
+        `PriorityClass` (None = default).
+        """
+        now = time.perf_counter() if now is None else now
+        rid = self._next_id
+        self._next_id += 1
+        pcls = self.admission.resolve_class(cls)
+        self._c_requests.inc(priority_class=pcls.name)
+        self._class_counter(pcls.name, "requests")
+        if self.tracer is not None:
+            self.tracer.request_begin(rid, now, priority_class=pcls.name)
+        self.apply_updates(now)
+        arr, reason = self.admission.validate(q)
+        if arr is None:
+            self.admission.count_poison()
+            if self.tracer is not None:
+                self.tracer.instant(rid, "rejected", now, reason=reason)
+            if self.flight is not None:
+                self.flight.record("rejected_poison", now, rid=rid,
+                                   reason=reason)
+            self._finish(rid, ServeResult(status="rejected", cls=pcls.name,
+                                          reason=reason), t=now)
+            return rid
+        ck = self.cache.key(arr) if self.cache.capacity > 0 else None
+        if ck is not None:
+            hit = self.cache.get(self._salted(ck))
+            if hit is not None:
+                ids, scores = hit
+                self._c_cache_hits.inc()
+                if self.tracer is not None:
+                    self.tracer.instant(rid, "cache_hit", now)
+                self._finish(rid, ServeResult(
+                    status="ok", ids=ids, scores=scores,
+                    eps_served=self._eps, delta_served=self._delta,
+                    cls=pcls.name, cached=True), t=now)
+                return rid
+        ticket = Ticket(rid, arr, pcls, now, now + pcls.deadline_s, ck,
+                        self.admission.fingerprint(arr))
+        verdict, displaced = self.admission.admit(ticket)
+        for victim, vres in displaced:
+            vres.latency_s = now - victim.t_submit
+            if self.tracer is not None:
+                self.tracer.instant(victim.req_id, "displaced", now,
+                                    by=rid)
+            if self.flight is not None:
+                self.flight.record("displacement", now,
+                                   rid=victim.req_id, by=rid,
+                                   cls=victim.cls.name)
+            self._finish(victim.req_id, vres, t=now)
+        if verdict is not None:
+            if self.tracer is not None:
+                self.tracer.instant(rid, verdict.status, now,
+                                    reason=verdict.reason or "")
+            if self.flight is not None:
+                self.flight.record("refused", now, rid=rid,
+                                   status=verdict.status,
+                                   reason=verdict.reason)
+            self._finish(rid, verdict, t=now)
+        else:
+            if self.tracer is not None:
+                self.tracer.instant(rid, "admitted", now,
+                                    depth=self.admission.depth)
+            if self.flight is not None:
+                self.flight.record("admitted", now, rid=rid,
+                                   cls=pcls.name,
+                                   depth=self.admission.depth)
+        return rid
+
+    def result(self, req_id: int) -> Optional[ServeResult]:
+        """Pop the typed `ServeResult` for a finished request, or None."""
+        return self._results.pop(req_id, None)
+
+    def warmup(self) -> float:
+        """Build every rung's kernel off the serving clock; returns s.
+
+        Dispatches one all-zeros lane buffer through each ladder rung
+        under the identity permutation, so a fresh process builds and
+        loads the kernel *before* traffic: on a virtual-clock driver an
+        un-warmed runtime charges its first dispatch the whole build,
+        which expires every queued deadline and reads as a (spurious)
+        overload.  The runtime's counters and stats are untouched (the
+        executor-level ``cascade_*`` metrics do count warmup dispatches).
+        """
+        t0 = time.perf_counter()
+        Qbuf = np.zeros((self.lanes, self.N), np.float32)
+        for ex in self._rung_execs:
+            ex.dispatch(Qbuf, np.arange(ex.plan.n_blocks))
+        return time.perf_counter() - t0
+
+    def apply_updates(self, now: Optional[float] = None) -> int:
+        """Drain staged store mutations; returns rows applied.
+
+        A no-op on the static table this runtime serves: the store that
+        stages mutations is ROADMAP.md queue 1 item 4.
+        """
+        return 0
+
+    # ---- scheduler ---------------------------------------------------------
+
+    def poll(self, now: Optional[float] = None) -> Tuple[List[int], float]:
+        """Run the continuous-batching scheduler; returns (ids, busy_s).
+
+        Dispatch triggers: ``lanes`` requests queued (full dispatch), the
+        oldest queued request aged past ``batch_wait_ms``, or — the
+        continuous-batching rule — the executor already ran this poll
+        (work conservation: anything still queued waited through that
+        dispatch, so freed lanes are refilled immediately instead of
+        re-waiting the batch deadline).  Expired-deadline tickets are
+        shed during batch assembly.  ``busy_s`` is virtual compute time
+        (measured + injected + retry backoff) for virtual-clock drivers.
+        """
+        now = time.perf_counter() if now is None else now
+        self.apply_updates(now)
+        done: List[int] = []
+        busy = 0.0
+        while self.admission.depth:
+            t = now + busy
+            oldest = self.admission.oldest_submit()
+            full = self.admission.depth >= self.lanes
+            aged = (oldest is not None
+                    and t - oldest >= self.batch_wait_s)
+            if not (full or aged or busy > 0.0):
+                break
+            batch, expired = self.admission.take(t, self.lanes)
+            for tk, res in expired:
+                if self.flight is not None:
+                    self.flight.record("deadline_expired", t,
+                                       rid=tk.req_id, cls=tk.cls.name)
+                self._finish(tk.req_id, res, t=t)
+                done.append(tk.req_id)
+            if not batch:
+                continue
+            served, dt = self._dispatch(batch, t)
+            done.extend(served)
+            busy += dt
+        return done, busy
+
+    def drain(self, now: Optional[float] = None) -> Tuple[List[int], float]:
+        """Serve everything queued regardless of triggers or deadlines."""
+        now = time.perf_counter() if now is None else now
+        self.apply_updates(now)
+        done: List[int] = []
+        busy = 0.0
+        while self.admission.depth:
+            batch, _ = self.admission.take(now + busy, self.lanes,
+                                           expire=False)
+            if not batch:
+                break
+            served, dt = self._dispatch(batch, now + busy)
+            done.extend(served)
+            busy += dt
+        return done, busy
+
+    # ---- dispatch ----------------------------------------------------------
+
+    def _fail_batch(self, batch: List[Ticket], t: float, exc: Exception,
+                    retries: int, backoff: float) -> List[int]:
+        """Fail ONE micro-batch (typed results + quarantine), runtime lives.
+
+        Every ticket gets a ``failed`` `ServeResult` carrying the
+        exception text, and its fingerprint is quarantined so identical
+        resubmissions are refused at admission instead of re-breaking
+        dispatches.  The next poll dispatches the next batch normally.
+        """
+        self._c_failed_batches.inc()
+        reason = f"dispatch failed after {retries} retries: {exc}"
+        for tk in batch:
+            self.admission.add_quarantine(tk.fingerprint,
+                                          "dispatch failure")
+            if self.flight is not None:
+                self.flight.record("quarantine_add", t + backoff,
+                                   rid=tk.req_id,
+                                   fingerprint=repr(tk.fingerprint))
+            self._finish(tk.req_id, ServeResult(
+                status="failed", cls=tk.cls.name, reason=reason,
+                latency_s=(t + backoff) - tk.t_submit, retries=retries),
+                t=t + backoff)
+        if self.flight is not None:
+            # one dump per failed batch: the ring now holds the whole
+            # failure context (injections, retries, quarantines)
+            self.flight.dump("request_failed", t + backoff)
+        return [tk.req_id for tk in batch]
+
+    def _dispatch(self, batch: List[Ticket],
+                  t: float) -> Tuple[List[int], float]:
+        # rung from overload pressure at assembly, the max of two signals:
+        # queue depth (the taken batch counts: it was queue content a
+        # moment ago) and *urgency* — the fraction of its deadline budget
+        # the most-delayed batch member has already burned.  Depth alone
+        # misses overload under tight deadlines (requests expire before
+        # the queue builds); urgency alone misses it when deadlines are
+        # infinite.  Either saturating climbs the ladder.
+        load = (self.admission.depth + len(batch)) \
+            / self.admission.queue_capacity
+        urgency = 0.0
+        for tk in batch:
+            budget = tk.t_deadline - tk.t_submit
+            if np.isfinite(budget) and budget > 0:
+                urgency = max(urgency, (t - tk.t_submit) / budget)
+        rung = self.ladder.rung(max(load, urgency))
+        ex = self._rung_execs[rung]
+        Qbuf = np.zeros((self.lanes, self.N), np.float32)
+        for i, tk in enumerate(batch):
+            Qbuf[i] = tk.q
+        # drawn on the plain dispatch sequence, NOT a registry counter:
+        # permutations must be invariant to observability wiring
+        didx = self._dispatch_seq
+        perm = self._perm_source(didx, ex.plan.n_blocks)
+        self._dispatch_seq += 1
+        self._c_dispatches.inc(
+            filled="full" if len(batch) == self.lanes else "partial")
+
+        def on_error(e, attempt, injected):
+            self._c_dispatch_errors.inc()
+            if self.flight is not None:
+                self.flight.record(
+                    "fault_dispatch_error", t, didx=didx,
+                    attempt=attempt, injected=injected, error=str(e))
+
+        def on_retry(attempt, backoff):
+            self._c_retries.inc()
+            if self.tracer is not None:
+                for tk in batch:
+                    self.tracer.instant(tk.req_id, "retry",
+                                        t + backoff, attempt=attempt,
+                                        didx=didx)
+
+        try:
+            ids, scores, rounds, dt, attempt, backoff, spike = \
+                dispatch_with_retries(
+                    ex, Qbuf, perm, didx=didx, injector=self.injector,
+                    max_retries=self.max_retries,
+                    retry_backoff_s=self.retry_backoff_s,
+                    on_error=on_error, on_retry=on_retry)
+        except DispatchFailed as df:
+            return self._fail_batch(batch, t, df.cause, df.retries,
+                                    df.backoff), df.backoff
+        if spike > 0.0 and self.flight is not None:
+            self.flight.record("fault_latency", t, didx=didx,
+                               spike_ms=spike * 1e3)
+        if (self.dispatch_timeout_s is not None
+                and dt > self.dispatch_timeout_s):
+            self._c_slow.inc()
+        ids = ids[:len(batch)]
+        scores = scores[:len(batch)]
+        self._occupancy.append(len(batch))
+        self._h_occupancy.observe(len(batch))
+        lane = dispatch_lane_stats(
+            None if rounds is None else rounds[:len(batch)],
+            schedule=ex.plan.schedule, lanes=self.lanes,
+            filled=len(batch))
+        self._pull_fracs.append(lane["executed_pull_frac"])
+        self._h_pull_frac.observe(lane["executed_pull_frac"])
+        eps_r = self.ladder.eps_values[rung]
+        self._c_rung.inc(len(batch), rung=str(rung))
+        if self.tracer is not None:
+            args = {"didx": didx, "rung": rung, "eps_served": eps_r,
+                    "occupancy": len(batch), "retries": attempt,
+                    "pull_frac": lane["executed_pull_frac"]}
+            if spike > 0.0:
+                args["injected_ms"] = spike * 1e3
+            if rounds is not None:
+                args["rounds_used"] = float(
+                    np.mean(rounds[:len(batch)]))
+            self.tracer.global_span(f"dispatch {didx}", t, t + dt, **args)
+        done = []
+        for i, tk in enumerate(batch):
+            out_ids = ids[i].copy()
+            self._h_queue_wait.observe((t - tk.t_submit) * 1e3)
+            if self.tracer is not None:
+                self.tracer.span(tk.req_id, "queued", tk.t_submit, t,
+                                 didx=didx)
+                self.tracer.span(tk.req_id, "serve", t, t + dt,
+                                 rung=rung, eps_served=eps_r,
+                                 retries=attempt, didx=didx)
+            res = ServeResult(
+                status="ok" if rung == 0 else "degraded",
+                ids=out_ids, scores=scores[i].copy(),
+                eps_served=eps_r, delta_served=self._delta,
+                cls=tk.cls.name, latency_s=(t + dt) - tk.t_submit,
+                retries=attempt)
+            self._finish(tk.req_id, res, t=t + dt)
+            # only full-quality answers are cacheable: a degraded
+            # (eps_served > eps) result must never be replayed to a
+            # later query as if it met the contract eps
+            if rung == 0 and tk.cache_key is not None:
+                self.cache.put(self._salted(tk.cache_key),
+                               (out_ids, scores[i].copy()))
+            if (self._recall_rate > 0.0
+                    and self._recall_rng.random() < self._recall_rate):
+                self._recalls.append(ex.recall_of(tk.q, ids[i]))
+            done.append(tk.req_id)
+        for buf_name in ("_occupancy", "_pull_fracs", "_recalls"):
+            buf = getattr(self, buf_name)
+            if len(buf) > 100_000:
+                setattr(self, buf_name, buf[-10_000:])
+        return done, dt
+
+    # ---- observability -----------------------------------------------------
+
+    def stats(self) -> dict:
+        """Runtime telemetry: tail latency, queue, outcomes, faults.
+
+        ``latency_ms`` (p50/p95/p99) covers *answered* requests (cache
+        hits at 0); shed/rejected/failed requests are visible in
+        ``outcomes`` and ``admission`` instead.  ``degradation`` reports
+        the eps ladder and how many responses each rung served;
+        ``lanes`` aggregates per-dispatch lane accounting (occupancy +
+        executed pull fraction); ``faults`` reconciles retries / failed
+        batches (+ the injector's own schedule when attached).  Keys and
+        their order are the reference's.
+        """
+        occ = np.asarray(self._occupancy, np.float64)
+        answered = self.outcomes["ok"] + self.outcomes["degraded"]
+        out = {
+            "requests": self.n_requests,
+            "completed": self.n_requests - self.admission.depth,
+            "pending": self.admission.depth,
+            "answered": answered,
+            "availability": answered / max(1, self.n_requests),
+            "dispatches": self.n_dispatches,
+            "full_dispatches": self.n_full_dispatches,
+            "cache": {"hits": self.cache.hits,
+                      "misses": self.cache.misses,
+                      "entries": len(self.cache),
+                      "hit_rate": (self.cache.hits
+                                   / max(1, self.cache.hits
+                                         + self.cache.misses))},
+            "latency_ms": summarize_latencies(self._lat),
+            "queue": self.admission.stats(),
+            "outcomes": dict(self.outcomes),
+            "classes": {k: dict(v) for k, v in self.per_class.items()},
+            "degradation": {
+                "eps": self._eps,
+                "eps_floor": self.ladder.eps_floor,
+                "rungs": list(self.ladder.eps_values),
+                "served_per_rung": list(self.rung_served),
+                "degraded": self.outcomes["degraded"],
+            },
+            "lanes": {
+                "lanes": self.lanes,
+                "mean_occupancy": float(occ.mean()) if occ.size else 0.0,
+                "mean_lane_util": (float(occ.mean()) / self.lanes
+                                   if occ.size else 0.0),
+                "mean_executed_pull_frac": (
+                    float(np.mean(self._pull_fracs))
+                    if self._pull_fracs else 1.0),
+            },
+            "faults": {
+                "retries": self.n_retries,
+                "dispatch_errors": self.n_dispatch_errors,
+                "failed_batches": self.n_failed_batches,
+                "slow_dispatches": self.n_slow_dispatches,
+                "store_flush_failures": self.n_flush_failures,
+                "update_errors": self.n_update_errors,
+            },
+            "recall": {"samples": len(self._recalls),
+                       "mean": (float(np.mean(self._recalls))
+                                if self._recalls else float("nan"))},
+            "plan": {"rounds": len(self.plan.schedule.rounds),
+                     "pull_speedup": self.plan.schedule.speedup},
+            "updates": {"applied": self.n_updates,
+                        "version": self._version,
+                        "recalibrations": sum(
+                            ex.n_recalibrations
+                            for ex in self._rung_execs)},
+        }
+        if self.injector is not None:
+            out["faults"]["injected"] = self.injector.stats()
+        return out

@@ -1,11 +1,21 @@
-"""Serving CLI of the port: the micro-batching request loop.
+"""Serving CLI of the port: the request loop and the serving runtime.
 
-The PyTorch counterpart of ``repro.launch.serve --loop``: a seeded query
-stream is served against the vocab table of an architecture (its tied
-embedding, ``(padded_vocab, d_model)`` with the padding rows masked) by
-`MIPSServeEngine`, one fused-cascade launch per micro-batch::
+The PyTorch counterpart of ``repro.launch.serve --loop [--runtime]``: a
+seeded query stream is served against the vocab table of an architecture
+(its tied embedding, ``(padded_vocab, d_model)`` with the padding rows
+masked) by `MIPSServeEngine`, one fused-cascade launch per micro-batch::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --loop
+
+With ``--runtime`` the stream is served open loop by the
+continuous-batching `ServeRuntime` (admission, three priority classes,
+the eps degradation ladder down to ``--eps-floor``, retries, optional
+seeded fault injection with ``--inject-*``), one launch per dispatch at
+the rung the ladder picks::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --loop --runtime --eps-floor 0.4 --pattern bursty \
+        --inject-error-rate 0.05 --check-outcomes
 
 It runs on the CUDA card unless ``--device cpu`` is given.  The table is
 drawn N(0, 0.02) from seed 0 (`repro_torch.convert`).  ``--precision
@@ -17,25 +27,30 @@ lanes::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --loop --precision pq --adaptive --bound bernstein
 
-Modes and options of later slices — the decode demo, ``--runtime``,
-``--dynamic``, ``--tenants``, ``--shards`` > 1 — are refused with a
-message naming their ROADMAP.md item.
+Modes and options of later slices — the decode demo, ``--dynamic``,
+``--tenants``, ``--shards`` > 1 — are refused with a message naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-from typing import Optional, Tuple
+import sys
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.configs import get_config
 from repro_torch.convert import make_serving_table
 from repro_torch.core.boundedme_torch import resolve_device
-from repro_torch.launch.engine import MIPSServeEngine
+from repro_torch.launch.admission import STATUSES, PriorityClass
+from repro_torch.launch.engine import MIPSServeEngine, ServeRuntime
+from repro_torch.launch.faults import FaultInjector
+from repro_torch.obs import FlightRecorder, SpanTracer
 
-__all__ = ["arrival_trace", "simulate_stream", "build_loop", "main"]
+__all__ = ["arrival_trace", "simulate_stream", "build_loop", "serve_stream",
+           "main"]
 
 #: namespace tag so trace streams never alias other default_rng users
 _TRACE_ROOT = 0x7AC3
@@ -82,30 +97,58 @@ def arrival_trace(n: int, *, interarrival_ms: float = 0.1,
 
 def simulate_stream(engine, queries, *, interarrival_ms: float = 0.1,
                     pattern: str = "uniform", seed: int = 0,
-                    metrics_out=None) -> dict:
-    """Drive a query stream through an engine on a virtual clock.
+                    open_loop: bool = False,
+                    classes: Optional[Callable[[int], str]] = None,
+                    burst_factor: float = 8.0, burst_len: int = 16,
+                    trace=None, metrics_out=None, trace_out=None) -> dict:
+    """Drive a query stream through an engine or runtime on a virtual clock.
 
-    Arrivals follow a reproducible `arrival_trace` on a simulated clock
-    that only advances by arrival spacing and by the *measured* compute
-    time of each dispatch, so batching and deadline dynamics run as in
-    wall-clock serving without sleeps.  One submit per poll, as the JAX
-    package's closed-ish loop.
-    ``metrics_out`` (optional path) receives the metrics registry
-    snapshot after the drain.  Returns the engine stats plus
-    ``virtual_s``, ``throughput_rps`` and the ``trace`` metadata.
+    Arrivals follow a reproducible `arrival_trace` (``pattern`` /
+    ``seed`` / ``burst_*``; or pass an explicit ``trace`` array) on a
+    simulated clock that only advances by arrival spacing and by the
+    *measured* compute time of each dispatch, so batching, deadline and
+    overload dynamics run as in wall-clock serving without sleeps.
+
+    ``open_loop=True`` stamps each submit at its *true* trace arrival
+    time even when the virtual clock has already passed it, and admits
+    every arrival the clock has overtaken *before* the next poll
+    (arrivals keep coming while the server is busy — the load model
+    under which queues grow and shedding fires).  The default closed-ish
+    loop (arrivals wait for the clock, one submit per poll) is the
+    micro-batching engine's.  ``classes(i)`` (`ServeRuntime` only) names
+    the priority class of arrival ``i``.
+
+    ``metrics_out`` / ``trace_out`` (optional paths) receive the metrics
+    registry snapshot and the span tracer's Chrome trace-event JSON
+    after the drain; the paths written are echoed in an ``artifacts``
+    block.  Returns the engine stats plus ``virtual_s``,
+    ``throughput_rps`` and the ``trace`` metadata, as the JAX package's.
     """
     n = len(queries)
-    trace = arrival_trace(n, interarrival_ms=interarrival_ms,
-                          pattern=pattern, seed=seed)
+    if trace is None:
+        trace = arrival_trace(n, interarrival_ms=interarrival_ms,
+                              pattern=pattern, seed=seed,
+                              burst_factor=burst_factor,
+                              burst_len=burst_len)
+    trace = np.asarray(trace, np.float64)
     now = 0.0
-    for i in range(n):
+    i = 0
+    while i < n:
         now = max(now, float(trace[i]))
-        engine.submit(queries[i], now=now)
+        # admit arrival i — and, open loop, every later arrival already
+        # overdue because the clock advanced while the server was busy
+        while True:
+            kw = {} if classes is None else {"cls": classes(i)}
+            engine.submit(queries[i],
+                          now=(float(trace[i]) if open_loop else now), **kw)
+            i += 1
+            if not (open_loop and i < n and float(trace[i]) <= now):
+                break
         _, busy = engine.poll(now=now)
         now += busy
         # batch-wait timer: flush a partial batch after the deadline even
         # with no new arrival to wake the loop
-        t_next = float(trace[i + 1]) if i + 1 < n else np.inf
+        t_next = float(trace[i]) if i < n else np.inf
         while engine.pending_count and now + engine.deadline_s < t_next:
             now += engine.deadline_s
             _, busy = engine.poll(now=now)
@@ -119,18 +162,24 @@ def simulate_stream(engine, queries, *, interarrival_ms: float = 0.1,
     if metrics_out is not None:
         engine.metrics.write(metrics_out)
         artifacts["metrics"] = str(metrics_out)
+    if trace_out is not None and getattr(engine, "tracer", None) is not None:
+        engine.tracer.write(trace_out)
+        artifacts["trace"] = str(trace_out)
     return {"virtual_s": now,
             "throughput_rps": max(1, n) / max(now, 1e-9),
             "trace": {"pattern": pattern, "seed": int(seed),
                       "interarrival_ms": float(interarrival_ms),
+                      "open_loop": bool(open_loop),
                       "span_s": span,
                       "offered_rps": n / max(span, 1e-9) if n else 0.0},
             **({"artifacts": artifacts} if artifacts else {}),
             **engine.stats()}
 
 
-def build_loop(args) -> Tuple[MIPSServeEngine, np.ndarray]:
-    """The ``--loop`` engine over the arch's vocab table, and its queries.
+def build_loop(args) -> Tuple[object, np.ndarray]:
+    """The ``--loop`` engine (``--runtime``: the `ServeRuntime`, with its
+    span tracer, flight recorder and fault injector as the flags ask)
+    over the arch's vocab table, and its queries.
 
     Queries are N(0, 1) from ``default_rng(0)`` with the last
     ``--repeat-rate`` of them repeating earlier ones, as in the JAX
@@ -141,14 +190,44 @@ def build_loop(args) -> Tuple[MIPSServeEngine, np.ndarray]:
         cfg = cfg.smoke()
     dev = resolve_device(args.device)
     table, n_valid = make_serving_table(cfg, 0, dev)
-    engine = MIPSServeEngine(
-        table, K=args.topk, eps=args.eps, delta=args.delta,
-        block=min(512, cfg.d_model), n_valid=n_valid,
-        batch_size=args.batch, deadline_ms=args.deadline_ms,
-        recall_sample_rate=args.recall_rate,
-        cache_entries=args.cache_entries, precision=args.precision,
-        adaptive=args.adaptive, bound=args.bound, pull_mode=args.pull_mode,
-        pq_subdims=args.pq_subdims, seed=args.stream_seed, device=dev)
+    common = dict(K=args.topk, eps=args.eps, delta=args.delta,
+                  block=min(512, cfg.d_model), n_valid=n_valid,
+                  recall_sample_rate=args.recall_rate,
+                  cache_entries=args.cache_entries, precision=args.precision,
+                  adaptive=args.adaptive, bound=args.bound,
+                  pull_mode=args.pull_mode, pq_subdims=args.pq_subdims,
+                  seed=args.stream_seed, device=dev)
+    if args.runtime:
+        deadline = args.request_deadline_ms
+        classes = {       # interactive is never displaced; batch waits 4x
+            "interactive": PriorityClass("interactive", priority=0,
+                                         deadline_ms=deadline,
+                                         sheddable=False),
+            "default": PriorityClass("default", priority=1,
+                                     deadline_ms=deadline),
+            "batch": PriorityClass("batch", priority=2,
+                                   deadline_ms=4 * deadline)}
+        injector = None
+        if args.inject_latency_rate > 0 or args.inject_error_rate > 0:
+            injector = FaultInjector(
+                args.fault_seed, latency_rate=args.inject_latency_rate,
+                error_rate=args.inject_error_rate)
+        engine = ServeRuntime(
+            table, eps_floor=args.eps_floor,
+            degrade_rungs=args.degrade_rungs, lanes=args.batch,
+            batch_wait_ms=args.deadline_ms,
+            queue_capacity=args.queue_capacity, classes=classes,
+            max_retries=args.max_retries, fault_injector=injector,
+            tracer=(SpanTracer(seed=args.stream_seed) if args.trace_out
+                    else None),
+            flight=(FlightRecorder(capacity=args.flight_capacity,
+                                   path=args.flight_recorder_path)
+                    if args.flight_recorder_path else None),
+            **common)
+    else:
+        engine = MIPSServeEngine(
+            table, batch_size=args.batch, deadline_ms=args.deadline_ms,
+            **common)
     rng = np.random.default_rng(0)
     qs = rng.normal(size=(args.requests, engine.N)).astype(np.float32)
     if args.repeat_rate > 0:                  # cacheable duplicate queries
@@ -158,34 +237,103 @@ def build_loop(args) -> Tuple[MIPSServeEngine, np.ndarray]:
     return engine, qs
 
 
+def stream_classes(args) -> Optional[Callable[[int], str]]:
+    """``--runtime``'s class of each arrival: interactive, default,
+    default, batch drawn uniformly from ``--stream-seed + 1``, as the
+    JAX package's CLI draws them; None for the engine."""
+    if not args.runtime:
+        return None
+    crng = np.random.default_rng(args.stream_seed + 1)
+    names = ("interactive", "default", "default", "batch")
+    picks = crng.integers(0, len(names), args.requests)
+    return lambda i: names[picks[i]]
+
+
+def serve_stream(args, engine, qs) -> dict:
+    """Serve ``qs`` as the CLI does: the arrival pattern, open loop with
+    the priority classes under ``--runtime``, the artifacts the flags
+    name, and a final flight-recorder snapshot."""
+    stats = simulate_stream(
+        engine, qs, interarrival_ms=args.interarrival_ms,
+        pattern=args.pattern, seed=args.stream_seed,
+        open_loop=args.runtime, classes=stream_classes(args),
+        metrics_out=args.metrics_out,
+        trace_out=args.trace_out if args.runtime else None)
+    flight = getattr(engine, "flight", None)
+    if flight is not None:
+        # always leave a final snapshot on disk, so the artifact exists
+        # on a fault-free run too (it supersedes mid-stream failure dumps)
+        dumped = flight.dump("end_of_run", stats["virtual_s"])
+        if dumped:
+            stats.setdefault("artifacts", {})["flight"] = dumped
+    return stats
+
+
 def run_loop(args) -> dict:
-    """``--loop``: serve the stream and print the stats as JSON."""
+    """``--loop``: serve the stream and print the stats as JSON (with
+    ``--check-outcomes``, exit non-zero unless the runtime held its
+    serving contract)."""
     engine, qs = build_loop(args)
     plan = engine.plan
-    print(f"[serve] loop: table=({engine.n},{engine.N}) device={args.device} "
-          f"K={args.topk} eps={args.eps} batch={args.batch} "
-          f"deadline={args.deadline_ms}ms rounds={len(plan.schedule.rounds)} "
-          f"precision={plan.precision} quant_err={plan.quant_err:.6g} "
-          f"eps_eff={plan.eps_effective:.4f} adaptive={args.adaptive} "
-          f"bound={args.bound} pull_mode={plan.pull_mode} "
-          f"block={plan.block} "
-          f"pull_speedup={plan.schedule.speedup:.2f}x", flush=True)
-    stats = simulate_stream(engine, qs, interarrival_ms=args.interarrival_ms,
-                            pattern=args.pattern, seed=args.stream_seed,
-                            metrics_out=args.metrics_out)
+    if args.runtime:
+        print(f"[serve] runtime: table=({engine.n},{engine.N}) "
+              f"device={args.device} K={args.topk} eps={args.eps} "
+              f"eps_floor={engine.ladder.eps_floor} "
+              f"rungs={engine.ladder.n_rungs} lanes={args.batch} "
+              f"queue={args.queue_capacity} pattern={args.pattern} "
+              f"precision={plan.precision} adaptive={args.adaptive} "
+              f"bound={args.bound} pull_mode={args.pull_mode} "
+              f"faults={'on' if engine.injector else 'off'} "
+              f"warmup={engine.warmup():.3f}s", flush=True)
+    else:
+        print(f"[serve] loop: table=({engine.n},{engine.N}) "
+              f"device={args.device} K={args.topk} eps={args.eps} "
+              f"batch={args.batch} deadline={args.deadline_ms}ms "
+              f"rounds={len(plan.schedule.rounds)} "
+              f"precision={plan.precision} quant_err={plan.quant_err:.6g} "
+              f"eps_eff={plan.eps_effective:.4f} adaptive={args.adaptive} "
+              f"bound={args.bound} pull_mode={plan.pull_mode} "
+              f"block={plan.block} "
+              f"pull_speedup={plan.schedule.speedup:.2f}x", flush=True)
+    stats = serve_stream(args, engine, qs)
     print(json.dumps(stats, indent=2))
+    if args.runtime and args.check_outcomes:
+        check_outcomes(args, stats)
     return stats
+
+
+def check_outcomes(args, stats: dict) -> None:
+    """--check-outcomes: exit unless the runtime held its serving
+    contract over the stream — reaching this line at all proves no
+    exception escaped `simulate_stream`; on top of that every request
+    must have finished with exactly one typed status from the closed
+    set, and the answered tail latency must stay inside 8x the request
+    deadline (expiry bounds queueing; dispatch + retries ride on top)."""
+    o = stats["outcomes"]
+    unknown = set(o) - set(STATUSES)
+    if unknown:
+        sys.exit(f"[check] unknown outcome statuses: {sorted(unknown)}")
+    total = sum(o.values())
+    if total != stats["requests"]:
+        sys.exit(f"[check] {stats['requests']} requests but {total} "
+                 f"typed outcomes — a request finished without a "
+                 f"status, or with two")
+    bound = 8.0 * args.request_deadline_ms
+    p99 = stats["latency_ms"]["p99"]
+    if stats["completed"] and p99 > bound:
+        sys.exit(f"[check] p99 {p99:.1f}ms exceeds {bound:.0f}ms "
+                 f"(8x --request-deadline-ms)")
+    print(f"[check] OK: outcomes closed, {stats['requests']} requests "
+          f"all typed, p99 {p99:.1f}ms <= {bound:.0f}ms")
 
 
 #: options of later slices: (flag, is-set test, ROADMAP.md item)
 _LATER = (
-    ("--runtime", lambda a: a.runtime,
-     "queue 1 item 8 (ServeRuntime, admission, faults)"),
-    ("--dynamic", lambda a: a.dynamic, "queue 1 item 7 (dynamic stores)"),
+    ("--dynamic", lambda a: a.dynamic, "queue 1 item 4 (dynamic stores)"),
     ("--tenants", lambda a: a.tenants is not None,
-     "queue 1 item 9 (multi-tenant serving)"),
+     "queue 1 item 5 (multi-tenant serving)"),
     ("--shards > 1", lambda a: a.shards > 1,
-     "queue 1 item 10 (sharded serving)"),
+     "queue 1 item 6 (sharded serving)"),
 )
 
 
@@ -193,12 +341,56 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
     """Refuse what this slice does not serve, and bad values, up front."""
     if not args.loop:
         ap.error("only --loop is ported: the decode demo needs the model "
-                 "zoo (ROADMAP.md queue 1 item 11)")
+                 "zoo (ROADMAP.md queue 1 item 7)")
     for flag, is_set, item in _LATER:
         if is_set(args):
             ap.error(f"{flag} is not ported yet: ROADMAP.md {item}")
     if args.deadline_ms <= 0:
-        ap.error(f"--deadline-ms must be > 0, got {args.deadline_ms}")
+        ap.error(f"--deadline-ms must be > 0, got {args.deadline_ms}: it "
+                 f"is the batch-assembly wait; 0 would flush a "
+                 f"single-request batch at every poll (for per-request "
+                 f"completion deadlines use --request-deadline-ms)")
+    if args.eps_floor is not None:
+        if not args.runtime:
+            ap.error("--eps-floor requires --runtime: the degradation "
+                     "ladder lives in the continuous-batching runtime "
+                     "(add --runtime, or drop --eps-floor)")
+        if args.eps_floor < args.eps:
+            ap.error(f"--eps-floor {args.eps_floor} must be >= --eps "
+                     f"{args.eps}: overload *relaxes* eps toward the "
+                     f"floor (a floor tighter than the contract would "
+                     f"mean degrading improves accuracy)")
+    for name, val in (("--inject-latency-rate", args.inject_latency_rate),
+                      ("--inject-error-rate", args.inject_error_rate),
+                      ("--inject-flush-rate", args.inject_flush_rate)):
+        if not 0.0 <= val <= 1.0:
+            ap.error(f"{name} must be in [0, 1], got {val}")
+        if val > 0 and not args.runtime:
+            ap.error(f"{name} requires --runtime: fault injection is "
+                     f"wired through the runtime's retry/quarantine "
+                     f"machinery (add --runtime)")
+    if args.inject_flush_rate > 0:
+        ap.error("--inject-flush-rate requires --dynamic: flush faults "
+                 "fire inside a store's flush_updates, and the store is "
+                 "not ported yet (ROADMAP.md queue 1 item 4)")
+    if args.queue_capacity < 1:
+        ap.error(f"--queue-capacity must be >= 1, "
+                 f"got {args.queue_capacity}")
+    if args.request_deadline_ms <= 0:
+        ap.error(f"--request-deadline-ms must be > 0, got "
+                 f"{args.request_deadline_ms} (per-request completion "
+                 f"budget; requests older than it are shed)")
+    if args.max_retries < 0:
+        ap.error(f"--max-retries must be >= 0, got {args.max_retries}")
+    if args.trace_out and not args.runtime:
+        ap.error("--trace-out requires --runtime: span tracing hooks live "
+                 "in the continuous-batching runtime")
+    if args.flight_recorder_path and not args.runtime:
+        ap.error("--flight-recorder-path requires --runtime: the flight "
+                 "recorder records runtime lifecycle events")
+    if args.flight_capacity < 1:
+        ap.error(f"--flight-capacity must be >= 1, "
+                 f"got {args.flight_capacity}")
     if args.batch < 1:
         ap.error(f"--batch must be >= 1, got {args.batch}")
     if args.requests < 1:
@@ -238,7 +430,8 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pull-mode", default="row",
                     choices=["row", "coord", "hybrid"])
     ap.add_argument("--batch", type=int, default=4,
-                    help="micro-batch size (kernel lanes)")
+                    help="micro-batch size (--loop) / kernel lanes "
+                         "(--runtime)")
     ap.add_argument("--loop", action="store_true",
                     help="run the micro-batching MIPS request loop")
     ap.add_argument("--requests", type=int, default=256)
@@ -252,18 +445,66 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="fraction of requests repeating an earlier query")
     ap.add_argument("--recall-rate", type=float, default=0.05)
     ap.add_argument("--dynamic", action="store_true")
-    ap.add_argument("--runtime", action="store_true")
     ap.add_argument("--tenants", default=None, metavar="SPEC.json")
+    # continuous-batching runtime mode
+    ap.add_argument("--runtime", action="store_true",
+                    help="serve with the continuous-batching runtime "
+                         "(admission control, priority classes, eps "
+                         "degradation ladder, typed refusals)")
+    ap.add_argument("--queue-capacity", type=int, default=64,
+                    help="bounded admission queue depth (--runtime)")
+    ap.add_argument("--eps-floor", type=float, default=None,
+                    help="worst eps the degradation ladder may serve "
+                         "under overload (>= --eps; default: no "
+                         "degradation)")
+    ap.add_argument("--degrade-rungs", type=int, default=3,
+                    help="eps rungs (one executor each) between --eps and "
+                         "--eps-floor")
+    ap.add_argument("--request-deadline-ms", type=float, default=50.0,
+                    help="per-request completion budget (--runtime); "
+                         "requests queued past it are shed, not served "
+                         "late")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="dispatch retry budget before a micro-batch is "
+                         "failed (--runtime)")
     ap.add_argument("--pattern", default="uniform",
                     choices=["uniform", "poisson", "bursty"],
                     help="arrival pattern of the simulated stream")
     ap.add_argument("--stream-seed", type=int, default=0,
                     help="seed of the arrival trace and of the engine's "
                          "block permutations")
+    ap.add_argument("--inject-latency-rate", type=float, default=0.0,
+                    help="fault injection: per-dispatch latency-spike "
+                         "probability (--runtime)")
+    ap.add_argument("--inject-error-rate", type=float, default=0.0,
+                    help="fault injection: per-dispatch exception "
+                         "probability (--runtime)")
+    ap.add_argument("--inject-flush-rate", type=float, default=0.0,
+                    help="fault injection: store flush failure "
+                         "probability (needs --dynamic, not ported yet)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the deterministic fault schedule")
+    ap.add_argument("--check-outcomes", action="store_true",
+                    help="after the stream, fail unless every request "
+                         "got a typed status from the closed set and "
+                         "p99 stayed inside 8x the request deadline "
+                         "(--runtime)")
+    # observability artifacts
     ap.add_argument("--metrics-out", default=None,
                     help="write the metrics-registry snapshot here after "
                          "the stream (.prom/.txt = Prometheus text, "
                          "anything else = JSON)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write per-request span traces here as Chrome "
+                         "trace-event JSON — load in Perfetto / "
+                         "chrome://tracing (--runtime)")
+    ap.add_argument("--flight-recorder-path", default=None,
+                    help="arm the crash flight recorder: a bounded ring "
+                         "of structured serving events dumped here on "
+                         "request failure, plus a final end-of-run "
+                         "snapshot (--runtime)")
+    ap.add_argument("--flight-capacity", type=int, default=256,
+                    help="flight-recorder ring size in events")
     return ap
 
 

@@ -1,7 +1,7 @@
 """Typed metrics registry for the serving stack.
 
 A copy of ``repro.obs.metrics`` (the port imports nothing of the JAX
-package), without its no-op registry.  Three metric kinds —
+package), with its no-op registry (`null_registry`).  Three metric kinds —
 :class:`Counter` (monotone), :class:`Gauge` (last-write or
 callback-backed), :class:`Histogram` (fixed buckets, cumulative counts +
 sum) — held in a :class:`MetricsRegistry` keyed by metric name.  Metrics
@@ -388,6 +388,97 @@ def _labelstr(labels: Dict[str, str]) -> str:
         return ""
     inner = ",".join(f'{k}="{_escape(str(v))}"' for k, v in labels.items())
     return "{" + inner + "}"
+
+
+class _NullMetric:
+    """Accepts the full Counter/Gauge/Histogram API and drops everything.
+
+    ``get``/``total``/``sum``/``count`` read back zeros, so legacy
+    property-backed counters report 0 instead of raising — the hard-off
+    switch that measures the observability-off baseline.
+    """
+
+    kind = "null"
+    name = "null"
+    help = ""
+    labels: Tuple[str, ...] = ()
+    buckets: Tuple[float, ...] = ()
+
+    def inc(self, amount: float = 1.0, **labels: object) -> None:
+        """No-op."""
+
+    def seed(self, **labels: object) -> None:
+        """No-op."""
+
+    def set(self, value: float, **labels: object) -> None:
+        """No-op."""
+
+    def set_fn(self, fn: Callable[[], float], **labels: object) -> None:
+        """No-op (the callback is never invoked)."""
+
+    def observe(self, value: float, **labels: object) -> None:
+        """No-op."""
+
+    def get(self, **labels: object) -> float:
+        """Always 0 (histogram rows read as an empty cell via sum/count)."""
+        return 0.0
+
+    def total(self) -> float:
+        """Always 0."""
+        return 0.0
+
+    def sum(self) -> float:
+        """Always 0."""
+        return 0.0
+
+    def count(self) -> int:
+        """Always 0."""
+        return 0
+
+    def rows(self) -> list:
+        """Always empty."""
+        return []
+
+
+class NullRegistry(MetricsRegistry):
+    """A registry whose metrics are all shared no-op stubs.
+
+    Pass ``metrics=null_registry()`` to an engine/runtime to disable
+    metric collection entirely (legacy counter properties read 0, legacy
+    list-backed latency stats still work): the observability-off
+    baseline.
+    """
+
+    _NULL = _NullMetric()
+
+    def counter(self, name: str, help: str = "",
+                labels: Sequence[str] = ()) -> Counter:
+        """The shared no-op stub."""
+        return self._NULL  # type: ignore[return-value]
+
+    def gauge(self, name: str, help: str = "",
+              labels: Sequence[str] = ()) -> Gauge:
+        """The shared no-op stub."""
+        return self._NULL  # type: ignore[return-value]
+
+    def histogram(self, name: str, help: str = "",
+                  labels: Sequence[str] = (),
+                  buckets: Sequence[float] = LATENCY_BUCKETS_MS
+                  ) -> Histogram:
+        """The shared no-op stub."""
+        return self._NULL  # type: ignore[return-value]
+
+    def adopt(self, other: MetricsRegistry) -> None:
+        """No-op: adopted components keep their own registries."""
+
+    def snapshot(self) -> dict:
+        """Always empty."""
+        return {"metrics": []}
+
+
+def null_registry() -> NullRegistry:
+    """A fresh no-op registry (the observability hard-off switch)."""
+    return NullRegistry()
 
 
 def summarize_latencies(lat_s: Sequence[float],

@@ -224,6 +224,36 @@ def test_gather_block_dot_duplicates_and_single_tile():
            atol_scale=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bad_idx,bad_cols", [
+    ([-1], None), ([6], None), ([-1, 6, 99], None), ([], [1, 4, 0]),
+    ([], [1, -1, 0]), ([6], [7, 0, 3])])
+def test_gather_block_dot_out_of_range_gives_nan_rows(dtype, bad_idx,
+                                                      bad_cols):
+    """The plain version follows the card kernel's rule: NaN for a row
+    whose ``idx`` is outside ``[0, n_tiles)``, every row NaN when a
+    ``cols`` entry is outside ``[0, n_blocks)``; the other rows equal
+    the call without the bad entries (the JAX interpret kernel clamps
+    instead, so it is no oracle here)."""
+    g = torch.Generator().manual_seed(11)
+    tdt = getattr(torch, dtype)
+    V4 = torch.randn(6, 4, 8, 64, generator=g).to(tdt)
+    qsel = torch.randn(3, 64, generator=g).to(tdt)
+    good = [0, 5, 2]
+    idx = torch.tensor(good[:1] + bad_idx + good[1:], dtype=torch.int32)
+    cols = torch.tensor([1, 0, 3] if bad_cols is None else bad_cols,
+                        dtype=torch.int32)
+    out = ops.gather_block_dot(V4, idx, cols, qsel)
+    bad = torch.tensor([False] + [True] * len(bad_idx) + [False, False])
+    if bad_cols is not None:
+        assert bool(out.isnan().all())
+        return
+    assert bool(out[bad].isnan().all()) and not bool(out[~bad].isnan().any())
+    want = ops.gather_block_dot(V4, torch.tensor(good, dtype=torch.int32),
+                                cols, qsel)
+    assert torch.equal(out[~bad], want)
+
+
 @pytest.mark.parametrize("n,d,tn,td", [(512, 1024, 256, 512),
                                        (256, 512, 128, 128),
                                        (1024, 2048, 256, 1024)])

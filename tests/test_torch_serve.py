@@ -223,7 +223,7 @@ def test_serve_cli_loop_on_cpu():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--runtime"], ["--dynamic"], ["--tenants", "t.json"], ["--shards", "2"],
+    ["--dynamic"], ["--tenants", "t.json"], ["--shards", "2"],
     ["--precision", "pq", "--dynamic"], ["--adaptive", "--shards", "2"]])
 def test_serve_cli_refuses_later_slices(argv, capsys):
     with pytest.raises(SystemExit):
@@ -273,6 +273,10 @@ def _imported_modules(path: Path):
 
 def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    names = {f.relative_to(ROOT / "src").as_posix() for f in files}
+    assert {"repro_torch/launch/admission.py", "repro_torch/launch/faults.py",
+            "repro_torch/obs/trace.py", "repro_torch/obs/flight.py",
+            "repro_torch/distributed/sharding.py"} <= names
     files.append(ROOT / "chip_smoke.py")
     for f in files:
         for mod in _imported_modules(f):
