@@ -71,7 +71,34 @@ Phases, one line each (any failure exits non-zero before the result):
    fraction, retries, failed batches, each launched rung's median
    measured dispatch time, and the device memory allocated before the
    rungs were built and at the stream's peak;
-6. mips — the library API on the unpadded vocab table (151936, 1024):
+6. store — the live-corpus ``DynamicTableStore`` on the vocab's 151,936
+   live rows at ``--capacity-slack 1.5`` (227,904 rows, 28,488 tiles):
+   (a) for fp32, int8, int4 and pq (subdims 8, 16 codes) a store built on
+   the card takes a seeded script of 64 mutations (upserts, delete +
+   append pairs, appends) in 8 flushed bursts; after each burst its tiled
+   table, shadow and host mirror must be bytewise a fresh store's built
+   on the card from ``snapshot()`` (pq: with its codebook), no buffer may
+   have moved (``data_ptr()``) and no schedule been built; (b) the runtime
+   phase's stream as ``--loop --runtime --dynamic --churn-rate 0.25
+   --capacity-slack 1.5 --inject-flush-rate 0.2`` for fp32 and int8:
+   every rung reads the store's one tiled table, and each dispatch is
+   held, before the next flush, against the plain version on the same
+   buffer, permutation, store buffers and ``n_valid``, its served slots
+   must be distinct live rows of live external ids, and its scores the
+   float64 exact ones of those rows as they stand; after the stream
+   ``--check-outcomes`` holds, launches of the tier equal the rung
+   dispatches, the store's flush failures equal the injector's, no other
+   update error occurred, and ``tools/check_obs_artifacts.py`` passes;
+   (c) with faults off, a row of 40x the table's largest norm is appended
+   along a served query: every rung's plan rebuilds once and the answer
+   holds the new id; then ``grow()`` to slack 2.0, one more rebuild per
+   rung, the same answer; both dispatches held as in (b).  It prints per
+   tier the rows applied, flushes, tiles re-encoded and flush times, the
+   outcome mix, p50 / p95 / p99 and throughput, the median dispatch ms
+   per rung beside the runtime phase's, whether the cascade's round-end
+   keys need the device workspace (P against ``launch_grid``'s shared
+   memory capacity), and the device memory before and at peak;
+7. mips — the library API on the unpadded vocab table (151936, 1024):
    8 seeded queries through ``mips_topk`` (K = 4, eps = delta = 0.1,
    ``final_exact``) per tier and pull mode, and int8 with adaptive
    bernstein; launches of ``fused_cascade[<tier>]`` must equal the calls,
@@ -82,15 +109,15 @@ Phases, one line each (any failure exits non-zero before the result):
    float64 nearest-neighbour search, and ``bounded_me_batched`` on 4
    queries with per-query perms: one batched launch, bitwise equal to
    four single-query calls;
-7. quickstart — the recommender table of ``examples/quickstart.py``
+8. quickstart — the recommender table of ``examples/quickstart.py``
    (``mf_dataset(20000, 8192, rank=32, seed=0)``, block 128, K = 5,
    delta = 0.1, eps in {0.5, 2, 8} sigma, fp32, ``final_exact``):
    kernel held against the plain version, exact scores; prints the top-5
    overlap with exact search, the plan's speedup, and the kernel and call
    ms against ``torch.matmul`` + ``torch.topk``;
-8. a ``kernels`` JSON line, one entry per kernel and tier (the batched
-   cascade's launches are the serve and runtime phases'), and last the
-   ``ok`` JSON line.
+9. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+   cascade's launches are the serve, runtime and store phases'), and last
+   the ``ok`` JSON line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
 near-tie, counted and printed — every differing candidate's exact float64
@@ -156,6 +183,17 @@ RUNTIME_ARGV = [
     "--pattern", "bursty", "--interarrival-ms", "0.1", "--stream-seed", "0",
     "--inject-error-rate", "0.25", "--inject-latency-rate", "0.05",
     "--fault-seed", "0", "--check-outcomes"]
+#: the store phase: the vocab's live rows in a DynamicTableStore
+STORE_TIERS = ["fp32", "int8", "int4", "pq"]
+STORE_SLACK, STORE_GROWN_SLACK = 1.5, 2.0
+STORE_OPS, STORE_BURSTS = 64, 8
+#: the tiers the store phase serves under ``--runtime --dynamic``
+STORE_RUNTIME_TIERS = [TIERS[0], TIERS[1]]
+#: ``--loop --runtime --dynamic``: the runtime phase's stream under churn
+#: and injected flush faults
+STORE_ARGV = RUNTIME_ARGV + [
+    "--dynamic", "--churn-rate", "0.25", "--capacity-slack",
+    str(STORE_SLACK), "--inject-flush-rate", "0.2"]
 
 
 class SmokeFailure(Exception):
@@ -954,6 +992,356 @@ def runtime_run(label, precision, adaptive, bound) -> dict:
     return res
 
 
+class TiledRows:
+    """Row ``i`` of a store's tiled table as it stands, indexed the way
+    `compare` indexes a table (no row-major copy is made)."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def __getitem__(self, i):
+        st = self.store
+        return st.tiled_table()[i // st.tile, :, i % st.tile, :].reshape(
+            -1)[:st.N]
+
+
+def stage_script(store, rng, n_ops: int) -> None:
+    """Stage ``n_ops`` seeded mutations, in turn an upsert of a live id, a
+    delete + append pair and an append, of N(0, 0.02) rows like the
+    table's."""
+    for k in range(n_ops):
+        row = (0.02 * rng.standard_normal(store.N)).astype(np.float32)
+        live = store.live_ids()
+        if k % 3 == 0:
+            store.upsert(int(rng.choice(live)), row)
+        elif k % 3 == 1:
+            store.delete(int(rng.choice(live)))
+            store.append(row)
+        else:
+            store.append(row)
+
+
+def store_buffers(store) -> dict:
+    bufs = {"tiled": store.tiled_table()}
+    if store.quantized() is not None:
+        bufs.update(zip(("codes", "aux"), store.quantized()))
+    return bufs
+
+
+def store_only(label: str, rows: np.ndarray) -> dict:
+    """Phase 6a: a store of the vocab rows on the card, a seeded script of
+    mutations in bursts; after each burst its buffers are bytewise a
+    fresh store's built from its snapshot, no buffer moved and no
+    schedule was built."""
+    from repro_torch.core.boundedme_torch import schedule_operands
+    from repro_torch.store import DynamicTableStore
+    kw = dict(block=512, precision=label, pq_subdims=8, pq_codes=16,
+              device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = DynamicTableStore(rows, capacity_slack=STORE_SLACK, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ptrs = {k: v.data_ptr() for k, v in store_buffers(st).items()}
+    builds = schedule_operands.cache_info().misses
+    rng = np.random.default_rng(17)
+    infos, fresh_s = [], []
+    for burst in range(STORE_BURSTS):
+        stage_script(st, rng, STORE_OPS // STORE_BURSTS)
+        infos.append(st.flush_updates())
+        t0 = time.perf_counter()
+        snap, ids = st.snapshot()
+        fresh = DynamicTableStore(
+            snap, ids=ids, capacity=st.capacity_rows,
+            codebook=st.codebook() if label == "pq" else None, **kw)
+        torch.cuda.synchronize()
+        fresh_s.append(time.perf_counter() - t0)
+        check(np.array_equal(st.host_table(), fresh.host_table()),
+              f"store {label} burst {burst}: host mirror differs from a "
+              f"fresh store's")
+        mine, theirs = store_buffers(st), store_buffers(fresh)
+        for name, buf in mine.items():
+            check(torch.equal(buf, theirs[name]),
+                  f"store {label} burst {burst}: {name} differs from a "
+                  f"fresh store's")
+            check(buf.data_ptr() == ptrs[name],
+                  f"store {label} burst {burst}: {name} was reallocated")
+        del fresh, theirs, snap
+    check(schedule_operands.cache_info().misses == builds,
+          f"store {label}: the mutation stream built a schedule")
+    secs = [i["seconds"] for i in infos]
+    res = {"capacity_rows": st.capacity_rows, "n_live": st.n_live,
+           "build_s": build_s, "flushes": len(infos),
+           "rows_applied": sum(i["applied"] for i in infos),
+           "tiles_reencoded": sum(i["requantized_tiles"] for i in infos),
+           "flush_s_total": sum(secs), "flush_ms_median":
+               1e3 * statistics.median(secs), "flush_ms_max": 1e3 * max(secs),
+           "fresh_build_s_median": statistics.median(fresh_s),
+           "resident_gb": st.resident_bytes() / 1e9,
+           "bytewise_fresh": True, "buffers_moved": 0, "schedules_built": 0}
+    say(f"store {label}: " + json.dumps(res))
+    del st
+    torch.cuda.empty_cache()
+    return res
+
+
+def store_runtime_run(label, precision, adaptive, bound, static,
+                      extra=()) -> dict:
+    """Phase 6b-c: ``--loop --runtime --dynamic`` under churn and flush
+    faults, every dispatch held before the next flush; then growth."""
+    from repro_torch.core.boundedme_torch import decode_tiled
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.fused_cascade import launch_grid
+    from repro_torch.launch import serve
+
+    tmp = tempfile.TemporaryDirectory()
+    art = {k: str(Path(tmp.name) / f"{k}.{ext}") for k, ext in
+           (("metrics", "prom"), ("trace", "json"), ("flight", "json"))}
+    argv = STORE_ARGV + [
+        "--precision", precision, "--bound", bound,
+        "--metrics-out", art["metrics"], "--trace-out", art["trace"],
+        "--flight-recorder-path", art["flight"], *extra] + (
+            ["--adaptive"] if adaptive else [])
+    args = serve.parse_args(argv)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    engine, qs = serve.build_loop(args)
+    store, execs = engine.store, engine.executors
+    check(store is not None and all(ex.store is store for ex in execs)
+          and all(ex.tiled_table is store.tiled_table() for ex in execs),
+          f"store runtime {label}: rungs do not share the store's table")
+    qs = list(qs)
+    N = engine.N
+    for i, bad in zip((5, 70, 140, 210), (
+            np.full(N, np.nan, np.float32), np.full(N, np.inf, np.float32),
+            np.ones(N + 1, np.float32), np.ones(N - 3, np.float32))):
+        qs[i] = bad
+    grid, capacity = launch_grid(torch.device(DEV))
+    keys = []
+    for ex in execs:
+        rounds = ex.plan.schedule.rounds
+        n_final = rounds[-1].n_keep if rounds else ex.plan.n_tiles
+        P = max(ex.plan.n_tiles, n_final * ex.plan.tile)
+        keys.append({"P": P, "capacity": capacity,
+                     "workspace": P > capacity,
+                     "workspace_mb": 8 * grid * P / 1e6 if P > capacity
+                     else 0.0})
+    say(f"store runtime {label}: table=({engine.n},{N}) live "
+        f"{store.n_live} rungs {engine.ladder.eps_values} rounds "
+        f"{[len(ex.plan.schedule.rounds) for ex in execs]} keys {keys}")
+    name = f"fused_cascade_batched[{label}]"
+    kops.reset_launch_counts()
+    warm_s = engine.warmup()
+    flushes = []
+    real_flush = store.flush_updates
+
+    def recording_flush():
+        info = real_flush()
+        flushes.append(info)
+        return info
+    store.flush_updates = recording_flush
+    rows = TiledRows(store)
+    checked = []
+    for rung, ex in enumerate(execs):
+        def checking(Qbuf, perm, rung=rung, ex=ex, real=ex.dispatch):
+            out = real(Qbuf, perm)
+            # held now, before the next flush can change the table
+            Q = torch.from_numpy(Qbuf).to(DEV)
+            with plain_route():
+                ref = decode_tiled(ex.tiled_table, Q, perm, plan=ex.plan,
+                                   final_exact=True, n_valid=ex.n_valid,
+                                   quantized=ex.quantized,
+                                   adaptive=adaptive)
+            got = [torch.from_numpy(t) for t in out[:3 if adaptive else 2]]
+            r = compare(rows, Q, got, ref,
+                        what=f"store runtime {label} rung {rung} dispatch "
+                        f"{len(checked)}")
+            host = store.host_table()
+            for i in np.flatnonzero(np.abs(Qbuf).sum(1) > 0):
+                slots = out[0][i]
+                check(len(set(slots.tolist())) == K
+                      and int(slots.max()) < store.n_live
+                      and (store.external_ids(slots) >= 0).all(),
+                      f"store runtime {label}: lane {i} slots "
+                      f"{slots.tolist()} with {store.n_live} live rows")
+                exact = host[slots].astype(np.float64) @ Qbuf[i].astype(
+                    np.float64) / N
+                check(np.allclose(out[1][i], exact, rtol=EXACT_RTOL, atol=0),
+                      f"store runtime {label}: lane {i} scores "
+                      f"{out[1][i].tolist()} vs exact {exact.tolist()}")
+            checked.append((rung, out[3], r["max_abs_err"],
+                            r["near_tie_queries"]))
+            return out
+        ex.dispatch = checking
+    t0 = time.perf_counter()
+    stats = serve.serve_stream(args, engine, qs)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = kops.launch_counts()
+    n_disp = sum(ex.n_dispatches for ex in execs)
+    check(counts[name] == n_disp == counts["fused_cascade_batched"]
+          and n_disp == len(execs) + len(checked),
+          f"store runtime {label}: {counts[name]} {name} launches "
+          f"({counts['fused_cascade_batched']} in all) for {n_disp} rung "
+          f"dispatches, {len(checked)} of them after warm-up")
+    try:
+        serve.check_outcomes(args, stats)
+    except SystemExit as e:
+        raise SmokeFailure(f"store runtime {label}: {e}") from None
+    f = stats["faults"]
+    check(f["store_flush_failures"] == f["injected"]["flush_failures"]
+          == store.n_flush_failures > 0 and f["update_errors"] == 0,
+          f"store runtime {label}: {f['store_flush_failures']} flush "
+          f"failures, {f['injected']['flush_failures']} injected, "
+          f"{f['update_errors']} update errors")
+    check(f["dispatch_errors"] == f["injected"]["dispatch_errors"],
+          f"store runtime {label}: {f['dispatch_errors']} dispatch errors, "
+          f"{f['injected']['dispatch_errors']} of them injected")
+    check(stats["updates"]["applied"] > 0,
+          f"store runtime {label}: updates {stats['updates']}")
+    obs = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_obs_artifacts.py"),
+         "--metrics", art["metrics"], "--trace", art["trace"],
+         "--flight", art["flight"]], capture_output=True, text=True)
+    check(obs.returncode == 0, f"store runtime {label}: obs artifacts: "
+          f"{obs.stdout.strip()} {obs.stderr.strip()}")
+    tmp.cleanup()
+    stream_launches = counts[name]
+
+    # growth: a row 40x the table's largest norm along a served query
+    # (faults off), then grow() to a larger slack; each rung rebuilds
+    engine.injector = None
+    store.fault_hook = None
+    store.flush_updates = real_flush
+    norms = np.linalg.norm(store.host_table()[:store.n_live], axis=1)
+    answered = [rid for rid in range(args.requests)
+                if engine.result(rid).answered]
+    q = np.asarray(qs[answered[0]], np.float32)
+    new_id = store.append((40.0 * float(norms.max()) * q
+                           / np.linalg.norm(q)).astype(np.float32))
+    t = stats["virtual_s"] + 1.0
+    growth = {}
+    kops.reset_launch_counts()
+    for step, grow_to in (("value_range", None),
+                          ("capacity", STORE_GROWN_SLACK)):
+        if grow_to is not None:
+            store.grow(int(np.ceil(store.n_live * grow_to)))
+        recal = [ex.n_recalibrations for ex in execs]
+        before = len(checked)
+        rid = engine.submit(q, now=t)
+        engine.drain(now=t)
+        t += 1.0
+        res = engine.result(rid)
+        check(res is not None and res.answered and new_id in res.ids,
+              f"store runtime {label} {step} growth: {res}")
+        check([ex.n_recalibrations for ex in execs] == [r + 1 for r in recal],
+              f"store runtime {label} {step} growth: recalibrations "
+              f"{recal} -> {[ex.n_recalibrations for ex in execs]}")
+        check(len(checked) == before + 1, f"store runtime {label} {step} "
+              f"growth: {len(checked) - before} dispatches")
+        growth[step] = {"capacity_rows": store.capacity_rows,
+                        "rounds": len(execs[0].plan.schedule.rounds),
+                        "dispatch_ms": 1e3 * checked[-1][1],
+                        "max_abs_err": checked[-1][2]}
+    growth_launches = kops.launch_counts()[name]
+    check(growth_launches == 2, f"store runtime {label}: {growth_launches} "
+          f"{name} launches for the 2 growth dispatches")
+    secs = [i["seconds"] for i in flushes]
+    lat = stats["latency_ms"]
+    rungs = sorted({c[0] for c in checked[:-2]})
+    res = {"launches": stream_launches + growth_launches,
+           "stream_launches": stream_launches,
+           "dispatches": stats["dispatches"], "held_dispatches": len(checked),
+           "max_abs_err": max(c[2] for c in checked),
+           "near_tie_queries": sum(c[3] for c in checked),
+           "outcomes": stats["outcomes"], "p50_ms": lat["p50"],
+           "p95_ms": lat["p95"], "p99_ms": lat["p99"],
+           "throughput_rps": stats["throughput_rps"],
+           "virtual_s": stats["virtual_s"],
+           "served_per_rung": stats["degradation"]["served_per_rung"],
+           "flushes": len(flushes), "flush_failures": f["store_flush_failures"],
+           "rows_applied": stats["updates"]["applied"],
+           "tiles_reencoded": stats["store"]["tiles_requantized"],
+           "flush_ms_median": 1e3 * statistics.median(secs) if secs else 0.0,
+           "flush_ms_max": 1e3 * max(secs) if secs else 0.0,
+           "flush_s_total": sum(secs),
+           "dispatch_ms_median_per_rung": [
+               1e3 * statistics.median(c[1] for c in checked[:-2]
+                                       if c[0] == rung) for rung in rungs],
+           "rungs_launched": rungs,
+           "static_dispatch_ms_median_per_rung": static,
+           "keys": keys, "growth": growth,
+           "mem_before_gb": base_gb, "peak_mem_gb": peak_gb,
+           "warmup_s": warm_s, "wall_s": wall}
+    say(f"store runtime {label}: " + json.dumps(res))
+    return res
+
+
+def keys_branch_cost(rows: np.ndarray) -> dict:
+    """Kernel 1 (fp32, B = 4, row mode) over two stores of the vocab rows:
+    at the largest capacity whose round-end keys fit a CTA's shared
+    memory, and at the default slack's, whose keys go to the device
+    workspace; each held against the plain version, then timed in turns
+    (three each, alternating which runs first)."""
+    from repro_torch.core.boundedme_torch import make_plan
+    from repro_torch.kernels.fused_cascade import (fused_cascade_batched_cuda,
+                                                   launch_grid)
+    from repro_torch.kernels.ref import fused_cascade_batched_ref
+    from repro_torch.launch.engine import seeded_perm
+    from repro_torch.store import DynamicTableStore
+    _, cap = launch_grid(torch.device(DEV))
+    n, N = rows.shape
+    Q = torch.from_numpy(np.random.default_rng(1234).normal(
+        size=(B, N)).astype(np.float32)).to(DEV)
+    cases = {}
+    for label, capacity in (("shared", 8 * cap),
+                            ("workspace", int(np.ceil(n * STORE_SLACK)))):
+        st = DynamicTableStore(rows, capacity=capacity, block=512,
+                               device=DEV)
+        plan = make_plan(st.capacity_rows, N, K=K, eps=EPS, delta=DELTA,
+                         value_range=2.0 * st.value_abs_max)
+        ops, kw = cascade_operands(plan, st.tiled_table(), Q,
+                                   seeded_perm(0, 0, plan.n_blocks))
+        P = max(plan.n_tiles, kw["n_final"] * plan.tile)
+        check((P > cap) == (label == "workspace"),
+              f"keys {label}: P {P} against capacity {cap}")
+        got = fused_cascade_batched_cuda(*ops, n_valid=st.n_live, **kw)
+        ref = fused_cascade_batched_ref(*ops, n_valid=st.n_live, **kw)
+        r = compare(TiledRows(st), Q, got, ref, what=f"keys {label}")
+        cases[label] = (st, ops, kw, {"capacity_rows": st.capacity_rows,
+                                      "n_tiles": plan.n_tiles, "P": P,
+                                      "key_capacity": cap,
+                                      "max_abs_err": r["max_abs_err"]})
+    runs = {label: [] for label in cases}
+    for i in range(6):
+        label = ("shared", "workspace", "workspace", "shared")[i % 4]
+        st, ops, kw, _ = cases[label]
+        runs[label].append(time_cuda(lambda: fused_cascade_batched_cuda(
+            *ops, n_valid=st.n_live, **kw), 10, 2))
+    out = {label: dict(info, kernel_ms_runs=runs[label],
+                       kernel_ms=statistics.median(runs[label]))
+           for label, (_, _, _, info) in cases.items()}
+    say("store keys branch: " + json.dumps(out))
+    return out
+
+
+def phase_store(table, n_valid, runtime) -> dict:
+    """Phase 6: the live-corpus store on the full vocab table."""
+    rows = table[:n_valid].cpu().numpy()
+    out = {"only": {}, "runtime": {}}
+    for label in STORE_TIERS:
+        out["only"][label] = store_only(label, rows)
+    out["keys_branch"] = keys_branch_cost(rows)
+    torch.cuda.empty_cache()
+    del rows
+    static = {k: v["dispatch_ms_median_per_rung"] for k, v in runtime.items()}
+    for tier in STORE_RUNTIME_TIERS:
+        out["runtime"][tier[0]] = store_runtime_run(*tier, static)
+        torch.cuda.empty_cache()
+    return out
+
+
 def mips_run(V, Q, label, precision, adaptive, bound, mode, quant_err,
              exact_ids) -> dict:
     """One tier's queries through ``mips_topk``, launches counted."""
@@ -996,7 +1384,7 @@ def mips_run(V, Q, label, precision, adaptive, bound, mode, quant_err,
 
 
 def phase_mips(table, n_valid) -> dict:
-    """Phase 6: the library API on the unpadded vocab table."""
+    """Phase 7: the library API on the unpadded vocab table."""
     from repro_torch.core import mips
     from repro_torch.core.boundedme_torch import (bounded_me_batched,
                                                   bounded_me_blocked,
@@ -1114,7 +1502,7 @@ def phase_mips(table, n_valid) -> dict:
 
 
 def phase_quickstart() -> dict:
-    """Phase 7: examples/quickstart.py's regime on the card."""
+    """Phase 8: examples/quickstart.py's regime on the card."""
     from repro_torch.core import mips
     from repro_torch.core.boundedme_torch import (draw_perms, make_plan,
                                                   tile_table)
@@ -1210,6 +1598,7 @@ def main() -> int:
         for tier in RUNTIME_TIERS:
             runtime[tier[0]] = runtime_run(*tier)
             torch.cuda.empty_cache()
+        stored = phase_store(table, n_valid, runtime)
         lib = phase_mips(table, n_valid)
         del table
         torch.cuda.empty_cache()
@@ -1220,12 +1609,16 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     entries = []
+    none = {"launches": 0, "max_abs_err": 0.0}
     for label, precision, adaptive, bound in TIERS:
-        rt = runtime.get(label, {"launches": 0, "max_abs_err": 0.0})
+        rt = runtime.get(label, none)
+        st = stored["runtime"].get(label, none)
         for name, res, launches, extra, replaces in (
                 ("fused_cascade_batched", kern,
-                 served[label]["launches"] + rt["launches"],
-                 max(served[label]["max_abs_err"], rt["max_abs_err"]),
+                 served[label]["launches"] + rt["launches"]
+                 + st["launches"],
+                 max(served[label]["max_abs_err"], rt["max_abs_err"],
+                     st["max_abs_err"]),
                  TPU_KERNEL),
                 ("fused_cascade", single,
                  lib[(label, "row")]["launches"]

@@ -24,9 +24,9 @@ for any tier by replaying the tier's pull arithmetic against calibration
 queries.
 
 Every function gives the JAX package's result on the same input: int8
-and int4 codes and scales bit for bit (``torch.round`` and ``jnp.round``
-both round half to even, and ``V4 / vscale`` is a true division in
-both), pq codes equal for the same codebook, trained codebooks to float
+and int4 codes and scales bit for bit, on the CPU and on the card
+(``torch.round`` and ``jnp.round`` both round half to even, and every
+division is a true one), pq codes equal for the same codebook, trained codebooks to float
 rounding (the distance products sum in another order).  Integer dots run
 in float64, which holds them exactly (|sum| < 2^53) on every device.
 """
@@ -51,9 +51,15 @@ _CHUNK_ELEMS = 1 << 26
 
 
 def _scale_of(amax: torch.Tensor, levels: int = INT8_LEVELS) -> torch.Tensor:
-    """Per-cell scale max|x| / levels; all-zero cells get scale 1 (codes 0)."""
+    """Per-cell scale max|x| / levels; all-zero cells get scale 1 (codes 0).
+
+    The divisor is a tensor on ``amax``'s device: PyTorch divides a CUDA
+    tensor by a Python number as a multiply by its reciprocal, which
+    would put the card's scales an ulp off the CPU's.
+    """
     amax = amax.to(torch.float32)
-    return torch.where(amax > 0, amax / levels,
+    div = torch.full((), levels, dtype=torch.float32, device=amax.device)
+    return torch.where(amax > 0, amax / div,
                        torch.ones_like(amax)).to(torch.float32)
 
 

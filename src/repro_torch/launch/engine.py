@@ -1,16 +1,17 @@
 """Serving engine internals of the port: executor, micro-batch engine and
 continuous-batching runtime.
 
-The PyTorch counterpart of ``repro.launch.engine`` for a static table on
-one device (the admission/policy half lives in
+The PyTorch counterpart of ``repro.launch.engine`` on one device (the
+admission/policy half lives in
 `repro_torch.launch.admission`, fault injection in
 `repro_torch.launch.faults`):
 
-  * :class:`CascadeExecutor` — owns the table (re-laid tile-major once,
-    and on the int8, int4 and pq tiers quantized once), the calibrated
-    (eps, delta) plan and the cached schedule operands; `dispatch` serves
-    a padded lane buffer with ONE fused-cascade launch and returns host
-    arrays plus the measured seconds.
+  * :class:`CascadeExecutor` — owns the table (a static one re-laid
+    tile-major once, and on the int8, int4 and pq tiers quantized once;
+    a store's read in place), the calibrated (eps, delta) plan and the
+    cached schedule operands; `dispatch` serves a padded lane buffer with
+    ONE fused-cascade launch and returns host arrays plus the measured
+    seconds.
   * :class:`MIPSServeEngine` — the micro-batching request loop over one
     executor: batch/deadline triggers, `QuantizedLRU`, sampled recall.
   * :class:`ServeRuntime` — the continuous-batching runtime: a bounded
@@ -21,11 +22,14 @@ one device (the admission/policy half lives in
     `dispatch_with_retries` with poison quarantine; every request ends
     as a typed `ServeResult`.
 
-The engine and the runtime draw each dispatch's block permutation from a
-``torch.Generator`` seeded from ``(seed, dispatch sequence)``
-(`seeded_perm`); ``perm_source`` replaces that draw (tests inject the
-JAX package's permutations through it).  Dynamic stores and meshes are
-later slices (ROADMAP.md queue 1 items 4 and 6) and are refused here.
+The table is a static tensor or array, or a live
+`repro_torch.store.DynamicTableStore`: the engines drain its staged
+mutations between dispatches, and every executor reads its tiled table
+and shadow in place.  The engine and the runtime draw each dispatch's
+block permutation from a ``torch.Generator`` seeded from ``(seed,
+dispatch sequence)`` (`seeded_perm`); ``perm_source`` replaces that draw
+(tests inject the JAX package's permutations through it).  Meshes are a
+later slice (ROADMAP.md queue 1 item 6) and are refused here.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from repro_torch.launch.admission import (AdmissionController,
                                           ServeResult, Ticket)
 from repro_torch.obs.metrics import (PULL_FRAC_BUCKETS, MetricsRegistry,
                                      summarize_latencies)
+from repro_torch.store import DynamicTableStore, StoreFlushError
 
 __all__ = ["QuantizedLRU", "CascadeExecutor", "MIPSServeEngine",
            "ServeRuntime", "DispatchFailed", "dispatch_with_retries",
@@ -131,6 +136,7 @@ class QuantizedLRU:
             collections.OrderedDict()
         self.hits = 0
         self.misses = 0
+        self.invalidations = 0
 
     def key(self, q: np.ndarray) -> bytes:
         """Quantize a (N,) query to its cache key."""
@@ -158,6 +164,14 @@ class QuantizedLRU:
         while len(self._od) > self.capacity:
             self._od.popitem(last=False)
 
+    def invalidate(self) -> None:
+        """Drop every entry (a table version bump makes cached answers
+        stale).  Hit/miss counters survive; ``invalidations`` counts the
+        calls.  The engines also salt their keys with the table version.
+        """
+        self._od.clear()
+        self.invalidations += 1
+
     def __len__(self) -> int:
         return len(self._od)
 
@@ -172,22 +186,33 @@ class _Pending:
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} is not ported yet ({item} of "
-                              f"ROADMAP.md); the port serves a static "
-                              f"table on one device")
+                              f"ROADMAP.md); the port serves one device")
 
 
 class CascadeExecutor:
     """The executor layer: one calibrated (eps, delta) dispatch path.
 
-    Owns the static item table — re-laid tile-major on ``device`` once —
-    plus the `make_plan` calibration for exactly one eps point.  On the
-    int8, int4 and pq tiers the table is quantized once here and every
-    dispatch reads that copy; pq calibrates its measured ``quant_err`` on
-    the table unless one is given.  `dispatch` runs one fused-cascade
-    launch over a padded ``(lanes, N)`` query buffer and returns host
-    arrays plus the measured seconds (ending in
-    ``torch.cuda.synchronize()`` on the card); `recall_of` rescores a
-    query exhaustively against the table.
+    Owns the item table — a static table, re-laid tile-major on
+    ``device`` once, or a live `repro_torch.store.DynamicTableStore`,
+    whose tiled table and shadow every dispatch reads in place — plus
+    the `make_plan` calibration for exactly one eps point.  On the int8,
+    int4 and pq tiers a static table is quantized once here; a store
+    maintains its own shadow.  pq calibrates its measured ``quant_err``
+    on the served table unless one is given (re-measured at every
+    rebuild).  Schedulers (`MIPSServeEngine`, `ServeRuntime`) own queues,
+    caches and results; the executor serves a full lane buffer:
+
+      * `dispatch` runs one fused-cascade launch over a padded ``(lanes,
+        N)`` query buffer and returns host arrays plus the measured
+        seconds (ending in ``torch.cuda.synchronize()`` on the card);
+      * `sync_store` re-derives the plan when the store's capacity or
+        monotonic value range outgrows the calibrated bound (counted in
+        ``n_recalibrations``);
+      * `recall_of` rescoring a query exhaustively against the live
+        table; `external_ids` mapping served slots to the store's ids.
+
+    A `ServeRuntime` holds one executor per degradation-ladder rung; on
+    a store they all read the store's one tiled table.
     """
 
     def __init__(self, table, *, K: int = 1, eps: float = 0.1,
@@ -201,47 +226,72 @@ class CascadeExecutor:
                  metrics: Optional[MetricsRegistry] = None,
                  metrics_labels: Optional[Dict[str, str]] = None,
                  device="cuda"):
-        if not isinstance(table, (torch.Tensor, np.ndarray)):
-            _refuse(f"serving a {type(table).__name__}",
-                    "queue 1 item 4 (dynamic stores)")
         if mesh is not None:
             _refuse("sharded serving", "queue 1 item 6")
-        self.device = resolve_device(device)
-        self._table = torch.as_tensor(table, dtype=torch.float32).to(
-            self.device)
-        n, N = self._table.shape
-        if value_range is None:
-            # a-priori product-range bound: callers who know their query
-            # norms should pass an explicit value_range instead
-            value_range = 2.0 * float(qmax_hint) * table_abs_max(self._table)
+        self.store = (table if isinstance(table, DynamicTableStore)
+                      else None)
+        if self.store is None and not isinstance(table, (torch.Tensor,
+                                                          np.ndarray)):
+            raise TypeError(f"table must be a tensor, an array or a "
+                            f"DynamicTableStore, got "
+                            f"{type(table).__name__}")
+        self._qmax_hint = float(qmax_hint)
+        if self.store is not None:
+            store = self.store
+            if n_valid is not None:
+                raise ValueError("n_valid is store-managed")
+            self.device = store.device
+            # the store owns the kernel geometry (its shadow and the
+            # executor's plan must agree tile for tile)
+            tile, block = store.tile, store.block
+            if store.precision != "fp32":
+                precision = store.precision
+                if store.precision == "pq":
+                    pq_subdims = store.pq_subdims
+                    pq_codes = store.pq_codes
+            n, N = store.capacity_rows, store.N
+            # clamp to the store's observed range as sync_store does on
+            # growth: a churned executor and a fresh executor on the
+            # store's snapshot then calibrate identical plans
+            floor = 2.0 * self._qmax_hint * max(store.value_abs_max, 1e-30)
+            value_range = (floor if value_range is None
+                           else max(float(value_range), floor))
+            if store.precision != "fp32" and pull_mode != "row":
+                # the shadow's cells are fixed at the store's block width;
+                # a coord (or coord-resolvable hybrid) plan re-blocks the
+                # feature axis, which the shadow cannot serve
+                raise ValueError(
+                    f"pull_mode={pull_mode!r} is incompatible with a "
+                    f"single-device {store.precision} store shadow (its "
+                    f"quantization cells are fixed at the store's block "
+                    f"width); use pull_mode='row' or an fp32 store")
+        else:
+            self.device = resolve_device(device)
+            self._table = torch.as_tensor(table, dtype=torch.float32).to(
+                self.device)
+            n, N = self._table.shape
+            if value_range is None:
+                # a-priori product-range bound: callers who know their
+                # query norms should pass an explicit value_range instead
+                value_range = 2.0 * self._qmax_hint * table_abs_max(
+                    self._table)
         self.n, self.N, self.K = n, N, K
         self.eps, self.delta = float(eps), float(delta)
         self.adaptive = bool(adaptive)
-        block = min(int(block), N)
-        if precision == "pq" and quant_err is None:
-            # pq has no a-priori worst-case model: calibrate a measured
-            # per-pull bound on the served table; a hybrid plan prices two
-            # pull widths with different codebooks, so take the max
-            widths = {"row": (block,), "coord": (coord_block,),
-                      "hybrid": (block, coord_block)}[pull_mode]
-            quant_err = max(measured_plan_quant_err(
-                self._table, precision="pq", tile=tile, block=w,
-                pq_subdims=pq_subdims, pq_codes=pq_codes,
-                device=self.device) for w in widths)
-        self.plan = make_plan(n, N, K=K, eps=eps, delta=delta,
-                              value_range=value_range, tile=tile,
-                              block=block, precision=precision, bound=bound,
-                              pull_mode=pull_mode, coord_block=coord_block,
-                              quant_err=quant_err, pq_subdims=pq_subdims,
-                              pq_codes=pq_codes)
-        self._V4 = tile_table(self._table, self.plan, self.device)
-        self._quant = (quantize_table(self._V4, self.plan)
-                       if self.plan.precision != "fp32" else None)
-        self._nv = n if n_valid is None else int(n_valid)
-        # the schedule operands every dispatch reads: built now, not in
-        # the first request's dispatch
-        decode_operands(self.plan, final_exact=True, adaptive=self.adaptive,
-                        device=self.device)
+        self._tile, self._block = int(tile), min(int(block), N)
+        self._precision, self._bound = precision, bound
+        self._pull_mode, self._coord_block = pull_mode, int(coord_block)
+        self._quant_err = quant_err
+        self._pq_subdims, self._pq_codes = int(pq_subdims), int(pq_codes)
+        self._build(float(value_range))
+        if self.store is None:
+            self._V4 = tile_table(self._table, self.plan, self.device)
+            self._quant = (quantize_table(self._V4, self.plan)
+                           if self.plan.precision != "fp32" else None)
+            self._nv = n if n_valid is None else int(n_valid)
+        # the store's table re-laid at a coord plan's pull width, keyed
+        # on the store's (version, capacity); fp32 stores only
+        self._relaid = (None, None)
         # cascade_* metrics: one labeled row per executor identity, so the
         # runtime's rung executors (a "rung" label via metrics_labels)
         # share metric families without colliding
@@ -263,6 +313,43 @@ class CascadeExecutor:
         self._c_dispatch.seed(**lbl)
         self._c_recal.seed(**lbl)
 
+    def _build(self, value_range: float) -> None:
+        """(Re)build the plan and its schedule operands for a value range.
+
+        Called once at construction and again only when `sync_store`
+        observes the store's capacity or monotonic value range outgrowing
+        the calibrated bound.  A pq plan without an explicit
+        ``quant_err`` re-measures it on the served table.
+        """
+        self._plan_value_range = float(value_range)
+        tile, block = self._tile, self._block
+        quant_err = self._quant_err
+        if self._precision == "pq" and quant_err is None:
+            # pq has no a-priori worst-case model: calibrate a measured
+            # per-pull bound on the served table; a hybrid plan prices two
+            # pull widths with different codebooks, so take the max
+            V_cal = (self.store.device_table() if self.store is not None
+                     else self._table)
+            widths = {"row": (block,), "coord": (self._coord_block,),
+                      "hybrid": (block, self._coord_block)}[self._pull_mode]
+            quant_err = max(measured_plan_quant_err(
+                V_cal, precision="pq", tile=tile, block=w,
+                pq_subdims=self._pq_subdims, pq_codes=self._pq_codes,
+                device=self.device) for w in widths)
+        self.plan = make_plan(self.n, self.N, K=self.K, eps=self.eps,
+                              delta=self.delta, value_range=value_range,
+                              tile=tile, block=block,
+                              precision=self._precision, bound=self._bound,
+                              pull_mode=self._pull_mode,
+                              coord_block=self._coord_block,
+                              quant_err=quant_err,
+                              pq_subdims=self._pq_subdims,
+                              pq_codes=self._pq_codes)
+        # the schedule operands every dispatch reads: built now, not in
+        # the first request's dispatch
+        decode_operands(self.plan, final_exact=True, adaptive=self.adaptive,
+                        device=self.device)
+
     @property
     def n_dispatches(self) -> int:
         """Dispatches served (registry-backed)."""
@@ -270,25 +357,68 @@ class CascadeExecutor:
 
     @property
     def n_recalibrations(self) -> int:
-        """Plan re-derivations (registry-backed); stays 0 until a store
-        can grow under the executor (ROADMAP.md queue 1 item 4)."""
+        """Plan re-derivations triggered by the store (registry-backed)."""
         return int(self._c_recal.get(**self._mlabels))
 
     @property
+    def plan_value_range(self) -> float:
+        """The value range the current plan was calibrated at."""
+        return self._plan_value_range
+
+    @property
     def tiled_table(self) -> torch.Tensor:
-        """The tile-major table every dispatch reads."""
-        return self._V4
+        """The tile-major table every dispatch reads: the store's own
+        (re-laid at the plan's pull width when that differs from the
+        store's block), or the static table's copy."""
+        store = self.store
+        if store is None:
+            return self._V4
+        if self.plan.block == store.block:
+            return store.tiled_table()
+        key = (store.version, store.capacity_rows)
+        if self._relaid[0] != key:
+            self._relaid = (None, None)      # free before the new copy
+            self._relaid = (key, tile_table(store.device_table(), self.plan,
+                                            self.device))
+        return self._relaid[1]
 
     @property
     def n_valid(self) -> int:
-        """Rows at or past this index never win a ranking."""
-        return self._nv
+        """Rows at or past this index never win a ranking (a store's
+        live-row count)."""
+        return self.store.n_live if self.store is not None else self._nv
 
     @property
     def quantized(self):
         """The table artifacts every dispatch reads on a quantized tier
-        (`quantize_table` layout), else None."""
+        (`quantize_table` layout; a store's shadow), else None."""
+        if self.store is not None:
+            return self.store.quantized()
         return self._quant
+
+    def sync_store(self) -> int:
+        """Re-derive the plan if the store outgrew it; returns rebuilds.
+
+        Capacity growth (``grow()``) rebuilds the plan at the new row
+        count; monotonic value-range growth past the calibrated bound
+        re-derives the schedule at the new range.  Both are
+        counted in ``n_recalibrations``.  No-op without a store.
+        """
+        store = self.store
+        if store is None:
+            return 0
+        rebuilt = 0
+        if store.capacity_rows != self.n:
+            self.n = store.capacity_rows
+            self._build(self._plan_value_range)
+            rebuilt += 1
+        needed = 2.0 * self._qmax_hint * store.value_abs_max
+        if needed > self._plan_value_range:
+            self._build(needed)
+            rebuilt += 1
+        if rebuilt:
+            self._c_recal.inc(rebuilt, **self._mlabels)
+        return rebuilt
 
     def dispatch(self, Qbuf: np.ndarray, perm) -> Tuple[
             np.ndarray, np.ndarray, Optional[np.ndarray], float]:
@@ -296,15 +426,15 @@ class CascadeExecutor:
 
         ``perm`` is the batch's shared block permutation.  Returns ``(ids,
         scores, rounds_used, seconds)``, the first three as host arrays
-        (``rounds_used`` is None unless adaptive); ``seconds`` is the
-        measured blocking time, which virtual-clock loops add to their
-        clock.
+        (``rounds_used`` is None unless adaptive; ids are table slots, see
+        `external_ids`); ``seconds`` is the measured blocking time, which
+        virtual-clock loops add to their clock.
         """
         on_card = self.device.type == "cuda"
         t0 = time.perf_counter()
-        out = decode_tiled(self._V4, Qbuf, perm, plan=self.plan,
-                           final_exact=True, n_valid=self._nv,
-                           quantized=self._quant, adaptive=self.adaptive)
+        out = decode_tiled(self.tiled_table, Qbuf, perm, plan=self.plan,
+                           final_exact=True, n_valid=self.n_valid,
+                           quantized=self.quantized, adaptive=self.adaptive)
         if on_card:
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -314,11 +444,26 @@ class CascadeExecutor:
         return out[0].cpu().numpy(), out[1].cpu().numpy(), rounds, dt
 
     def recall_of(self, q: np.ndarray, got_slots: np.ndarray) -> float:
-        """Exact-top-K overlap of a served answer (exhaustive rescore on
-        the executor's device)."""
-        exact, _ = exact_topk(self._table[:self._nv],
-                              torch.from_numpy(q).to(self.device), self.K)
-        return len(set(exact.tolist()) & set(got_slots.tolist())) / self.K
+        """Exact-top-K overlap of a served answer: an exhaustive rescore
+        of the live rows (a store's host mirror, as the JAX package's
+        executor does; a static table on the executor's device)."""
+        if self.store is not None:
+            s = self.store.host_table() @ q
+            s[~self.store.live_mask()] = -np.inf
+            exact = np.argpartition(-s, self.K - 1)[:self.K]
+        else:
+            exact, _ = exact_topk(self._table[:self._nv],
+                                  torch.from_numpy(q).to(self.device),
+                                  self.K)
+            exact = exact.tolist()
+        return len(set(list(exact)) & set(got_slots.tolist())) / self.K
+
+    def external_ids(self, slots: np.ndarray) -> np.ndarray:
+        """Map served slots to the store's stable external ids (a copy of
+        the slots on a static table)."""
+        if self.store is not None:
+            return self.store.external_ids(slots)
+        return slots.copy()
 
 
 def seeded_perm(seed: int, batch_seq: int, n_blocks: int) -> torch.Tensor:
@@ -330,7 +475,7 @@ def seeded_perm(seed: int, batch_seq: int, n_blocks: int) -> torch.Tensor:
 
 
 class MIPSServeEngine:
-    """Micro-batching MIPS request loop over a fixed item table.
+    """Micro-batching MIPS request loop over an item table.
 
     Requests (`submit`) are answered from the LRU when a quantized-equal
     query was served recently; otherwise they queue until either
@@ -343,8 +488,19 @@ class MIPSServeEngine:
     ``recall_sample_rate`` > 0 additionally rescoring a random fraction of
     requests exhaustively on the host and folds top-K recall into `stats`.
     ``perm_source(batch_seq) -> perm`` replaces the engine's own seeded
-    permutation draw (`seeded_perm`).  The engine is not thread-safe;
-    drive it from one loop.
+    permutation draw (`seeded_perm`).
+
+    **Live corpora** (DESIGN.md §11): ``table`` may be a
+    `repro_torch.store.DynamicTableStore`.  The engine then serves the
+    store's capacity table with ``n_valid = n_live`` at every flush;
+    staged mutations are drained by `apply_updates` — called at every
+    `submit`, `poll` and `drain`, i.e. between micro-batch flushes —
+    which also bumps the engine's table version (salting and
+    invalidating the LRU so no stale answer survives) and re-derives the
+    plan only when the store's capacity or monotonic value range
+    outgrows it.  Returned ids are the store's stable external ids; the
+    engine adopts the store's geometry, tier and metrics.  The engine is
+    not thread-safe; drive it from one loop.
     """
 
     def __init__(self, table, *, K: int = 1, eps: float = 0.1,
@@ -379,6 +535,9 @@ class MIPSServeEngine:
         self._perm_source = (perm_source if perm_source is not None else
                              (lambda s: seeded_perm(self._seed, s, n_blocks)))
         self.cache = QuantizedLRU(cache_entries, cache_resolution)
+        self._store = self._exec.store
+        #: table version salting the LRU keys (the store's)
+        self._version = 0 if self._store is None else self._store.version
         self._pending: List[_Pending] = []
         self._results: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         self._next_id = 0
@@ -387,6 +546,8 @@ class MIPSServeEngine:
         self._lat: List[float] = []
         self._recalls: List[float] = []
         self._rounds: List[int] = []   # adaptive: per-query exit rounds
+        if self._store is not None:
+            self.metrics.adopt(self._store.metrics)
         self._c_requests = self.metrics.counter(
             "serve_requests_total", "Requests submitted.")
         self._c_cache_hits = self.metrics.counter(
@@ -396,6 +557,10 @@ class MIPSServeEngine:
             ("trigger",))
         self._c_batches.seed(trigger="full")
         self._c_batches.seed(trigger="deadline")
+        self._c_update_rows = self.metrics.counter(
+            "serve_update_rows_total", "Store mutations applied.")
+        self._c_update_flushes = self.metrics.counter(
+            "serve_update_flushes_total", "Store flush_updates calls.")
         self._h_latency = self.metrics.histogram(
             "serve_latency_ms", "Per-request latency (ms), cache hits at 0.")
         self._h_occupancy = self.metrics.histogram(
@@ -410,6 +575,7 @@ class MIPSServeEngine:
         #: plain dispatch sequence for the permutation draw — deliberately
         #: NOT registry-backed so metric wiring can never perturb sampling
         self._batch_seq = 0
+        self._update_time_s = 0.0
         self._occupancy: List[int] = []
 
     @property
@@ -421,6 +587,21 @@ class MIPSServeEngine:
     def n_cache_hits(self) -> int:
         """Cache-answered requests (registry-backed)."""
         return int(self._c_cache_hits.total())
+
+    @property
+    def n_updates(self) -> int:
+        """Store mutations applied (registry-backed)."""
+        return int(self._c_update_rows.total())
+
+    @property
+    def n_update_flushes(self) -> int:
+        """Store flush_updates calls (registry-backed)."""
+        return int(self._c_update_flushes.total())
+
+    @property
+    def n_recalibrations(self) -> int:
+        """Plan re-derivations observed (executor-owned)."""
+        return self._exec.n_recalibrations
 
     @property
     def n_batches(self) -> int:
@@ -439,7 +620,7 @@ class MIPSServeEngine:
 
     @property
     def n(self) -> int:
-        """Rows of the served table."""
+        """Rows of the served table (a store's capacity)."""
         return self._exec.n
 
     @property
@@ -458,6 +639,11 @@ class MIPSServeEngine:
         return self._exec
 
     @property
+    def store(self) -> Optional[DynamicTableStore]:
+        """The served store, or None on a static table."""
+        return self._store
+
+    @property
     def pending_count(self) -> int:
         """Requests accepted but not yet served (excludes cache hits)."""
         return len(self._pending)
@@ -467,18 +653,22 @@ class MIPSServeEngine:
 
         Cache hits complete immediately (latency 0); misses queue for the
         next micro-batch.  ``now`` (seconds, any monotonic origin) defaults
-        to wall clock — pass a virtual clock for simulation.
+        to wall clock — pass a virtual clock for simulation.  Staged store
+        mutations are drained first: a query submitted after an upsert is
+        never answered from a pre-upsert cache line or table.
         """
         q = np.asarray(q, np.float32)
         if q.shape != (self.N,):
             raise ValueError(f"query shape {q.shape} != ({self.N},)")
+        self.apply_updates()
         now = time.perf_counter() if now is None else now
         rid = self._next_id
         self._next_id += 1
         self._c_requests.inc()
+        # lookups are salted with the current (table version, K)
         ck = self.cache.key(q) if self.cache.capacity > 0 else None
         if ck is not None:
-            hit = self.cache.get(ck)
+            hit = self.cache.get(self._salted(ck))
             if hit is not None:
                 self._results[rid] = hit
                 self._c_cache_hits.inc()
@@ -488,15 +678,21 @@ class MIPSServeEngine:
         self._pending.append(_Pending(rid, q, now, ck))
         return rid
 
+    def _salted(self, base_key: bytes) -> bytes:
+        """Prefix an LRU base key with the live (version, K) salt."""
+        return struct.pack("<qi", self._version, self.K) + base_key
+
     def poll(self, now: Optional[float] = None) -> Tuple[List[int], float]:
         """Flush micro-batches whose trigger fired; returns (ids, busy_s).
 
         Triggers: ``batch_size`` requests waiting (full flush), or the
         oldest pending request older than the batch deadline (deadline
         flush).  ``busy_s`` is the wall time spent in compute, so virtual-
-        clock drivers can advance time by it.
+        clock drivers can advance time by it.  Staged store mutations are
+        drained first (`apply_updates`).
         """
         now = time.perf_counter() if now is None else now
+        self.apply_updates()
         done: List[int] = []
         busy = 0.0
         while self._pending:
@@ -511,8 +707,10 @@ class MIPSServeEngine:
         return done, busy
 
     def drain(self, now: Optional[float] = None) -> Tuple[List[int], float]:
-        """Flush everything pending regardless of triggers (shutdown)."""
+        """Flush everything pending regardless of triggers (shutdown);
+        drains staged store mutations first, like `poll`."""
         now = time.perf_counter() if now is None else now
+        self.apply_updates()
         done: List[int] = []
         busy = 0.0
         while self._pending:
@@ -525,6 +723,34 @@ class MIPSServeEngine:
     def result(self, req_id: int):
         """Pop the (ids, scores) result for a completed request, or None."""
         return self._results.pop(req_id, None)
+
+    def apply_updates(self) -> int:
+        """Drain the store's staged mutations; returns rows applied.
+
+        Runs between micro-batch flushes, so in-flight queries never
+        observe a half-applied burst.  On a version change (staged
+        mutations, or `grow` / `refresh_codebook` out of band) the LRU is
+        invalidated and its salt bumped; then the executor re-derives its
+        plan if the store's capacity or value range outgrew it (counted
+        in ``stats()["updates"]["recalibrations"]``).  No-op without a
+        store.
+        """
+        store = self._store
+        if store is None:
+            return 0
+        applied = 0
+        if store.pending_updates:
+            t0 = time.perf_counter()
+            info = store.flush_updates()
+            applied = info["applied"]
+            self._c_update_rows.inc(applied)
+            self._c_update_flushes.inc()
+            self._update_time_s += time.perf_counter() - t0
+        if store.version != self._version:
+            self._version = store.version
+            self.cache.invalidate()
+        self._exec.sync_store()
+        return applied
 
     def _flush(self, now: float) -> Tuple[List[int], float]:
         batch = self._pending[:self.batch_size]
@@ -543,10 +769,13 @@ class MIPSServeEngine:
         self._h_occupancy.observe(len(batch))
         done = []
         for i, p in enumerate(batch):
-            res = (ids[i].copy(), scores[i].copy())
+            # a store's stable external ids, never raw slots (a slot's
+            # occupant changes across swap-deletes)
+            res = (self._exec.external_ids(ids[i]), scores[i].copy())
             self._results[p.req_id] = res
             if p.cache_key is not None:
-                self.cache.put(p.cache_key, res)
+                # salted at put time: a result filed under the live version
+                self.cache.put(self._salted(p.cache_key), res)
             self._lat.append((now - p.t_submit) + dt)
             self._h_latency.observe(((now - p.t_submit) + dt) * 1e3)
             if (self._recall_rate > 0.0
@@ -613,14 +842,25 @@ class MIPSServeEngine:
             "plan": {"rounds": len(self.plan.schedule.rounds),
                      "pull_speedup": self.plan.schedule.speedup},
             "adaptive": self._adaptive_stats(),
+            "updates": {
+                "applied": self.n_updates,
+                "update_flushes": self.n_update_flushes,
+                "recalibrations": self.n_recalibrations,
+                "version": self._version,
+                "cache_invalidations": self.cache.invalidations,
+                "rows_per_s": (self.n_updates / self._update_time_s
+                               if self._update_time_s > 0 else 0.0)},
+            **({"store": self._store.stats()}
+               if self._store is not None else {}),
         }
 
 
 class ServeRuntime:
     """Continuous-batching serving runtime with admission + degradation.
 
-    The port of ``repro.launch.engine.ServeRuntime`` for a static table
-    on one device.  Three layers:
+    The port of ``repro.launch.engine.ServeRuntime`` on one device, over
+    a static table or a `repro_torch.store.DynamicTableStore`.  Three
+    layers:
 
       * **admission** (`AdmissionController`): every `submit` is
         validated (poison NaN/Inf/wrong-dim queries are rejected at the
@@ -642,6 +882,12 @@ class ServeRuntime:
         runs under `dispatch_with_retries`; a micro-batch that keeps
         failing is failed *alone* (typed ``failed`` results +
         fingerprint quarantine) and the runtime keeps serving.
+
+    A store-backed runtime drains staged mutations between dispatches
+    like `MIPSServeEngine` (every rung executor reads the store's one
+    tiled table); a failing flush (`StoreFlushError`) leaves the staged
+    ops intact, is counted and recorded, and is retried at the next poll
+    while serving goes on on the current table.
 
     Dispatch ``didx`` serves its batch under the block permutation
     ``perm_source(didx, n_blocks)`` (default `seeded_perm` from
@@ -691,10 +937,12 @@ class ServeRuntime:
         self.flight = flight
         self.ladder = DegradationLadder(eps, eps_floor, rungs=degrade_rungs,
                                         start=degrade_start)
-        dev = resolve_device(device)
+        dev = (table.device if isinstance(table, DynamicTableStore)
+               else resolve_device(device))
         if isinstance(table, np.ndarray):
             # one device copy shared by every rung (each still re-lays
-            # its own tiled, and on quantized tiers quantized, table)
+            # its own tiled, and on quantized tiers quantized, table; a
+            # store's rungs all read the store's)
             table = torch.as_tensor(table, dtype=torch.float32).to(dev)
         self._rung_execs = [CascadeExecutor(
             table, K=K, eps=e, delta=delta, value_range=value_range,
@@ -718,11 +966,16 @@ class ServeRuntime:
             ex0.N, queue_capacity=queue_capacity, classes=classes,
             default_class=default_class, metrics=self.metrics)
         self.injector = fault_injector
+        self._store = ex0.store
         if fault_injector is not None:
             self.metrics.adopt(fault_injector.metrics)
-        #: table version salting the LRU keys (bumped by store flushes,
-        #: ROADMAP.md queue 1 item 4; constant on a static table)
-        self._version = 0
+        if fault_injector is not None and self._store is not None:
+            fault_injector.attach(self._store)
+        if self._store is not None:
+            self.metrics.adopt(self._store.metrics)
+        #: table version salting the LRU keys (the store's; constant on
+        #: a static table)
+        self._version = 0 if self._store is None else self._store.version
         self._seed = int(seed)
         self._perm_source = (perm_source if perm_source is not None else
                              (lambda didx, nb: seeded_perm(self._seed, didx,
@@ -799,6 +1052,8 @@ class ServeRuntime:
         #: plain dispatch sequence for the permutation draw — deliberately
         #: NOT registry-backed so metric wiring can never perturb sampling
         self._dispatch_seq = 0
+        self._seen_refreshes = (0 if self._store is None
+                                else self._store.codebook_refreshes)
 
     # ---- counter surface (registry-backed) -------------------------------
 
@@ -866,6 +1121,11 @@ class ServeRuntime:
         return int(self._c_slow.total())
 
     @property
+    def store(self) -> Optional[DynamicTableStore]:
+        """The served store, or None on a static table."""
+        return self._store
+
+    @property
     def n_flush_failures(self) -> int:
         """Store flush failures (registry-backed; 0 without a store)."""
         return int(self._c_flush_failures.total())
@@ -889,7 +1149,7 @@ class ServeRuntime:
 
     @property
     def n(self) -> int:
-        """Rows of the served table (executor-owned)."""
+        """Rows of the served table, a store's capacity (executor-owned)."""
         return self._rung_execs[0].n
 
     @property
@@ -1046,12 +1306,61 @@ class ServeRuntime:
         return time.perf_counter() - t0
 
     def apply_updates(self, now: Optional[float] = None) -> int:
-        """Drain staged store mutations; returns rows applied.
+        """Drain staged store mutations fault-tolerantly; returns applied.
 
-        A no-op on the static table this runtime serves: the store that
-        stages mutations is ROADMAP.md queue 1 item 4.
+        Like `MIPSServeEngine.apply_updates` (a version change invalidates
+        and re-salts the LRU; capacity or value-range growth rebuilds
+        every rung's plan, recorded as a ``recalibration`` flight event),
+        with one robustness addition: a `StoreFlushError` from the
+        store's fault hook — or any other flush exception — is *counted*
+        (``stats()["faults"]["store_flush_failures"]`` /
+        ``update_errors``) and recorded, and serving goes on on the
+        current table; a failed flush's staged ops stay staged and retry
+        at the next poll.  ``now`` (optional virtual-clock time) only
+        timestamps the flight-recorder events.  No-op without a store.
         """
-        return 0
+        store = self._store
+        if store is None:
+            return 0
+        applied = 0
+        if store.pending_updates:
+            try:
+                info = store.flush_updates()
+                applied = info["applied"]
+                self._c_update_rows.inc(applied)
+            except StoreFlushError as e:
+                # staged ops intact: keep serving the current table and
+                # retry the flush at the next poll
+                self._c_flush_failures.inc()
+                if self.flight is not None:
+                    self.flight.record("store_flush_error", now,
+                                       error=str(e),
+                                       pending=store.pending_updates)
+                    self.flight.dump("store_flush_error", now)
+            except Exception as e:
+                # a bad mutation (unknown delete, capacity exhausted): the
+                # store dropped it and kept its successors
+                self._c_update_errors.inc()
+                if self.flight is not None:
+                    self.flight.record("store_update_error", now,
+                                       error=str(e))
+        if store.version != self._version:
+            self._version = store.version
+            self.cache.invalidate()
+        rebuilt = 0
+        for ex in self._rung_execs:
+            rebuilt += ex.sync_store()
+        if rebuilt and self.flight is not None:
+            self.flight.record("recalibration", now, rebuilds=rebuilt,
+                               version=store.version)
+        refreshes = store.codebook_refreshes
+        if refreshes != self._seen_refreshes:
+            self._seen_refreshes = refreshes
+            if self.flight is not None:
+                self.flight.record("codebook_refresh", now,
+                                   refreshes=refreshes,
+                                   version=store.version)
+        return applied
 
     # ---- scheduler ---------------------------------------------------------
 
@@ -1223,7 +1532,7 @@ class ServeRuntime:
             self.tracer.global_span(f"dispatch {didx}", t, t + dt, **args)
         done = []
         for i, tk in enumerate(batch):
-            out_ids = ids[i].copy()
+            out_ids = ex.external_ids(ids[i])
             self._h_queue_wait.observe((t - tk.t_submit) * 1e3)
             if self.tracer is not None:
                 self.tracer.span(tk.req_id, "queued", tk.t_submit, t,
@@ -1325,4 +1634,6 @@ class ServeRuntime:
         }
         if self.injector is not None:
             out["faults"]["injected"] = self.injector.stats()
+        if self._store is not None:
+            out["store"] = self._store.stats()
         return out

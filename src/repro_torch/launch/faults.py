@@ -1,9 +1,9 @@
 """Deterministic fault injection for the serving runtime (DESIGN.md §13).
 
 A copy of ``repro.launch.faults`` (the port imports nothing of the JAX
-package): the same seeded schedules, counters and ``stats()``.  The
-store-flush surface needs the dynamic table store, which is not ported
-yet (ROADMAP.md queue 1 item 4): `FaultInjector.attach` refuses it.
+package): the same seeded schedules, counters and ``stats()``, so a
+given seed fails the same dispatches and the same store flushes in both
+packages.
 
 Robustness claims are worthless untested, and flaky fault tests are worse
 than none — so every fault here is drawn from a *seeded, stateless
@@ -22,11 +22,13 @@ Three fault surfaces, matching the runtime's three failure domains:
   * **dispatch exceptions** — :class:`InjectedDispatchError` raised from
     inside the executor call: exercises retry-with-backoff and, past the
     retry budget, the fail-only-this-micro-batch path + quarantine;
-  * **store-flush failures** — raised from a store's ``fault_hook``
-    before any staged mutation is applied (refused until the store is
-    ported).
+  * **store-flush failures** — :class:`repro_torch.store.StoreFlushError`
+    raised from the store's ``fault_hook`` before any staged mutation is
+    applied: exercises the runtime's keep-serving-the-current-table path
+    (the staged ops stay staged and retry at the next poll).
 
-Pass the injector to `repro_torch.launch.engine.ServeRuntime` for the
+Attach with ``FaultInjector(...).attach(store)`` for the flush surface
+and pass the injector to `repro_torch.launch.engine.ServeRuntime` for the
 dispatch surfaces.  `stats()` exports exactly what was injected — plus,
 per kind, how many decision points the schedule *saw* and the resulting
 injection rates (``injected / seen``), so tests can reconcile observed
@@ -43,12 +45,14 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.store import StoreFlushError
 
 __all__ = ["InjectedDispatchError", "FaultInjector"]
 
 # stable per-kind stream ids: entropy never collides across fault kinds
 _KIND_LATENCY = 1
-_KIND_ERROR = 2           # 3: store flushes, with the store
+_KIND_ERROR = 2
+_KIND_FLUSH = 3
 _ROOT = 0x5EED_FA17  # namespace tag so injector streams never alias
                      # other default_rng(seed) users in the process
 
@@ -79,7 +83,7 @@ class FaultInjector:
       persistent_rate: fraction of injected dispatch errors that never
         stop failing (conditional on an error firing at all).
       flush_failure_rate: probability a store `flush_updates` call is
-        failed (via the hook `attach` installs, once the store is ported).
+        failed (via the hook installed by `attach`).
       metrics: an existing `repro_torch.obs.metrics.MetricsRegistry` to file
         the ``faults_*`` metrics under (default: a private registry on
         ``self.metrics``, adopted by the runtime).
@@ -111,6 +115,7 @@ class FaultInjector:
         # histogram buckets the same spikes in ms, but the stat contract
         # is the exact schedule sum in the schedule's own unit
         self._injected_latency_s = 0.0
+        self._flush_idx = 0
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._c_injected = self.metrics.counter(
             "faults_injected_total", "Faults actually fired, by kind.",
@@ -223,12 +228,26 @@ class FaultInjector:
     # ---- store-flush surface --------------------------------------------
 
     def attach(self, store) -> None:
-        """Install this injector as a store's flush hook: refused until
-        the dynamic table store is ported."""
-        raise NotImplementedError(
-            "store-flush fault injection is not ported yet (queue 1 item 4 "
-            "(dynamic stores) of ROADMAP.md); the port serves a static "
-            "table")
+        """Install this injector as ``store.fault_hook``.
+
+        The store calls the hook at the top of every `flush_updates`,
+        *before* taking staged mutations — a failed flush leaves the
+        staged queue intact, so the engine retries it at its next poll.
+        Flush ``j`` (counted per hook call) fails by the stateless
+        per-(seed, flush) draw, as in the JAX package.
+        """
+        store.fault_hook = self._flush_hook
+
+    def _flush_hook(self) -> None:
+        idx, self._flush_idx = self._flush_idx, self._flush_idx + 1
+        self._c_seen.inc(kind="flush")
+        if self.flush_failure_rate <= 0.0:
+            return
+        rng = self._rng(_KIND_FLUSH, idx)
+        if rng.random() < self.flush_failure_rate:
+            self._c_injected.inc(kind="flush")
+            raise StoreFlushError(
+                f"injected store flush failure (flush={idx})")
 
     # ---- observability ---------------------------------------------------
 

@@ -17,6 +17,15 @@ the rung the ladder picks::
         --loop --runtime --eps-floor 0.4 --pattern bursty \
         --inject-error-rate 0.05 --check-outcomes
 
+With ``--dynamic`` the vocab table (its ``vocab`` live rows) is served
+from a `repro_torch.store.DynamicTableStore` with ``--capacity-slack``
+headroom, and ``--churn-rate`` of the arrivals also stage an upsert or a
+delete + append pair, drained between dispatches; under ``--runtime``,
+``--inject-flush-rate`` fails seeded store flushes::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --loop --runtime --dynamic --churn-rate 0.25 --inject-flush-rate 0.2
+
 It runs on the CUDA card unless ``--device cpu`` is given.  The table is
 drawn N(0, 0.02) from seed 0 (`repro_torch.convert`).  ``--precision
 int8|int4|pq`` serves through the kernel's quantized tiers (pq with a
@@ -27,9 +36,9 @@ lanes::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --loop --precision pq --adaptive --bound bernstein
 
-Modes and options of later slices — the decode demo, ``--dynamic``,
-``--tenants``, ``--shards`` > 1 — are refused with a message naming
-their ROADMAP.md item.
+Modes and options of later slices — the decode demo, ``--tenants``,
+``--shards`` > 1 — are refused with a message naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -48,9 +57,10 @@ from repro_torch.launch.admission import STATUSES, PriorityClass
 from repro_torch.launch.engine import MIPSServeEngine, ServeRuntime
 from repro_torch.launch.faults import FaultInjector
 from repro_torch.obs import FlightRecorder, SpanTracer
+from repro_torch.store import DynamicTableStore
 
-__all__ = ["arrival_trace", "simulate_stream", "build_loop", "serve_stream",
-           "main"]
+__all__ = ["arrival_trace", "simulate_stream", "make_churn", "build_loop",
+           "serve_stream", "main"]
 
 #: namespace tag so trace streams never alias other default_rng users
 _TRACE_ROOT = 0x7AC3
@@ -96,7 +106,7 @@ def arrival_trace(n: int, *, interarrival_ms: float = 0.1,
 
 
 def simulate_stream(engine, queries, *, interarrival_ms: float = 0.1,
-                    pattern: str = "uniform", seed: int = 0,
+                    churn=None, pattern: str = "uniform", seed: int = 0,
                     open_loop: bool = False,
                     classes: Optional[Callable[[int], str]] = None,
                     burst_factor: float = 8.0, burst_len: int = 16,
@@ -115,8 +125,10 @@ def simulate_stream(engine, queries, *, interarrival_ms: float = 0.1,
     (arrivals keep coming while the server is busy — the load model
     under which queues grow and shedding fires).  The default closed-ish
     loop (arrivals wait for the clock, one submit per poll) is the
-    micro-batching engine's.  ``classes(i)`` (`ServeRuntime` only) names
-    the priority class of arrival ``i``.
+    micro-batching engine's.  ``churn(engine, i)`` (optional) runs before
+    each arrival — stage store mutations there to simulate a live
+    corpus.  ``classes(i)`` (`ServeRuntime` only) names the priority
+    class of arrival ``i``.
 
     ``metrics_out`` / ``trace_out`` (optional paths) receive the metrics
     registry snapshot and the span tracer's Chrome trace-event JSON
@@ -138,6 +150,8 @@ def simulate_stream(engine, queries, *, interarrival_ms: float = 0.1,
         # admit arrival i — and, open loop, every later arrival already
         # overdue because the clock advanced while the server was busy
         while True:
+            if churn is not None:
+                churn(engine, i)
             kw = {} if classes is None else {"cls": classes(i)}
             engine.submit(queries[i],
                           now=(float(trace[i]) if open_loop else now), **kw)
@@ -176,27 +190,62 @@ def simulate_stream(engine, queries, *, interarrival_ms: float = 0.1,
             **engine.stats()}
 
 
+def make_churn(store: DynamicTableStore, churn_rate: float, scale: float):
+    """The ``--dynamic`` mutation closure: before each arrival, with
+    probability ``churn_rate``, stage an upsert of a live id (70 %) or a
+    delete + append pair, of a row drawn N(0, scale^2 / N).  Draws come
+    from ``default_rng(1)`` in the JAX package's order, so both packages
+    stage the same mutations."""
+    crng = np.random.default_rng(1)
+
+    def churn(eng, i):
+        if crng.random() >= churn_rate:
+            return
+        row = (scale * crng.normal(size=eng.N) / np.sqrt(eng.N)
+               ).astype(np.float32)
+        live = store.live_ids()
+        if crng.random() < 0.7 or live.size == 0:
+            tgt = (int(crng.choice(live)) if live.size
+                   else store.append(row) or 0)
+            store.upsert(tgt, row)
+        elif store.free_rows > 0:
+            store.delete(int(crng.choice(live)))
+            store.append(row)
+
+    return churn
+
+
 def build_loop(args) -> Tuple[object, np.ndarray]:
     """The ``--loop`` engine (``--runtime``: the `ServeRuntime`, with its
     span tracer, flight recorder and fault injector as the flags ask)
     over the arch's vocab table, and its queries.
 
-    Queries are N(0, 1) from ``default_rng(0)`` with the last
-    ``--repeat-rate`` of them repeating earlier ones, as in the JAX
-    package's loop.
+    With ``--dynamic`` the table is a `DynamicTableStore` of the vocab's
+    ``vocab`` live rows (no padding rows) and ``--capacity-slack``
+    headroom, on the serving device.  Queries are N(0, 1) from
+    ``default_rng(0)`` with the last ``--repeat-rate`` of them repeating
+    earlier ones, as in the JAX package's loop.
     """
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     dev = resolve_device(args.device)
-    table, n_valid = make_serving_table(cfg, 0, dev)
+    block = min(512, cfg.d_model)
     common = dict(K=args.topk, eps=args.eps, delta=args.delta,
-                  block=min(512, cfg.d_model), n_valid=n_valid,
                   recall_sample_rate=args.recall_rate,
                   cache_entries=args.cache_entries, precision=args.precision,
                   adaptive=args.adaptive, bound=args.bound,
                   pull_mode=args.pull_mode, pq_subdims=args.pq_subdims,
                   seed=args.stream_seed, device=dev)
+    if args.dynamic:
+        rows, _ = make_serving_table(cfg, 0, "cpu")
+        table = DynamicTableStore(
+            rows[:cfg.vocab].numpy(), block=block,
+            capacity_slack=args.capacity_slack, precision=args.precision,
+            pq_subdims=args.pq_subdims, device=dev)
+    else:
+        table, n_valid = make_serving_table(cfg, 0, dev)
+        common.update(block=block, n_valid=n_valid)
     if args.runtime:
         deadline = args.request_deadline_ms
         classes = {       # interactive is never displaced; batch waits 4x
@@ -208,10 +257,12 @@ def build_loop(args) -> Tuple[object, np.ndarray]:
             "batch": PriorityClass("batch", priority=2,
                                    deadline_ms=4 * deadline)}
         injector = None
-        if args.inject_latency_rate > 0 or args.inject_error_rate > 0:
+        if (args.inject_latency_rate > 0 or args.inject_error_rate > 0
+                or args.inject_flush_rate > 0):
             injector = FaultInjector(
                 args.fault_seed, latency_rate=args.inject_latency_rate,
-                error_rate=args.inject_error_rate)
+                error_rate=args.inject_error_rate,
+                flush_failure_rate=args.inject_flush_rate)
         engine = ServeRuntime(
             table, eps_floor=args.eps_floor,
             degrade_rungs=args.degrade_rungs, lanes=args.batch,
@@ -250,11 +301,15 @@ def stream_classes(args) -> Optional[Callable[[int], str]]:
 
 
 def serve_stream(args, engine, qs) -> dict:
-    """Serve ``qs`` as the CLI does: the arrival pattern, open loop with
-    the priority classes under ``--runtime``, the artifacts the flags
-    name, and a final flight-recorder snapshot."""
+    """Serve ``qs`` as the CLI does: the arrival pattern, ``--dynamic``'s
+    churn on the engine's store, open loop with the priority classes
+    under ``--runtime``, the artifacts the flags name, and a final
+    flight-recorder snapshot."""
+    store = engine.store
+    churn = (make_churn(store, args.churn_rate, float(store.value_abs_max))
+             if store is not None and args.churn_rate > 0 else None)
     stats = simulate_stream(
-        engine, qs, interarrival_ms=args.interarrival_ms,
+        engine, qs, interarrival_ms=args.interarrival_ms, churn=churn,
         pattern=args.pattern, seed=args.stream_seed,
         open_loop=args.runtime, classes=stream_classes(args),
         metrics_out=args.metrics_out,
@@ -283,12 +338,14 @@ def run_loop(args) -> dict:
               f"queue={args.queue_capacity} pattern={args.pattern} "
               f"precision={plan.precision} adaptive={args.adaptive} "
               f"bound={args.bound} pull_mode={args.pull_mode} "
+              f"dynamic={bool(args.dynamic)} churn={args.churn_rate} "
               f"faults={'on' if engine.injector else 'off'} "
               f"warmup={engine.warmup():.3f}s", flush=True)
     else:
         print(f"[serve] loop: table=({engine.n},{engine.N}) "
               f"device={args.device} K={args.topk} eps={args.eps} "
               f"batch={args.batch} deadline={args.deadline_ms}ms "
+              f"dynamic={bool(args.dynamic)} churn={args.churn_rate} "
               f"rounds={len(plan.schedule.rounds)} "
               f"precision={plan.precision} quant_err={plan.quant_err:.6g} "
               f"eps_eff={plan.eps_effective:.4f} adaptive={args.adaptive} "
@@ -329,7 +386,6 @@ def check_outcomes(args, stats: dict) -> None:
 
 #: options of later slices: (flag, is-set test, ROADMAP.md item)
 _LATER = (
-    ("--dynamic", lambda a: a.dynamic, "queue 1 item 4 (dynamic stores)"),
     ("--tenants", lambda a: a.tenants is not None,
      "queue 1 item 5 (multi-tenant serving)"),
     ("--shards > 1", lambda a: a.shards > 1,
@@ -345,6 +401,13 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
     for flag, is_set, item in _LATER:
         if is_set(args):
             ap.error(f"{flag} is not ported yet: ROADMAP.md {item}")
+    if args.churn_rate > 0 and not args.dynamic:
+        ap.error(f"--churn-rate {args.churn_rate} requires --dynamic: "
+                 f"churn mutates a DynamicTableStore, but without "
+                 f"--dynamic the table is a static array (add --dynamic, "
+                 f"or drop --churn-rate)")
+    if not 0.0 <= args.churn_rate <= 1.0:
+        ap.error(f"--churn-rate must be in [0, 1], got {args.churn_rate}")
     if args.deadline_ms <= 0:
         ap.error(f"--deadline-ms must be > 0, got {args.deadline_ms}: it "
                  f"is the batch-assembly wait; 0 would flush a "
@@ -369,10 +432,10 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
             ap.error(f"{name} requires --runtime: fault injection is "
                      f"wired through the runtime's retry/quarantine "
                      f"machinery (add --runtime)")
-    if args.inject_flush_rate > 0:
+    if args.inject_flush_rate > 0 and not args.dynamic:
         ap.error("--inject-flush-rate requires --dynamic: flush faults "
-                 "fire inside a store's flush_updates, and the store is "
-                 "not ported yet (ROADMAP.md queue 1 item 4)")
+                 "fire inside a store's flush_updates, and without it "
+                 "there is no store")
     if args.queue_capacity < 1:
         ap.error(f"--queue-capacity must be >= 1, "
                  f"got {args.queue_capacity}")
@@ -382,6 +445,14 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
                  f"budget; requests older than it are shed)")
     if args.max_retries < 0:
         ap.error(f"--max-retries must be >= 0, got {args.max_retries}")
+    if (args.pull_mode != "row" and args.dynamic
+            and args.precision != "fp32"):
+        ap.error(f"--pull-mode {args.pull_mode} is incompatible with a "
+                 f"single-device quantized store (--dynamic --precision "
+                 f"{args.precision}): the store's incrementally maintained "
+                 f"{args.precision} shadow fixes the quantization-block "
+                 f"geometry, which only the 'row' plan matches (use "
+                 f"--pull-mode row, or fp32)")
     if args.trace_out and not args.runtime:
         ap.error("--trace-out requires --runtime: span tracing hooks live "
                  "in the continuous-batching runtime")
@@ -444,7 +515,14 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--repeat-rate", type=float, default=0.1,
                     help="fraction of requests repeating an earlier query")
     ap.add_argument("--recall-rate", type=float, default=0.05)
-    ap.add_argument("--dynamic", action="store_true")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="serve from a mutable DynamicTableStore "
+                         "(upserts/deletes without a rebuild)")
+    ap.add_argument("--churn-rate", type=float, default=0.0,
+                    help="fraction of arrivals that also mutate the "
+                         "table (needs --dynamic)")
+    ap.add_argument("--capacity-slack", type=float, default=1.5,
+                    help="store capacity headroom factor (--dynamic)")
     ap.add_argument("--tenants", default=None, metavar="SPEC.json")
     # continuous-batching runtime mode
     ap.add_argument("--runtime", action="store_true",
@@ -481,7 +559,7 @@ def _build_parser() -> argparse.ArgumentParser:
                          "probability (--runtime)")
     ap.add_argument("--inject-flush-rate", type=float, default=0.0,
                     help="fault injection: store flush failure "
-                         "probability (needs --dynamic, not ported yet)")
+                         "probability (--runtime --dynamic)")
     ap.add_argument("--fault-seed", type=int, default=0,
                     help="seed of the deterministic fault schedule")
     ap.add_argument("--check-outcomes", action="store_true",

@@ -9,7 +9,8 @@ same seeded inputs and must give equal outputs, exactly:
   quarantine and ``stats()`` on the same seeded admit/take sequence;
   `DeficitRoundRobin` equal allowances;
 * `FaultInjector`: the same schedule (spikes, failing attempts, error
-  text) and ``stats()`` for several seeds; its store surface is refused;
+  text) and ``stats()`` for several seeds; its store-flush hook fails the
+  same flush indices with the same error text;
 * `SpanTracer` and `FlightRecorder`: byte-equal JSON for the same events;
 * `dispatch_lane_stats`: equal output on the same schedules and rounds;
 * the obs package's exports and the no-op registry.
@@ -196,9 +197,34 @@ def test_fault_injector_refuses_the_store_surface():
         for mod in (jfaults, tfaults):
             with pytest.raises(ValueError, match="must be in"):
                 mod.FaultInjector(0, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tfaults.FaultInjector(0, flush_failure_rate=0.5).attach(object())
     assert issubclass(tfaults.InjectedDispatchError, RuntimeError)
+    # the store surface, once refused, is ported: `attach` installs the
+    # flush hook, whose stateless per-flush draws fail the JAX
+    # injector's flush indices with the same text
+    from repro_torch.store import StoreFlushError
+    for seed, rate in ((0, 0.2), (3, 0.5), (9, 0.0)):
+        logs, injs = [], []
+        for mod in (jfaults, tfaults):
+            inj = mod.FaultInjector(seed, flush_failure_rate=rate)
+            store = type("Store", (), {"fault_hook": None})()
+            inj.attach(store)
+            log = []
+            for _ in range(120):
+                try:
+                    store.fault_hook()
+                    log.append(None)
+                except RuntimeError as e:
+                    log.append((type(e).__name__, str(e)))
+                    if mod is tfaults:
+                        assert isinstance(e, StoreFlushError)
+            logs.append(log)
+            injs.append(inj)
+        assert logs[1] == logs[0]
+        assert injs[1].stats() == injs[0].stats()
+        assert injs[1].metrics.snapshot() == injs[0].metrics.snapshot()
+        assert injs[1].n_flush_failures == sum(x is not None
+                                               for x in logs[1])
+        assert (injs[1].n_flush_failures > 0) == (rate > 0)
 
 
 def _trace_events(mod, seed, max_requests):

@@ -329,7 +329,7 @@ def test_dispatch_with_retries_reuses_the_perm():
 
 
 def test_runtime_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(TypeError, match="DynamicTableStore"):
         ServeRuntime({"rows": _table()}, device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         ServeRuntime(_table(), mesh=object(), device="cpu")
