@@ -6,20 +6,24 @@
 Phases, one line each (any failure exits non-zero before the result):
 
 1. device — the card's name and power limit (nvidia-smi); TF32 is turned
-   off for matmuls and cuDNN so every fp32 product here is full fp32;
+   off for matmuls and cuDNN so every fp32 product here is full fp32, and
+   bf16 matmuls reduce in f32;
 2. build — compiles every CUDA kernel of the port from ``src/`` (nvcc,
    ``sm_90a``), one nvcc per source, all started together;
-3. kernel — at the full qwen1.5-0.5b vocab table ((153600, 1024) fp32,
-   n_valid 151936, K = 4, eps = delta = 0.1) every kernel is held against
+3. kernel — at the full qwen1.5-0.5b vocab table ((153600, 1024) in
+   bf16, as the JAX package serves a bf16 model's tied embedding; n_valid
+   151936, K = 4, eps = delta = 0.1) every kernel is held against
    its plain PyTorch version on the same operands and timed (the kernel:
    median of 10 launches after 2 warm-ups, CUDA events; the plain
    version; a library call as a yardstick; the bound):
    the batched fused cascade (B = 4) and the single-query fused cascade
    (one query; also bitwise equal to a B = 1 batched launch), in 'row'
-   and 'coord' pull mode, for every tier: fp32 (at k_out = K and 2K,
-   with final coverage), int8, int4, pq (a quant_err measured on the
-   table) and int8 with adaptive early exit under the 'bernstein'
-   radii, plus a small case with fewer live rows than k_out.  Both
+   and 'coord' pull mode, for every tier: fp32 on the bf16 table (the
+   ``[bf16]`` instantiation; at k_out = K and 2K, with final coverage),
+   int8, int4, pq (a quant_err measured on the table) and int8 with
+   adaptive early exit under the 'bernstein' radii; the fp32 tier once
+   more on the table widened to f32 (row mode: the kernel table's fp32
+   rows); plus a small case with fewer live rows than k_out.  Both
    entries are one cooperative launch of one CTA per SM (the grid each
    launch ran with is read back from the kernel's own gridDim, printed,
    and must equal the SM count); the batched entry runs with its batch's
@@ -32,7 +36,7 @@ Phases, one line each (any failure exits non-zero before the result):
    gathered tile-dot at the tiled table's row (all 19,200 tiles, both
    512-wide blocks) and coord (C = 128, 8 blocks) geometry, and the
    blocked matvec at (153600, 1024) with (256, 512) tiles, each in f32
-   and bf16.  Each is one persistent launch fed by bulk copies: it must
+   and bf16 (from the table widened to f32).  Each is one persistent launch fed by bulk copies: it must
    take the bulk branch (its ``[bulk]`` launch count) with a grid, read
    back from the kernel, of min(chunks of work, SMs x CTAs per SM); its ring
    geometry, ptxas report (registers, spills, barriers) and dynamic
@@ -43,7 +47,8 @@ Phases, one line each (any failure exits non-zero before the result):
    in 12 alternating pairs, the order swapped each pair (medians, spread,
    pairs won);
 4. serve — the ``repro_torch.launch.serve --arch qwen1.5-0.5b --loop`` path
-   in process, 64 requests, batch 4, row mode, through MIPSServeEngine,
+   in process on the bf16 table (its fp32 tier launches ``[bf16]``), 64
+   requests, batch 4, row mode, through MIPSServeEngine,
    once per configuration: fp32, ``--precision int8``, ``--precision
    int4``, ``--precision pq`` and ``--precision int8 --adaptive --bound
    bernstein``.  The launch counts are set to 0 just before each run and
@@ -72,7 +77,8 @@ Phases, one line each (any failure exits non-zero before the result):
    measured dispatch time, and the device memory allocated before the
    rungs were built and at the stream's peak;
 6. store — the live-corpus ``DynamicTableStore`` on the vocab's 151,936
-   live rows at ``--capacity-slack 1.5`` (227,904 rows, 28,488 tiles):
+   live rows, widened to f32 as the JAX package's store takes them, at
+   ``--capacity-slack 1.5`` (227,904 rows, 28,488 tiles):
    (a) for fp32, int8, int4 and pq (subdims 8, 16 codes) a store built on
    the card takes a seeded script of 64 mutations (upserts, delete +
    append pairs, appends) in 8 flushed bursts; after each burst its tiled
@@ -98,7 +104,8 @@ Phases, one line each (any failure exits non-zero before the result):
    per rung beside the runtime phase's, whether the cascade's round-end
    keys need the device workspace (P against ``launch_grid``'s shared
    memory capacity), and the device memory before and at peak;
-7. mips — the library API on the unpadded vocab table (151936, 1024):
+7. mips — the library API on the unpadded vocab table (151936, 1024),
+   widened to f32:
    8 seeded queries through ``mips_topk`` (K = 4, eps = delta = 0.1,
    ``final_exact``) per tier and pull mode, and int8 with adaptive
    bernstein; launches of ``fused_cascade[<tier>]`` must equal the calls,
@@ -115,9 +122,28 @@ Phases, one line each (any failure exits non-zero before the result):
    kernel held against the plain version, exact scores; prints the top-5
    overlap with exact search, the plan's speedup, and the kernel and call
    ms against ``torch.matmul`` + ``torch.topk``;
-9. a ``kernels`` JSON line, one entry per kernel and tier (the batched
-   cascade's launches are the serve, runtime and store phases'), and last
-   the ``ok`` JSON line.
+9. decode — the ``repro_torch.launch.serve`` decode demo (no ``--loop``)
+   in process: qwen1.5-0.5b at full width and depth, bf16 weights from a
+   seeded generator on the card, 4 prompts of 16 tokens, 32 greedy
+   tokens, the bandit head at eps = delta = 0.1 (after a 2-token warm-up
+   on the same model) and the exact head on the same model and prompts.
+   Launches of ``fused_cascade_batched[bf16]`` must equal the decode
+   steps; every step's head launch is held against the plain version on
+   the same hidden states, table and perm, its served score must be the
+   float64 exact product of the served row, and step 0's launch must be
+   bitwise the fp32 launch on the tiled table widened to f32.  Prints
+   the token agreement with exact decode, the largest gap to the exact
+   best row in mean-product units against eps, prefill and per-token ms
+   of both heads, the head kernel's ms against its bound, the plain
+   version and ``torch.matmul`` + ``torch.topk`` on the bf16 table, and
+   device memory.  Then tinyllama-1.1b at full width with 2 layers (GQA,
+   the untied unembedding as the head), held the same way; then
+   qwen1.5-0.5b at 2 layers in fp32 on the card and on the CPU, same
+   weights: equal next tokens, hidden states within rtol 1e-4;
+10. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+   cascade's launches are the serve, runtime, store and decode phases';
+   its ``[bf16]`` entry times the decode head), and last the ``ok`` JSON
+   line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
 near-tie, counted and printed — every differing candidate's exact float64
@@ -135,6 +161,8 @@ carries ~1e-5 relative error on values of the top-K's size.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import json
 import re
 import statistics
@@ -162,6 +190,9 @@ SOURCE = CSRC + "fused_cascade.cu"
 B, K, EPS, DELTA = 4, 4, 0.1, 0.1
 SCORE_RTOL = 1e-5
 EXACT_RTOL = 1e-4
+#: the model's hidden states on the card against the CPU (fp32, TF32
+#: off): matmul and softmax sums in another order, through 2 layers
+CARD_CPU_RTOL = 1e-4
 N_MIPS_QUERIES = 8
 MF_SHAPE = (20_000, 8_192)      # examples/quickstart.py
 DEV = "cuda"                    # where every entry point is asked to run
@@ -279,9 +310,11 @@ def phase_device() -> None:
     print(line, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     say(f"device: {torch.cuda.get_device_name(0)} x"
         f"{torch.cuda.device_count()}, torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; TF32 off for matmul and cuDNN")
+        f"{torch.version.cuda}; TF32 off for matmul and cuDNN, bf16 "
+        f"matmuls reduce in f32")
 
 
 def phase_build() -> dict:
@@ -410,7 +443,14 @@ def pull_split(fn, ops, kernel_ms, **kw) -> dict:
     return {"round_end_ms": ends_ms, "pull_ms": kernel_ms - ends_ms}
 
 
-def phase_kernel(table, n_valid) -> dict:
+def tier_tag(label: str, table) -> str:
+    """The launch-count tag of a tier on ``table``: the fp32 tier pulls a
+    bf16 table's own cells and counts as ``[bf16]``."""
+    return "bf16" if label == "fp32" and table.dtype == torch.bfloat16 \
+        else label
+
+
+def phase_kernel(table, table32, n_valid) -> dict:
     from repro_torch.core.boundedme_torch import quantize_table, tile_table
     from repro_torch.core.schedule import PULL_BIT, pulls_through_round
     from repro_torch.kernels.fused_cascade import (fused_cascade_batched_cuda,
@@ -434,23 +474,31 @@ def phase_kernel(table, n_valid) -> dict:
     Q = torch.from_numpy(np.random.default_rng(1234).normal(
         size=(B, N)).astype(np.float32)).cuda()
     mask = torch.arange(n, device=table.device)[:, None] >= n_valid
-
-    def library():
-        s = (table @ Q.T).masked_fill_(mask, -torch.inf)
-        return torch.topk(s, K, dim=0)
-
-    def library1():              # the same for one query
-        s = (table @ Q[0]).masked_fill_(mask[:, 0], -torch.inf)
-        return torch.topk(s, K)
-    library_ms = time_cuda(library, 10, 2)
-    library1_ms = time_cuda(library1, 10, 2)
     out, single = {}, {}
-    for mode in ("row", "coord"):
+    # the serving table (bf16) in both modes and every tier, and the
+    # fp32 tier once more on the table widened to f32, row mode: the fp32
+    # rows of the kernel table, comparable with earlier runs'
+    for tab, mode, tiers in ((table, "row", TIERS), (table, "coord", TIERS),
+                             (table32, "row", TIERS[:1])):
+        # exact search on the same table: a bf16 table meets the queries
+        # rounded to bf16, as a bf16 server would search it
+        Qt = Q.to(tab.dtype)
+
+        def library():
+            s = (tab @ Qt.T).masked_fill_(mask, -torch.inf)
+            return torch.topk(s, K, dim=0)
+
+        def library1():              # the same for one query
+            s = (tab @ Qt[0]).masked_fill_(mask[:, 0], -torch.inf)
+            return torch.topk(s, K)
+        library_ms = time_cuda(library, 10, 2)
+        library1_ms = time_cuda(library1, 10, 2)
         V4 = None
-        for label, precision, adaptive, bound in TIERS:
-            plan = tier_plan(table, n_valid, precision, bound, mode)
+        for label, precision, adaptive, bound in tiers:
+            tag = tier_tag(label, tab)
+            plan = tier_plan(tab, n_valid, precision, bound, mode)
             if V4 is None:
-                V4 = tile_table(table, plan, DEV)
+                V4 = tile_table(tab, plan, DEV)
             quant = (quantize_table(V4, plan) if precision != "fp32"
                      else None)
             perm = seeded_perm(0, 0, plan.n_blocks)
@@ -463,13 +511,13 @@ def phase_kernel(table, n_valid) -> dict:
                                      dtype=torch.bool, device=V4.device)
                 got = fused_cascade_batched_cuda(*ops, k_out=k_out,
                                                  n_valid=n_valid, **kw)
-                ctas = grid_of(f"{label} {mode} B={B}")
+                ctas = grid_of(f"{tag} {mode} B={B}")
                 ref = fused_cascade_batched_ref(*ops, k_out=k_out,
                                                 n_valid=n_valid,
                                                 pulled=pulled, **kw)
                 torch.cuda.synchronize()
-                r = compare(table, Q, got, ref, bitwise=bitwise,
-                            what=f"{label} {mode} k_out={k_out}")
+                r = compare(tab, Q, got, ref, bitwise=bitwise,
+                            what=f"{tag} {mode} k_out={k_out}")
                 errs.append(r["max_abs_err"])
                 ties += r["near_tie_queries"]
                 if k_out == K:
@@ -481,7 +529,7 @@ def phase_kernel(table, n_valid) -> dict:
                         *own, k_out=k_out, n_valid=n_valid, **kw)
                     torch.cuda.synchronize()
                     check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                          f"{label} {mode}: the shared round-1 read is not "
+                          f"{tag} {mode}: the shared round-1 read is not "
                           f"bitwise the launch without it")
             steps = int(((ops[2].cpu() & PULL_BIT) != 0).sum())
             through = pulls_through_round(plan.schedule)
@@ -516,8 +564,8 @@ def phase_kernel(table, n_valid) -> dict:
                 "shared_cols_bitwise": True, "grid_ctas": ctas, "sms": sms}
             if adaptive:
                 res["rounds_used"] = rounds
-            out[(label, mode)] = res
-            say(f"kernel {label} {mode}: " + json.dumps(res))
+            out[(tag, mode)] = res
+            say(f"kernel {tag} {mode}: " + json.dumps(res))
 
             # the single-query entry on query 0, held against its plain
             # version and, bit for bit, against a B = 1 batched launch
@@ -525,18 +573,18 @@ def phase_kernel(table, n_valid) -> dict:
             pulled = torch.zeros((plan.n_tiles, plan.n_blocks),
                                  dtype=torch.bool, device=V4.device)
             got = fused_cascade_cuda(*sops, n_valid=n_valid, **skw)
-            ctas1 = grid_of(f"single {label} {mode}")
+            ctas1 = grid_of(f"single {tag} {mode}")
             ref = fused_cascade_ref(*sops, n_valid=n_valid, pulled=pulled,
                                     **skw)
             bops, bkw = single_of(ops, kw, keep_batch=True)
             one = fused_cascade_batched_cuda(*bops, n_valid=n_valid, **bkw)
             torch.cuda.synchronize()
             check(all(torch.equal(a, b[0]) for a, b in zip(got, one)),
-                  f"single {label} {mode}: not bitwise a B = 1 batched "
+                  f"single {tag} {mode}: not bitwise a B = 1 batched "
                   f"launch")
-            r = compare(table, Q[:1], [t[None] for t in got],
+            r = compare(tab, Q[:1], [t[None] for t in got],
                         [t[None] for t in ref], bitwise=bitwise,
-                        what=f"single {label} {mode}")
+                        what=f"single {tag} {mode}")
             rounds1 = [int(got[2])] if adaptive else None
             n_pulls = (int(through[rounds1[0]]) if adaptive else steps)
             bound_info = kernel_bound(plan, sops, skw, int(pulled.sum()),
@@ -556,8 +604,8 @@ def phase_kernel(table, n_valid) -> dict:
                     "sms": sms}
             if adaptive:
                 res1["rounds_used"] = rounds1
-            single[(label, mode)] = res1
-            say(f"single {label} {mode}: " + json.dumps(res1))
+            single[(tag, mode)] = res1
+            say(f"single {tag} {mode}: " + json.dumps(res1))
             del ops, pulled, quant, sops, bops
         del V4
         torch.cuda.empty_cache()
@@ -821,7 +869,7 @@ def serve_run(label, precision, adaptive, bound) -> dict:
         f"quant_err={plan.quant_err:.6g} eps_eff={plan.eps_effective:.4f} "
         f"adaptive={adaptive} bound={bound} pull_mode={plan.pull_mode} "
         f"block={plan.block}")
-    name = f"fused_cascade_batched[{label}]"
+    name = f"fused_cascade_batched[{tier_tag(label, ex.tiled_table)}]"
     kops.reset_launch_counts()
     t0 = time.perf_counter()
     stats = serve.simulate_stream(engine, qs,
@@ -903,7 +951,8 @@ def runtime_run(label, precision, adaptive, bound) -> dict:
         f"{engine.ladder.eps_values} rounds "
         f"{[len(ex.plan.schedule.rounds) for ex in execs]} lanes "
         f"{engine.lanes} queue {args.queue_capacity}")
-    name = f"fused_cascade_batched[{label}]"
+    name = (f"fused_cascade_batched"
+            f"[{tier_tag(label, execs[0].tiled_table)}]")
     kops.reset_launch_counts()
     warm_s = engine.warmup()
     dispatches = []
@@ -1501,6 +1550,215 @@ def phase_mips(table, n_valid) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recording_heads():
+    """Record every call of a decode head: ``(head, hidden states, perm,
+    (ids, scores))``, for holding each step's launch afterwards."""
+    from repro_torch.models import steps
+    calls, real = [], steps.MipsHead.__call__
+
+    def recording(self, hid, perm):
+        out = real(self, hid, perm)
+        calls.append((self, hid.clone(), perm, out))
+        return out
+    steps.MipsHead.__call__ = recording
+    try:
+        yield calls
+    finally:
+        steps.MipsHead.__call__ = real
+
+
+def hold_head_steps(what: str, calls, cfg, table) -> dict:
+    """Each recorded decode step's head launch against the plain version
+    on the same hidden states, table and perm (ids equal or a near-tie,
+    scores to rtol 1e-5); its served score the float64 exact product of
+    the served row (rtol 1e-4); and the gap of the served row to the
+    exact best row, in mean-product units (the eps scale)."""
+    from repro_torch.models.model import masked_logits
+    errs, ties, gap = [], 0, 0.0
+    N = cfg.d_model
+    for step, (head, hid, perm, out) in enumerate(calls):
+        with plain_route():
+            ref = head(hid, perm)
+        torch.cuda.synchronize()
+        r = compare(table, hid.float(), out, ref,
+                    what=f"decode {what} step {step}")
+        errs.append(r["max_abs_err"])
+        ties += r["near_tie_queries"]
+        ids = out[0][:, 0].long()
+        check(bool((ids < cfg.vocab).all()),
+              f"decode {what} step {step}: a padding row {ids.tolist()}")
+        exact = (table[ids].double() * hid.double()).sum(-1) / N
+        check(torch.allclose(out[1][:, 0].double(), exact, rtol=EXACT_RTOL,
+                             atol=0.0),
+              f"decode {what} step {step}: scores {out[1][:, 0].tolist()} "
+              f"vs exact {exact.tolist()}")
+        best = masked_logits(cfg, table, hid).max(-1).values
+        gap = max(gap, float((best.double() / N - exact).max()))
+    return {"steps": len(calls), "max_abs_err": max(errs),
+            "near_tie_queries": ties, "max_gap_mean_product": gap}
+
+
+def decode_args(arch: str, mips: str, tokens: int = 32):
+    from repro_torch.launch import serve
+    return serve.parse_args(["--arch", arch, "--mips", mips, "--eps",
+                             str(EPS), "--delta", str(DELTA), "--batch",
+                             str(B), "--prompt-len", "16", "--tokens",
+                             str(tokens), "--device", DEV])
+
+
+def phase_decode() -> dict:
+    """Phase 9: the decode demo (``serve`` without ``--loop``) on the
+    card: qwen1.5-0.5b at full width and depth in bf16 with the bandit
+    head and with the exact head, tinyllama-1.1b at full width and 2
+    layers, and the model on the card against the model on the CPU."""
+    from repro_torch.core.schedule import PULL_BIT
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.fused_cascade import fused_cascade_batched_cuda
+    from repro_torch.kernels.ref import fused_cascade_batched_ref
+    from repro_torch.launch import serve
+    from repro_torch.models.model import DenseLM, masked_logits
+    from repro_torch.models.steps import prefill_step
+
+    out = {}
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    args = decode_args("qwen1.5-0.5b", "boundedme")
+    warm = serve.run_decode_demo(decode_args("qwen1.5-0.5b", "boundedme", 2))
+    model = warm["model"]
+    kops.reset_launch_counts()
+    with recording_heads() as calls:
+        res = serve.run_decode_demo(args, model=model)
+    counts = kops.launch_counts()
+    launches = counts["fused_cascade_batched[bf16]"]
+    check(launches == args.tokens == counts["fused_cascade_batched"]
+          == len(calls),
+          f"decode: {launches} fused_cascade_batched[bf16] launches "
+          f"({counts['fused_cascade_batched']} in all, {len(calls)} head "
+          f"calls) for {args.tokens} decode steps")
+    cfg, table = res["cfg"], model.head_table
+    check(table.dtype == torch.bfloat16 and calls[0][0].V4.dtype
+          == torch.bfloat16, "decode: the head is not on the bf16 table")
+    held = hold_head_steps("qwen1.5-0.5b", calls, cfg, table)
+    exact = serve.run_decode_demo(decode_args("qwen1.5-0.5b", "exact"),
+                                  model=model)
+    agree = float((res["tokens"] == exact["tokens"]).mean())
+    # the head's launch alone, on step 0's operands, and bitwise the fp32
+    # launch on its tiled table widened to f32
+    head, hid, perm, _ = calls[0]
+    plan = head.plan
+    ops, kw = cascade_operands(plan, head.V4, hid.float(), perm)
+    kw["n_valid"] = cfg.vocab
+    wide_ops = (ops[0].float(), *ops[1:])
+    got = fused_cascade_batched_cuda(*ops, **kw)
+    wide = fused_cascade_batched_cuda(*wide_ops, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, wide)),
+          "decode: the bf16 launch is not bitwise the fp32 launch on the "
+          "widened table")
+    pulled = torch.zeros((plan.n_tiles, plan.n_blocks), dtype=torch.bool,
+                         device=DEV)
+    fused_cascade_batched_ref(*ops, pulled=pulled, **kw)
+    n_pulls = int(((ops[2].cpu() & PULL_BIT) != 0).sum()) * B
+    bound = kernel_bound(plan, ops, kw, int(pulled.sum()), n_pulls)
+    kernel_ms = time_cuda(lambda: fused_cascade_batched_cuda(*ops, **kw),
+                          10, 2)
+    # the bf16 launch against the fp32 launch on the widened table, in
+    # turns, the order swapped each pair
+    pairs = []
+    for i in range(6):
+        t = {}
+        for tag, o in (("bf16", ops), ("fp32", wide_ops))[::1 - 2 * (i % 2)]:
+            t[tag] = time_cuda(lambda: fused_cascade_batched_cuda(*o, **kw),
+                               10, 2)
+        pairs.append(t)
+    pad = torch.arange(table.shape[0], device=DEV) >= cfg.vocab
+
+    def library():
+        s = (hid @ table.T).masked_fill_(pad, -torch.inf)
+        return torch.topk(s, 1, dim=1)
+    out["head"] = {
+        "launches": launches, **bound, "kernel_ms": kernel_ms,
+        **pull_split(fused_cascade_batched_cuda, ops, kernel_ms, **kw),
+        "plain_ms": time_cuda(lambda: fused_cascade_batched_ref(*ops, **kw),
+                              3, 1),
+        "library_ms": time_cuda(library, 10, 2),
+        "rounds": len(plan.schedule.rounds), "S": ops[2].numel(),
+        "speedup": plan.schedule.speedup, "bitwise_fp32_widened": True,
+        "max_abs_err": held["max_abs_err"],
+        "bf16_ms_pairs": [p["bf16"] for p in pairs],
+        "fp32_widened_ms_pairs": [p["fp32"] for p in pairs],
+        "pairs_bf16_faster": sum(p["bf16"] < p["fp32"] for p in pairs)}
+    say("decode head: " + json.dumps(out["head"]))
+    out["qwen1.5-0.5b"] = {
+        **held, "launches": launches, "token_agreement_with_exact": agree,
+        "eps": EPS,
+        "prefill_ms": res["prefill_ms"], "ms_per_token": res["ms_per_token"],
+        "exact_prefill_ms": exact["prefill_ms"],
+        "exact_ms_per_token": exact["ms_per_token"],
+        "weights_gb": sum(p.numel() * p.element_size()
+                          for p in model.parameters()) / 1e9,
+        "head_table_gb": head.V4.numel() * head.V4.element_size() / 1e9,
+        "mem_before_gb": base_gb,
+        "peak_added_gb": torch.cuda.max_memory_allocated() / 1e9 - base_gb}
+    say("decode qwen1.5-0.5b: " + json.dumps(out["qwen1.5-0.5b"]))
+    del model, warm, res, exact, calls, head, hid, ops, got, wide, pulled
+    torch.cuda.empty_cache()
+
+    # tinyllama-1.1b at full width (GQA 32/4, untied 32,000-row
+    # unembedding padded to 32,768), depth cut to 2 layers
+    args = decode_args("tinyllama-1.1b", "boundedme")
+    cfg = dataclasses.replace(serve.decode_config(args), n_layers=2)
+    kops.reset_launch_counts()
+    with recording_heads() as calls:
+        res = serve.run_decode_demo(args, cfg=cfg)
+    launches = kops.launch_counts()["fused_cascade_batched[bf16]"]
+    check(launches == args.tokens == len(calls),
+          f"decode tinyllama: {launches} launches for {args.tokens} steps")
+    table = res["model"].head_table
+    check(table is res["model"].unembed, "decode tinyllama: the head is "
+          "not the unembedding")
+    out["tinyllama-1.1b"] = {
+        **hold_head_steps("tinyllama-1.1b", calls, cfg, table),
+        "launches": launches, "layers": cfg.n_layers,
+        "prefill_ms": res["prefill_ms"], "ms_per_token": res["ms_per_token"]}
+    say("decode tinyllama-1.1b: " + json.dumps(out["tinyllama-1.1b"]))
+    del res, calls, table
+    torch.cuda.empty_cache()
+
+    # the model on the card against the model on the CPU: qwen1.5-0.5b at
+    # 2 layers in fp32 (TF32 off), prefill and the first decode step
+    cfg = dataclasses.replace(serve.decode_config(decode_args(
+        "qwen1.5-0.5b", "exact")), n_layers=2, dtype="float32")
+    card = DenseLM(cfg, seed=0, device=DEV)
+    host = copy.deepcopy(card).to("cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, 16))
+    hidden, nxt = {}, {}
+    for name, m in (("card", card), ("cpu", host)):
+        tok = torch.from_numpy(prompt).to(m.embed.device)
+        _, caches = prefill_step(m, tok, cache_len=17)
+        h, _ = m(tok[:, -1:], caches=caches, pos=16)
+        hidden[name] = h[:, -1].cpu()
+        nxt[name] = torch.argmax(masked_logits(cfg, m.head_table, h[:, -1]),
+                                 -1).cpu()
+    err = float((hidden["card"] - hidden["cpu"]).abs().max())
+    scale = float(hidden["cpu"].abs().max())
+    check(torch.equal(nxt["card"], nxt["cpu"]),
+          f"decode card vs cpu: next tokens {nxt['card'].tolist()} vs "
+          f"{nxt['cpu'].tolist()}")
+    check(torch.allclose(hidden["card"], hidden["cpu"], rtol=CARD_CPU_RTOL,
+                         atol=CARD_CPU_RTOL * scale),
+          f"decode card vs cpu: hidden states differ by {err:.3g} "
+          f"(max |h| {scale:.3g})")
+    out["card_vs_cpu"] = {"layers": 2, "dtype": "float32",
+                          "next_tokens_equal": True,
+                          "hidden_max_abs_err": err, "hidden_max": scale,
+                          "rtol": CARD_CPU_RTOL}
+    say("decode card vs cpu: " + json.dumps(out["card_vs_cpu"]))
+    return out
+
+
 def phase_quickstart() -> dict:
     """Phase 8: examples/quickstart.py's regime on the card."""
     from repro_torch.core import mips
@@ -1569,76 +1827,70 @@ def phase_quickstart() -> dict:
     return out
 
 
-def main() -> int:
-    src = ROOT / "src"
-    if not (src / "repro_torch").is_dir():
-        print(f"chip_smoke: {src / 'repro_torch'} not found; run this "
-              f"script from a checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(src))
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this script "
-              "needs a CUDA card", file=sys.stderr)
-        return 1
-    try:
-        t0 = time.perf_counter()
-        phase_device()
-        logs = phase_build()
-        from repro_torch.configs import get_config
-        from repro_torch.convert import make_serving_table
-        table, n_valid = make_serving_table(get_config("qwen1.5-0.5b"), 0,
-                                            DEV)
-        kern, single = phase_kernel(table, n_valid)
-        aux = phase_aux_kernels(table, logs)
-        served = {}
-        for tier in TIERS:
-            served[tier[0]] = serve_run(*tier)
-            torch.cuda.empty_cache()
-        runtime = {}
-        for tier in RUNTIME_TIERS:
-            runtime[tier[0]] = runtime_run(*tier)
-            torch.cuda.empty_cache()
-        stored = phase_store(table, n_valid, runtime)
-        lib = phase_mips(table, n_valid)
-        del table
-        torch.cuda.empty_cache()
-        phase_quickstart()
-        say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
-    except Exception:
-        traceback.print_exc()
-        print("chip_smoke: FAILED", file=sys.stderr)
-        return 1
-    entries = []
+def kernel_entries(kern, single, aux, served, runtime, stored, lib,
+                   decode) -> list:
+    """The ``kernels`` line: one entry per kernel and tier.  The batched
+    cascade's launches are those of the serve, runtime, store and decode
+    phases (the fp32 tier on the f32 store; ``[bf16]`` on the bf16
+    serving table and model heads); its bf16 entry's times are the decode
+    head's, on step 0's operands.  Times of a tier are phase 3's, row mode
+    (coord beside them)."""
     none = {"launches": 0, "max_abs_err": 0.0}
-    for label, precision, adaptive, bound in TIERS:
-        rt = runtime.get(label, none)
-        st = stored["runtime"].get(label, none)
-        for name, res, launches, extra, replaces in (
-                ("fused_cascade_batched", kern,
-                 served[label]["launches"] + rt["launches"]
-                 + st["launches"],
-                 max(served[label]["max_abs_err"], rt["max_abs_err"],
-                     st["max_abs_err"]),
-                 TPU_KERNEL),
-                ("fused_cascade", single,
-                 lib[(label, "row")]["launches"]
-                 + lib[(label, "coord")]["launches"], 0.0,
-                 TPU_KERNEL_SINGLE)):
-            row, coord = res[(label, "row")], res[(label, "coord")]
-            entries.append({
-                "name": name if label == "fp32" else f"{name}[{label}]",
-                "route": "cuda", "source": SOURCE, "replaces": replaces,
-                "launches": launches,
-                "max_abs_err": max(row["max_abs_err"], coord["max_abs_err"],
-                                   extra),
-                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "grid_ctas": row["grid_ctas"],
-                "coord_ms": coord["kernel_ms"],
-                "coord_plain_ms": coord["plain_ms"],
-                "coord_bound_ms": coord["bound_ms"],
-                "precision": precision, "adaptive": adaptive,
-                "bound": bound, "held_against_plain": True})
+    info = {t[0]: t[1:] for t in TIERS}
+    info["bf16"] = info["fp32"]
+    entries = []
+    for tag in ["fp32", "bf16"] + [t[0] for t in TIERS[1:]]:
+        precision, adaptive, bound = info[tag]
+        runs = [served.get(tag, none), runtime.get(tag, none),
+                stored["runtime"].get(tag, none)]
+        if tag == "bf16":
+            runs += [decode["qwen1.5-0.5b"], decode["tinyllama-1.1b"]]
+        row, coord = kern[(tag, "row")], kern.get((tag, "coord"))
+        timed = decode["head"] if tag == "bf16" else row
+        entry = {
+            "name": "fused_cascade_batched" + (
+                "" if tag == "fp32" else f"[{tag}]"),
+            "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
+            "launches": sum(r["launches"] for r in runs),
+            "max_abs_err": max([row["max_abs_err"], timed["max_abs_err"]]
+                               + [r["max_abs_err"] for r in runs]
+                               + ([coord["max_abs_err"]] if coord else [])),
+            "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"],
+            "precision": precision, "adaptive": adaptive, "bound": bound,
+            "held_against_plain": True}
+        if "grid_ctas" in row:
+            entry["grid_ctas"] = row["grid_ctas"]
+        if tag == "bf16":
+            entry.update(serve_ms=row["kernel_ms"],
+                         serve_bound_ms=row["bound_ms"])
+        if coord:
+            entry.update(coord_ms=coord["kernel_ms"],
+                         coord_plain_ms=coord["plain_ms"],
+                         coord_bound_ms=coord["bound_ms"])
+        entries.append(entry)
+        if tag == "bf16":      # the single-query entry's bf16 time rides
+            continue           # on its fp32 entry: no path launches it
+        row1 = single[(tag, "row")]
+        entry = {
+            "name": "fused_cascade" + ("" if tag == "fp32" else f"[{tag}]"),
+            "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL_SINGLE,
+            "launches": lib[(tag, "row")]["launches"]
+            + lib[(tag, "coord")]["launches"],
+            "max_abs_err": max(row1["max_abs_err"], *(
+                single[k]["max_abs_err"] for k in single if k[0] == tag)),
+            "ms": row1["kernel_ms"], "plain_ms": row1["plain_ms"],
+            "bound_ms": row1["bound_ms"], "bound_by": row1["bound_by"],
+            "library_ms": row1["library_ms"], "grid_ctas": row1["grid_ctas"],
+            "precision": precision, "adaptive": adaptive, "bound": bound,
+            "held_against_plain": True}
+        if (tag, "coord") in single:
+            entry["coord_ms"] = single[(tag, "coord")]["kernel_ms"]
+        if tag == "fp32":
+            entry.update(bf16_ms=single[("bf16", "row")]["kernel_ms"],
+                         bf16_coord_ms=single[("bf16", "coord")]["kernel_ms"])
+        entries.append(entry)
     f32, b16 = torch.float32, torch.bfloat16
     for name, src, replaces, launches, base, alt in (
             ("gather_block_dot", "gather_dot.cu", TPU_GATHER,
@@ -1673,7 +1925,56 @@ def main() -> int:
                           f"{tag}_share_of_bound":
                               aux[key]["share_of_bound"]})
         entries.append(entry)
-    print(json.dumps({"kernels": entries}), flush=True)
+    return entries
+
+
+def main() -> int:
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run this "
+              f"script from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    try:
+        t0 = time.perf_counter()
+        phase_device()
+        logs = phase_build()
+        from repro_torch.configs import get_config
+        from repro_torch.convert import make_serving_table
+        # the vocab table in bf16, as the JAX package serves a bf16 model's
+        # tied embedding; the store and the library API take it widened
+        table, n_valid = make_serving_table(get_config("qwen1.5-0.5b"), 0,
+                                            DEV)
+        table32 = table.float()
+        kern, single = phase_kernel(table, table32, n_valid)
+        aux = phase_aux_kernels(table32, logs)
+        served = {}
+        for tier in TIERS:
+            served[tier_tag(tier[0], table)] = serve_run(*tier)
+            torch.cuda.empty_cache()
+        runtime = {}
+        for tier in RUNTIME_TIERS:
+            runtime[tier_tag(tier[0], table)] = runtime_run(*tier)
+            torch.cuda.empty_cache()
+        stored = phase_store(table32, n_valid, runtime)
+        lib = phase_mips(table32, n_valid)
+        del table, table32
+        torch.cuda.empty_cache()
+        phase_quickstart()
+        torch.cuda.empty_cache()
+        decode = phase_decode()
+        say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernel_entries(
+        kern, single, aux, served, runtime, stored, lib, decode)}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

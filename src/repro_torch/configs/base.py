@@ -1,10 +1,13 @@
 """Architecture configuration (a copy of ``repro.configs.base``).
 
 One frozen dataclass describes an architecture; the per-arch modules in
-this package instantiate it with the exact published numbers.  The port
-serves the tied embedding table of these configs, so it reads only
-``d_model``, ``vocab``, ``padded_vocab`` and ``tie_embeddings``;
-``smoke()`` derives the reduced config used by CPU tests.
+this package instantiate it with the exact published numbers.  The
+serving loop reads the vocab table's ``d_model``, ``vocab``,
+``padded_vocab``, ``tie_embeddings`` and ``dtype``; the dense model
+(`repro_torch.models`) also ``n_layers``, ``n_heads``, ``n_kv_heads``,
+``head_dim``, ``d_ff``, ``qkv_bias``, ``norm``, ``rope_theta`` and the
+``mips_*`` head settings.  ``smoke()`` derives the reduced config used by
+CPU tests.
 """
 
 from __future__ import annotations

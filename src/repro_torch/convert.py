@@ -1,12 +1,15 @@
-"""Serving tables for the port: carried over from the JAX package's
-parameters, or built from a numpy seed.
+"""Models and serving tables for the port: carried over from the JAX
+package's parameters, or built from a numpy seed.
 
 The JAX package serves the tied embedding (or the unembedding) of
 ``repro.models.model.init_params``: a ``(padded_vocab, d_model)`` table
-whose rows past ``vocab`` are padding, masked by ``n_valid = vocab``.
+in the model's type (bf16 at full width, f32 in smoke configs) whose rows
+past ``vocab`` are padding, masked by ``n_valid = vocab``.
 `serving_table_from_jax` carries such parameters (as numpy arrays) into
-the port; `make_serving_table` builds a table of the same shape and
-distribution, N(0, 0.02), without the model zoo (torch cannot reproduce
+the port, and `params_from_jax` a dense model's whole parameter set into
+a `repro_torch.models.model.DenseLM`; `make_serving_table` builds a
+table of the same shape, type and distribution, N(0, 0.02) rounded to
+the config's type, without the model zoo (torch cannot reproduce
 ``jax.random``, so its values differ from the JAX package's).
 `quantized_from_jax` carries the JAX package's quantized table artifacts
 (int8/int4 codes and scales, pq codes and codebook) into the port, for
@@ -19,18 +22,16 @@ from __future__ import annotations
 
 from typing import Mapping, Sequence, Tuple
 
-from repro_torch.store import DynamicTableStore
-
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.boundedme_torch import as_kept
+from repro_torch.models.model import EMBED_STD, DenseLM
+from repro_torch.store import DynamicTableStore
 
-__all__ = ["serving_table_from_jax", "make_serving_table",
-           "quantized_from_jax", "store_from_jax"]
-
-#: init_params' embedding scale
-_EMBED_STD = 0.02
+__all__ = ["tensor_from_jax", "serving_table_from_jax", "make_serving_table",
+           "params_from_jax", "quantized_from_jax", "store_from_jax"]
 
 #: (table artifact dtype, aux artifact dtype) of each quantized tier
 _ARTIFACT_DTYPES = {"int8": (np.int8, np.float32),
@@ -38,27 +39,75 @@ _ARTIFACT_DTYPES = {"int8": (np.int8, np.float32),
                     "pq": (np.uint8, np.float32)}
 
 
+def tensor_from_jax(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor of a JAX array converted to numpy, in its own type: a
+    bfloat16 array (numpy's ``ml_dtypes`` type) becomes a
+    ``torch.bfloat16`` tensor of the same bits; any other is copied."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
 def serving_table_from_jax(params_np: Mapping[str, np.ndarray],
                            cfg: ArchConfig) -> Tuple[torch.Tensor, int]:
-    """``(table (padded_vocab, d_model) float32 on the CPU, n_valid)``
-    from the JAX package's parameters, converted to numpy."""
+    """``(table (padded_vocab, d_model) on the CPU, n_valid)`` from the
+    JAX package's parameters, converted to numpy: float32 or bfloat16,
+    as the parameters are (the JAX package serves a bf16 model's
+    embedding in bf16); any other type is widened to float32."""
     name = "embed" if cfg.tie_embeddings else "unembed"
-    table = np.asarray(params_np[name], dtype=np.float32)
-    if table.shape != (cfg.padded_vocab, cfg.d_model):
-        raise ValueError(f"params[{name!r}] has shape {table.shape}, "
-                         f"expected {(cfg.padded_vocab, cfg.d_model)}")
-    return torch.from_numpy(table.copy()), cfg.vocab
+    table = as_kept(tensor_from_jax(params_np[name]), "cpu")
+    if tuple(table.shape) != (cfg.padded_vocab, cfg.d_model):
+        raise ValueError(f"params[{name!r}] has shape "
+                         f"{tuple(table.shape)}, expected "
+                         f"{(cfg.padded_vocab, cfg.d_model)}")
+    return table, cfg.vocab
 
 
 def make_serving_table(cfg: ArchConfig, seed: int = 0, device="cuda"
                        ) -> Tuple[torch.Tensor, int]:
-    """``(table (padded_vocab, d_model) float32 on device, n_valid)``
-    drawn N(0, 0.02) from ``numpy.random.default_rng(seed)``."""
+    """``(table (padded_vocab, d_model) on device, n_valid)`` drawn
+    N(0, 0.02) in float32 from ``numpy.random.default_rng(seed)``, then
+    rounded to the config's type as ``init_params`` rounds its embedding:
+    bfloat16 at full width, float32 in smoke configs."""
     rng = np.random.default_rng(seed)
     table = rng.standard_normal((cfg.padded_vocab, cfg.d_model),
                                 dtype=np.float32)
-    table *= np.float32(_EMBED_STD)
-    return torch.from_numpy(table).to(device), cfg.vocab
+    table *= np.float32(EMBED_STD)
+    return (torch.from_numpy(table).to(device).to(getattr(torch, cfg.dtype)),
+            cfg.vocab)
+
+
+def params_from_jax(params_np: Mapping, cfg: ArchConfig, device="cpu"
+                    ) -> DenseLM:
+    """A `DenseLM` on ``device`` holding the JAX package's dense-model
+    parameters (``init_params(cfg, key)``, each array converted to numpy,
+    ``"layers"`` a mapping of layer-stacked arrays).  Every tensor keeps
+    its type and value; layer ``i`` takes slice ``i`` of each stack.
+    Missing, extra or misshapen parameters raise."""
+    model = DenseLM(cfg, device="meta")
+    want = dict(model.named_parameters())
+    got = {k: tensor_from_jax(v) for k, v in params_np.items()
+           if k != "layers"}
+    for name, stack in params_np["layers"].items():
+        stack = tensor_from_jax(stack)
+        if stack.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers[{name!r}] stacks {stack.shape[0]} "
+                             f"layers, the config has {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            got[f"layers.{i}.{name}"] = stack[i].contiguous()
+    if set(got) != set(want):
+        raise ValueError(f"parameters differ: missing "
+                         f"{sorted(set(want) - set(got))}, extra "
+                         f"{sorted(set(got) - set(want))}")
+    for name, t in got.items():
+        if t.shape != want[name].shape or t.dtype != want[name].dtype:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, the "
+                             f"model has {want[name].dtype} "
+                             f"{tuple(want[name].shape)}")
+    model.load_state_dict(got, assign=True)
+    return model.to(device)
 
 
 def quantized_from_jax(artifacts_np: Sequence[np.ndarray], precision: str

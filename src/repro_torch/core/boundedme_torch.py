@@ -50,7 +50,8 @@ from repro_torch.core.schedule import (Schedule, cert_coeffs,
 from repro_torch.kernels import ops
 
 __all__ = ["BlockedPlan", "make_plan", "choose_pull_mode", "resolve_device",
-           "tile_table", "quantize_table", "measured_plan_quant_err",
+           "as_kept", "tile_table", "quantize_table",
+           "measured_plan_quant_err",
            "make_measured_plan", "schedule_operands", "cert_operand",
            "decode_operands", "decode_tiled", "bounded_me_decode",
            "draw_perms", "bounded_me_blocked", "bounded_me_batched"]
@@ -332,14 +333,30 @@ def _tile_major(V: torch.Tensor, plan: BlockedPlan) -> torch.Tensor:
             .permute(0, 2, 1, 3).contiguous())
 
 
+#: float types a table or a query batch keeps; any other is cast to float32
+_KEPT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def as_kept(x, device) -> torch.Tensor:
+    """``x`` as a tensor on ``device``, in its own type when that is
+    float32 or bfloat16 (as the JAX package keeps a table's or a hidden
+    state's dtype), else float32."""
+    x = torch.as_tensor(x)
+    if x.dtype not in _KEPT_DTYPES:
+        x = x.to(torch.float32)
+    return x.to(device)
+
+
 def tile_table(V, plan: BlockedPlan, device="cuda") -> torch.Tensor:
     """The (n, N) table padded and re-laid tile-major on ``device``.
 
-    A static table is re-laid once and reused by every dispatch
+    A float32 or bfloat16 table keeps its type (the fp32 tier pulls a
+    bf16 table's 2-byte cells, widened exactly); any other is cast to
+    float32.  A static table is re-laid once and reused by every dispatch
     (`repro_torch.launch.engine.CascadeExecutor` does so).
     """
     dev = resolve_device(device)
-    V = torch.as_tensor(V, dtype=torch.float32).to(dev)
+    V = as_kept(V, dev)
     if V.shape != (plan.n, plan.N):
         raise ValueError(f"table shape {tuple(V.shape)} != plan's "
                          f"{(plan.n, plan.N)}")
@@ -547,8 +564,9 @@ def _rescore_rows(V4: torch.Tensor, Qp: torch.Tensor, ids: torch.Tensor,
     """Exact fp32 rescore + descending re-sort of cascade candidates.
 
     Gathers each candidate's padded row from the tile-major table and
-    dots it with the zero-padded query, so the product equals the
-    unpadded one and dividing by the true ``N`` lands on (q . v)/N.
+    dots it with the zero-padded query in f32 (a bf16 row or query is
+    widened exactly), so the product equals the unpadded one and
+    dividing by the true ``N`` lands on (q . v)/N.
     Rows at or past ``n_valid`` are pinned to -inf and never re-enter
     the top-K; ties keep the cascade's order.  ``batched``: ``ids (B,
     k)`` and ``Qp (B, Np)``; else ``ids (k,)`` and ``Qp (Np,)``.
@@ -559,7 +577,8 @@ def _rescore_rows(V4: torch.Tensor, Qp: torch.Tensor, ids: torch.Tensor,
     R = plan.tile
     safe = ids.long().clamp(0, V4.shape[0] * R - 1)
     rows = V4[safe // R, :, safe % R, :]                 # (B, k, nb, C)
-    scores = torch.einsum("bkc,bc->bk", rows.reshape(*ids.shape, -1), Qp)
+    scores = torch.einsum("bkc,bc->bk", rows.reshape(*ids.shape, -1).float(),
+                          Qp.float())
     scores = torch.where(ids < n_valid, scores / float(plan.N),
                          torch.full_like(scores, -torch.inf))
     vals, pos = torch.sort(scores, dim=1, descending=True, stable=True)
@@ -585,8 +604,9 @@ def _run_tiled(V4: torch.Tensor, Qp: torch.Tensor, perm, *,
     """The cascade on a `tile_table` table and zero-padded queries ``Qp``
     (``(B, Np)`` batched, ``(Np,)`` for one query), all on ``V4``'s
     device: quantize (table unless ``quantized`` is given; queries
-    always), one fused dispatch, then the fp32 rescore or the padding
-    rescale."""
+    always, in their own type: bf16 queries get bf16-rounded scales, as
+    in the JAX package), one fused dispatch on f32 queries for the fp32
+    and pq tiers, then the fp32 rescore or the padding rescale."""
     dev = V4.device
     Qb = Qp.reshape(*Qp.shape[:-1], plan.n_blocks, plan.block).contiguous()
     perm = _check_perm(perm, plan.n_blocks, dev)
@@ -601,19 +621,21 @@ def _run_tiled(V4: torch.Tensor, Qp: torch.Tensor, perm, *,
     kw = dict(plan=plan, final_exact=final_exact, batched=batched,
               k_out=k_out, n_valid=n_valid, adaptive=adaptive)
     if plan.precision == "pq":          # pq queries stay f32 (LUT walk)
-        out = _fused_call(Vq, Qb, perm, codebook=vaux, **kw)
+        out = _fused_call(Vq, Qb.float(), perm, codebook=vaux, **kw)
     elif quantized_plan:
         Q8, qscale = quantize_blocks(Qb)    # per query block
         out = _fused_call(Vq, Q8, perm, vscale=vaux, qscale=qscale, **kw)
     else:
-        out = _fused_call(V4, Qb, perm, **kw)
+        out = _fused_call(V4, Qb.float(), perm, **kw)
     ids, vals = out[0], out[1]
     if final_exact and (quantized_plan or adaptive):
         ids, vals = _rescore_rows(V4, Qp, ids, n_valid, plan, batched)
     else:
-        # undo the zero-padding rescale so scores estimate (q . v)/N
-        vals = vals * torch.tensor((plan.n_blocks * plan.block) / plan.N,
-                                   dtype=torch.float32, device=dev)
+        # undo the zero-padding rescale so scores estimate (q . v)/N (an
+        # f32 multiply by the f32-rounded factor; a scalar needs no copy
+        # to the card, which would wait for it)
+        vals = vals * float(np.float32((plan.n_blocks * plan.block)
+                                       / plan.N))
     return (ids, vals, out[2]) if adaptive else (ids, vals)
 
 
@@ -624,7 +646,9 @@ def decode_tiled(V4: torch.Tensor, Q, perm, *, plan: BlockedPlan,
     """`bounded_me_decode` on a table already laid out by `tile_table`.
 
     Runs on ``V4``'s device; ``Q``, ``perm`` and ``quantized`` are moved
-    there.  ``perm`` is one ``(n_blocks,)`` permutation shared by the
+    there.  ``Q`` keeps a float32 or bfloat16 type (a model's bf16
+    hidden states: quantized as bf16, widened exactly for the fp32
+    tier).  ``perm`` is one ``(n_blocks,)`` permutation shared by the
     batch or ``(B, n_blocks)``, one per query.  On a quantized plan
     without ``quantized`` the table is quantized here, at every call
     (`quantize_table`).
@@ -634,7 +658,7 @@ def decode_tiled(V4: torch.Tensor, Q, perm, *, plan: BlockedPlan,
         raise ValueError(f"k_out={k_out} outside [K={plan.K}, "
                          f"k_out_cap={plan.k_out_cap}]")
     n_valid = plan.n if n_valid is None else int(n_valid)
-    Q = torch.as_tensor(Q, dtype=torch.float32).to(V4.device)
+    Q = as_kept(Q, V4.device)
     if Q.dim() != 2 or Q.shape[1] != plan.N:
         raise ValueError(f"Q must be (B, {plan.N}), got {tuple(Q.shape)}")
     _, Qp = _pad_operands(None, Q, plan)

@@ -24,8 +24,11 @@ __all__ = ["mips_topk", "nns_topk", "exact_topk", "default_value_range",
 
 def exact_topk(V: torch.Tensor, q: torch.Tensor, K: int = 1
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exhaustive baseline: full matvec + top-K.  Scores are (q.v)/N."""
-    scores = (V @ q).to(torch.float32) / V.shape[1]
+    """Exhaustive baseline: full matvec + top-K.  Scores are (q.v)/N.
+    Operands of two float types meet in the wider one (a bf16 table and
+    an f32 query: an f32 product), as in the JAX package."""
+    dt = torch.promote_types(V.dtype, q.dtype)
+    scores = (V.to(dt) @ q.to(dt)).to(torch.float32) / V.shape[1]
     vals, ids = torch.topk(scores, K)
     return ids, vals
 

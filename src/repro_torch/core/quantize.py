@@ -24,7 +24,8 @@ for any tier by replaying the tier's pull arithmetic against calibration
 queries.
 
 Every function gives the JAX package's result on the same input: int8
-and int4 codes and scales bit for bit, on the CPU and on the card
+and int4 codes and scales bit for bit (from float32 and from bfloat16
+input), on the CPU and on the card
 (``torch.round`` and ``jnp.round`` both round half to even, and every
 division is a true one), pq codes equal for the same codebook, trained codebooks to float
 rounding (the distance products sum in another order).  Integer dots run
@@ -53,21 +54,25 @@ _CHUNK_ELEMS = 1 << 26
 def _scale_of(amax: torch.Tensor, levels: int = INT8_LEVELS) -> torch.Tensor:
     """Per-cell scale max|x| / levels; all-zero cells get scale 1 (codes 0).
 
-    The divisor is a tensor on ``amax``'s device: PyTorch divides a CUDA
-    tensor by a Python number as a multiply by its reciprocal, which
-    would put the card's scales an ulp off the CPU's.
+    The division is taken in ``amax``'s own type when that is bfloat16,
+    then widened, as the JAX package divides a bf16 ``amax`` by the
+    Python int ``levels``: a bf16 input gets bf16-rounded scales, not the
+    f32 quotient.  Any other type divides in float32.  The divisor is a
+    tensor on ``amax``'s device: PyTorch divides a CUDA tensor by a
+    Python number as a multiply by its reciprocal, which would put the
+    card's scales an ulp off the CPU's.
     """
-    amax = amax.to(torch.float32)
-    div = torch.full((), levels, dtype=torch.float32, device=amax.device)
+    if amax.dtype != torch.bfloat16:
+        amax = amax.to(torch.float32)
+    div = torch.full((), levels, dtype=amax.dtype, device=amax.device)
     return torch.where(amax > 0, amax / div,
                        torch.ones_like(amax)).to(torch.float32)
 
 
 def _quantize_cells(V4: torch.Tensor, levels: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    V4 = V4.to(torch.float32)
     vscale = _scale_of(V4.abs().amax(dim=(2, 3)), levels)
-    Vq = torch.round(V4 / vscale[:, :, None, None])
+    Vq = torch.round(V4.to(torch.float32) / vscale[:, :, None, None])
     return Vq.clamp(-levels, levels).to(torch.int8), vscale
 
 
@@ -86,11 +91,11 @@ def quantize_blocks(qb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
     ``qb (n_blocks, C)`` or ``(B, n_blocks, C)`` -> ``(q8 int8, qscale
     float32)``, qscale shaped ``(n_blocks,)`` or ``(B, n_blocks)``.
-    Shared by the int8 and int4 table tiers.
+    Shared by the int8 and int4 table tiers.  bf16 blocks (a model's
+    hidden states) get bf16-rounded scales, as in `_scale_of`.
     """
-    qb = qb.to(torch.float32)
     qscale = _scale_of(qb.abs().amax(dim=-1))
-    q8 = torch.round(qb / qscale[..., None])
+    q8 = torch.round(qb.to(torch.float32) / qscale[..., None])
     return q8.clamp(-INT8_LEVELS, INT8_LEVELS).to(torch.int8), qscale
 
 

@@ -1,5 +1,6 @@
-// Fused BoundedME cascade for Hopper (sm_90a): fp32, int8, int4 and pq
-// pull tiers, each with or without adaptive early exit.
+// Fused BoundedME cascade for Hopper (sm_90a): fp32 (on an fp32 or a bf16
+// table), int8, int4 and pq pull tiers, each with or without adaptive early
+// exit.
 //
 // Replaces `fused_cascade_batched_pallas` and `fused_cascade_pallas`
 // (src/repro/kernels/fused_cascade.py, kernel body `_make_kernel`, scratch
@@ -8,10 +9,11 @@
 // first pull to the final top-k_out extraction.  Two entries, one body.
 //
 // What bounds it.  Every pull reads one stored (R, Cs) tile of the table —
-// fp32 (Cs = C, 4 bytes a cell), int8 (Cs = C, 1 byte), nibble-packed int4
-// (Cs = C/2) or pq codes (Cs = C/w) — and does a few operations per byte, so
-// the pulls are memory-bound: their least time is the pulled bytes over the
-// card's memory rate, which only many SMs with many loads in flight reach.
+// fp32 (Cs = C, 4 bytes a cell), bf16 (Cs = C, 2 bytes), int8 (Cs = C, 1
+// byte), nibble-packed int4 (Cs = C/2) or pq codes (Cs = C/w) — and does a
+// few operations per byte, so the pulls are memory-bound: their least time
+// is the pulled bytes over the card's memory rate, which only many SMs with
+// many loads in flight reach.
 // Between rounds the cascade must stop: every survivor's accumulator is
 // complete before it is ranked, and the next round pulls the kept tiles.
 // Those round ends (15 at the qwen1.5-0.5b table) are serial work per query
@@ -44,7 +46,13 @@
 //    queries; each query's partial is the same sequence of operations as
 //    a lone pull, so results do not depend on the shared read.
 //  * Pulls run on CUDA cores (no TF32, no tensor cores).  fp32: float4
-//    loads of four rows, then an FMA dot and a butterfly per row.  int8 and
+//    loads of four rows, then an FMA dot and a butterfly per row.  A bf16
+//    table (the tied embedding of a bf16 model, as the TPU kernel DMAs it
+//    in its own dtype) is the same tier instantiated on 2-byte cells: a
+//    lane reads the same four consecutive cells as 8 bytes, widens each
+//    exactly to f32 (its bits shifted up 16) and runs the same FMA chain,
+//    so a launch is bitwise the fp32 launch on the widened table and pulls
+//    half its bytes.  int8 and
 //    int4 (R = 8, 16-byte aligned rows): the tile's 16-byte loads are all
 //    issued before any is reduced (C = 512 int8: 8 a lane); __dp4a, then a
 //    transposing shuffle reduction that ends with lane r holding row r.
@@ -85,6 +93,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -98,11 +108,12 @@ constexpr int kStaticSmem = 8192;   // bytes kept for the static shared arrays
 constexpr int kPerThread = 8;       // keys a thread holds while compacting
 constexpr int kSortAll = 2048;      // round ends of at most this many keys sort them all
 
-enum Tier : int { kF32 = 0, kI8 = 1, kI4 = 2, kPQ = 3 };
+// kBF16 is the fp32 tier on a bf16 table: f32 queries, f32 accumulators.
+enum Tier : int { kF32 = 0, kI8 = 1, kI4 = 2, kPQ = 3, kBF16 = 4 };
 
 struct Args {
-  const void* V4;        // (n_tiles, n_blocks, R, Cs) f32 / int8 / packed / codes
-  const void* Qb;        // (B, n_blocks, C): f32 (fp32, pq) or int8 (int8, int4)
+  const void* V4;        // (n_tiles, n_blocks, R, Cs) f32 / bf16 / int8 / packed / codes
+  const void* Qb;        // (B, n_blocks, C): f32 (fp32, bf16, pq) or int8 (int8, int4)
   const float* vscale;   // (n_tiles, n_blocks), int tiers
   const float* qscale;   // (B, n_blocks), int tiers
   const float* codebook; // (n_blocks, Cs, n_codes, w), pq
@@ -147,13 +158,37 @@ struct Part {
   int lo, hi;
 };
 
-// ---- fp32 pulls ----------------------------------------------------------
+// ---- fp32 pulls, on an fp32 or a bf16 table ---------------------------------
+
+// A bf16 cell is its 16 bits (uint16_t); widening it to f32 is exact.
+using bf16_bits = uint16_t;
+
+__device__ __forceinline__ float widen(unsigned bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+// Cells 4i .. 4i + 3 of a row, as f32.
+__device__ __forceinline__ float4 load4(const float* v, size_t i) {
+  return __ldg(reinterpret_cast<const float4*>(v) + i);
+}
+
+__device__ __forceinline__ float4 load4(const bf16_bits* v, size_t i) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(v) + i);
+  return make_float4(widen(u.x & 0xffffu), __uint_as_float(u.x & 0xffff0000u),
+                     widen(u.y & 0xffffu), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float load1(const float* v, size_t i) { return __ldg(v + i); }
+
+__device__ __forceinline__ float load1(const bf16_bits* v, size_t i) {
+  return widen(__ldg(v + i));
+}
 
 // Dot of an (8, 128 * JR) tile with each listed query's block; for each
 // half of four rows the loads of all four rows are issued before any is
 // reduced, and the half is emitted per query.
-template <int JR, class Emit>
-__device__ __forceinline__ void pull8(const float4* __restrict__ v,
+template <int JR, class T, class Emit>
+__device__ __forceinline__ void pull8(const T* __restrict__ v,
                                       const float* __restrict__ Qb,
                                       size_t q_stride, int b0, int b1,
                                       int bstep, int lane, Emit&& emit) {
@@ -165,7 +200,7 @@ __device__ __forceinline__ void pull8(const float4* __restrict__ v,
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int k = 0; k < JR; ++k)
-        t[r][k] = __ldg(v + (h + r) * C4 + lane + 32 * k);
+        t[r][k] = load4(v, (h + r) * C4 + lane + 32 * k);
     for (int b = b0; b < b1; b += bstep) {
       const float4* q = reinterpret_cast<const float4*>(Qb + b * q_stride);
       float4 qv[JR];
@@ -191,14 +226,15 @@ __device__ __forceinline__ void pull8(const float4* __restrict__ v,
 }
 
 // Any R <= 32 and any C; lane r returns row r.
-__device__ float pull_f32_any(const float* __restrict__ v,
+template <class T>
+__device__ float pull_f32_any(const T* __restrict__ v,
                               const float* __restrict__ q, int R, int C,
                               int lane) {
   float mine = 0.f;
   for (int r = 0; r < R; ++r) {
     float s = 0.f;
     for (int c = lane; c < C; c += 32)
-      s = fmaf(__ldg(v + (size_t)r * C + c), __ldg(q + c), s);
+      s = fmaf(load1(v, (size_t)r * C + c), __ldg(q + c), s);
     s = warp_sum(s);
     if (lane == r) mine = s;
   }
@@ -358,16 +394,16 @@ __device__ void pull_cell(const Args& a, int tile, int col, int b0, int b1,
   const size_t cell = static_cast<size_t>(tile) * a.n_blocks + col;
   const size_t tile_cells = static_cast<size_t>(a.R) * a.Cs;
   const size_t q_stride = static_cast<size_t>(a.n_blocks) * a.C;
-  if constexpr (TIER == kF32) {
-    const float* v = static_cast<const float*>(a.V4) + cell * tile_cells;
+  if constexpr (TIER == kF32 || TIER == kBF16) {
+    using T = std::conditional_t<TIER == kBF16, bf16_bits, float>;
+    const T* v = static_cast<const T*>(a.V4) + cell * tile_cells;
     const float* Q = static_cast<const float*>(a.Qb) + static_cast<size_t>(col) * a.C;
     auto emit = [&](int b, Part p) { add_rows<TRACK_VAR>(a, b, tile, p.v, p.lo, p.hi, lane); };
-    const float4* v4 = reinterpret_cast<const float4*>(v);
     if (a.vec) {
       switch (a.C >> 7) {
-        case 1: pull8<1>(v4, Q, q_stride, b0, b1, bstep, lane, emit); return;
-        case 2: pull8<2>(v4, Q, q_stride, b0, b1, bstep, lane, emit); return;
-        case 4: pull8<4>(v4, Q, q_stride, b0, b1, bstep, lane, emit); return;
+        case 1: pull8<1>(v, Q, q_stride, b0, b1, bstep, lane, emit); return;
+        case 2: pull8<2>(v, Q, q_stride, b0, b1, bstep, lane, emit); return;
+        case 4: pull8<4>(v, Q, q_stride, b0, b1, bstep, lane, emit); return;
         default: break;
       }
     }
@@ -1111,6 +1147,7 @@ cudaError_t launch(int tier, const Args& a, int adaptive, int track_var,
     case kI8: return launch_tier<kI8>(a, adaptive, track_var, stream);
     case kI4: return launch_tier<kI4>(a, adaptive, track_var, stream);
     case kPQ: return launch_tier<kPQ>(a, adaptive, track_var, stream);
+    case kBF16: return launch_tier<kBF16>(a, adaptive, track_var, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1131,7 +1168,8 @@ extern "C" int fused_cascade_config(int* sms, int* key_capacity) {
   return static_cast<int>(err);
 }
 
-// The batched entry, for every tier: tier 0 fp32, 1 int8, 2 int4, 3 pq.
+// The batched entry, for every tier: tier 0 fp32, 1 int8, 2 int4, 3 pq,
+// 4 fp32 on a bf16 table.
 // With shared_cols every query reads cols row 0 (the wrapper sets it for
 // cols that are one row expanded over the batch).  Returns the launch's
 // cudaError_t (0 on success); the wrapper raises on anything else.

@@ -37,8 +37,9 @@ __all__ = ["build", "fused_cascade_batched_cuda", "fused_cascade_cuda",
 
 SOURCE = library.CSRC / "fused_cascade.cu"
 
-#: pull tiers, in the CUDA entry points' tier-code order
-TIERS = ("fp32", "int8", "int4", "pq")
+#: pull tiers, in the CUDA entry points' tier-code order; "bf16" is the
+#: fp32 tier on a bfloat16 table (f32 queries and accumulators)
+TIERS = ("fp32", "int8", "int4", "pq", "bf16")
 
 # launches of each entry in all and per tier (``"fused_cascade[int8]"``,
 # or ``"fused_cascade_batched[int8+adaptive]"`` with early exit)
@@ -201,8 +202,10 @@ def _launch(single: bool, V4: torch.Tensor, Qb: torch.Tensor,
     dev = V4.device
     tier, C = resolve_tier(V4.shape[-1], vscale, qscale, codebook,
                            packed_int4)
-    _check("V4", V4, {"fp32": torch.float32, "pq": torch.uint8}.get(
-        tier, torch.int8), 4, dev)
+    if tier == "fp32" and V4.dtype == torch.bfloat16:
+        tier = "bf16"
+    _check("V4", V4, {"fp32": torch.float32, "bf16": torch.bfloat16,
+                      "pq": torch.uint8}.get(tier, torch.int8), 4, dev)
     n_tiles, n_blocks, R, Cs = V4.shape
     # one cols row expanded over the batch (stride 0): every query pulls
     # the same columns, and round 1 is read once for the batch
@@ -247,7 +250,8 @@ def _launch(single: bool, V4: torch.Tensor, Qb: torch.Tensor,
     P = max(n_tiles, n_final * R)
     grid, capacity = launch_grid(dev)
     aligned = V4.data_ptr() % 16 == 0 and Qb.data_ptr() % 16 == 0
-    vec = int(aligned and {"fp32": R == 8 and C in (128, 256, 512),
+    f32_vec = R == 8 and C in (128, 256, 512)
+    vec = int(aligned and {"fp32": f32_vec, "bf16": f32_vec,
                            "int8": C % 16 == 0, "int4": Cs % 16 == 0,
                            "pq": False}[tier])
     ids = torch.empty((B, k_out), dtype=torch.int32, device=dev)
@@ -310,8 +314,10 @@ def fused_cascade_batched_cuda(V4: torch.Tensor, Qb: torch.Tensor,
                                k_cert: int = 1, track_var: bool = False):
     """Launch the fused cascade on CUDA tensors (one launch per batch).
 
-    Operands as in `repro_torch.kernels.ops.fused_cascade_batched`, all
-    contiguous on one CUDA device except ``cols``, which may also be one
+    Operands as in `repro_torch.kernels.ops.fused_cascade_batched` (a
+    bfloat16 ``V4`` with float32 ``Qb`` runs the fp32 tier on the table's
+    2-byte cells, counted as ``[bf16]``), all contiguous on one CUDA
+    device except ``cols``, which may also be one
     ``(S,)`` row expanded over the batch (stride 0): round 1 then reads
     each pulled cell once for the whole batch, with results bitwise those
     of a contiguous copy.  The tier follows from the operands

@@ -114,7 +114,9 @@ def fused_cascade_batched(V4: torch.Tensor, Qb: torch.Tensor,
     ranking.
 
     The tier follows from the operands, as in the JAX package's
-    ``fused_cascade_batched``: float32 ``V4`` and ``Qb`` (fp32); int8
+    ``fused_cascade_batched``: float32 or bfloat16 ``V4`` with float32
+    ``Qb`` (fp32; a bf16 table is widened exactly and launches count as
+    ``[bf16]``); int8
     ``V4`` and ``Qb`` with ``vscale (n_tiles, n_blocks)`` and ``qscale
     (B, n_blocks)`` float32 (int8); the same with ``V4``'s last dim
     nibble-packed to C/2 and ``packed_int4=True`` (int4, W4A8); uint8 pq

@@ -19,7 +19,8 @@ tile-max means cut at ``n_keep`` (highest score first, lowest slot on
 ties), which is the order the kernel's extraction writes survivors in.
 
 Pull tiers, as in ``fused_cascade_batched_pallas`` of the JAX package:
-fp32 (an fp32 dot), int8 and int4 (an exact integer dot — taken in
+fp32 (an fp32 dot; a bfloat16 table is widened to f32, exactly, as the
+kernel's bf16 instantiation widens it), int8 and int4 (an exact integer dot — taken in
 float64, which holds it exactly — then ``raw * (vscale * qscale)`` as two
 rounded float32 ops; int4 first unpacks its half-split nibbles), and pq
 (a per-query LUT of query-vs-codeword products, then one lookup per row
@@ -94,8 +95,9 @@ class _Pull:
     def __call__(self, tiles, cc):
         bi = torch.arange(tiles.shape[0], device=tiles.device)[:, None]
         slab = self.V4[tiles, cc]                           # (B, m, R, Cs)
-        if self.tier == "fp32":
-            return torch.einsum("bmrc,bmc->bmr", slab, self.Qb[bi, cc])
+        if self.tier == "fp32":          # a bf16 table widens exactly
+            return torch.einsum("bmrc,bmc->bmr", slab.float(),
+                                self.Qb[bi, cc])
         if self.tier == "pq":
             b4, c4 = bi[..., None, None], cc[..., None, None]
             picked = self.lut[b4, c4, self.sidx, slab.long()]  # (B,m,R,S)

@@ -43,8 +43,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.boundedme_torch import (decode_operands, decode_tiled,
-                                              make_plan,
+from repro_torch.core.boundedme_torch import (as_kept, decode_operands,
+                                              decode_tiled, make_plan,
                                               measured_plan_quant_err,
                                               quantize_table, resolve_device,
                                               tile_table)
@@ -267,8 +267,9 @@ class CascadeExecutor:
                     f"width); use pull_mode='row' or an fp32 store")
         else:
             self.device = resolve_device(device)
-            self._table = torch.as_tensor(table, dtype=torch.float32).to(
-                self.device)
+            # a bf16 table stays bf16 (its tiled copy too), as the JAX
+            # executor serves a bf16 model's embedding in its own dtype
+            self._table = as_kept(table, self.device)
             n, N = self._table.shape
             if value_range is None:
                 # a-priori product-range bound: callers who know their

@@ -1,7 +1,24 @@
-"""Serving CLI of the port: the request loop and the serving runtime.
+"""Serving CLI of the port: the LM decode demo, the request loop and the
+serving runtime.
 
-The PyTorch counterpart of ``repro.launch.serve --loop [--runtime]``: a
-seeded query stream is served against the vocab table of an architecture
+The default mode is the PyTorch counterpart of ``repro.launch.serve``
+without ``--loop``, the paper's feature in production position: a dense
+language model (`repro_torch.models`, weights drawn from seed 0) prefills
+a batch of seeded prompts and decodes greedily, and with ``--mips
+boundedme`` every decode step picks the next tokens by the BoundedME
+bandit over the vocab table — one fused-cascade launch per step, on the
+table's own type (bf16 at full width) — in place of the full vocab
+matvec and argmax::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --mips boundedme --eps 0.1 --tokens 32
+
+``--mips exact`` decodes with the f32 logits of every row;
+``--precision int8|int4`` pulls quantized tiles (pq needs a table to
+calibrate on and serves through ``--loop``).
+
+With ``--loop``, the counterpart of ``repro.launch.serve --loop
+[--runtime]``: a seeded query stream is served against the vocab table of an architecture
 (its tied embedding, ``(padded_vocab, d_model)`` with the padding rows
 masked) by `MIPSServeEngine`, one fused-cascade launch per micro-batch::
 
@@ -36,31 +53,39 @@ lanes::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --loop --precision pq --adaptive --bound bernstein
 
-Modes and options of later slices — the decode demo, ``--tenants``,
-``--shards`` > 1 — are refused with a message naming their ROADMAP.md
-item.
+Options of later slices — ``--tenants``, ``--shards`` > 1, the model
+families other than dense — are refused with a message naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import REGISTRY, get_config
+from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import make_serving_table
 from repro_torch.core.boundedme_torch import resolve_device
+from repro_torch.core.schedule import flatten_schedule
 from repro_torch.launch.admission import STATUSES, PriorityClass
-from repro_torch.launch.engine import MIPSServeEngine, ServeRuntime
+from repro_torch.launch.engine import (MIPSServeEngine, ServeRuntime,
+                                       seeded_perm)
 from repro_torch.launch.faults import FaultInjector
+from repro_torch.models.model import DenseLM
+from repro_torch.models.steps import decode_step, mips_head, prefill_step
 from repro_torch.obs import FlightRecorder, SpanTracer
 from repro_torch.store import DynamicTableStore
 
 __all__ = ["arrival_trace", "simulate_stream", "make_churn", "build_loop",
-           "serve_stream", "main"]
+           "serve_stream", "decode_config", "run_decode_demo", "main"]
 
 #: namespace tag so trace streams never alias other default_rng users
 _TRACE_ROOT = 0x7AC3
@@ -238,9 +263,10 @@ def build_loop(args) -> Tuple[object, np.ndarray]:
                   pull_mode=args.pull_mode, pq_subdims=args.pq_subdims,
                   seed=args.stream_seed, device=dev)
     if args.dynamic:
+        # the store is fp32, as the JAX package casts the table for it
         rows, _ = make_serving_table(cfg, 0, "cpu")
         table = DynamicTableStore(
-            rows[:cfg.vocab].numpy(), block=block,
+            rows[:cfg.vocab].float().numpy(), block=block,
             capacity_slack=args.capacity_slack, precision=args.precision,
             pq_subdims=args.pq_subdims, device=dev)
     else:
@@ -384,6 +410,100 @@ def check_outcomes(args, stats: dict) -> None:
           f"all typed, p99 {p99:.1f}ms <= {bound:.0f}ms")
 
 
+def decode_config(args) -> ArchConfig:
+    """The decode demo's config: ``--arch`` (``--smoke`` reduced) with the
+    head's ``--mips``, ``--eps``, ``--delta`` and ``--precision``."""
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    return dataclasses.replace(cfg, mips_mode=args.mips, mips_eps=args.eps,
+                               mips_delta=args.delta,
+                               mips_precision=args.precision)
+
+
+def run_decode_demo(args, *, cfg: Optional[ArchConfig] = None,
+                    model: Optional[DenseLM] = None,
+                    perm_of: Optional[Callable[[int, int], object]] = None
+                    ) -> dict:
+    """The default mode: batched prefill, then greedy decode.
+
+    ``--batch`` prompts of ``--prompt-len`` tokens drawn from
+    ``default_rng(0)`` (as in the JAX package's demo) fill a cache of
+    ``prompt_len + tokens``; the first decode step feeds each prompt's
+    last token again at position ``prompt_len``, as the JAX demo does,
+    and each step feeds the token the last one chose.  Decode step ``i``
+    of a boundedme head draws its block permutation ``seeded_perm(0, i,
+    n_blocks)``, or ``perm_of(i, n_blocks)`` when given (tests pass the
+    JAX package's).  ``cfg`` (default `decode_config`) and ``model``
+    (default a `DenseLM` from seed 0 on ``--device``) may be passed in.
+
+    Prints the head's plan and kernel path, the timings and the first
+    sequence, and returns ``{"tokens": (B, tokens) int32 array,
+    "prefill_ms", "decode_ms", "ms_per_token", "cfg", "model"}``.
+    """
+    dev = resolve_device(args.device)
+    if cfg is None:
+        cfg = decode_config(args)
+    if model is None:
+        model = DenseLM(cfg, seed=0, device=dev)
+    if cfg.mips_mode == "boundedme":
+        # the whole bandit of a decode step is one fused-cascade launch
+        # over the head's tiled table, built here once; surface the static
+        # plan, so the (eps, delta) <-> pull-count trade is visible
+        plan = mips_head(model, cfg).plan
+        flat = flatten_schedule(plan.schedule, final_coverage=True)
+        tier = plan.precision
+        if tier == "fp32" and cfg.dtype == "bfloat16":
+            tier = "bf16"
+        path = (f"CUDA fused_cascade_batched[{tier}], one launch per "
+                f"decode step" if dev.type == "cuda"
+                else "plain PyTorch version of the cascade (--device cpu)")
+        print(f"[serve] fused cascade: rounds={len(plan.schedule.rounds)} "
+              f"grid_steps={flat.n_steps} precision={plan.precision} "
+              f"pull_speedup={plan.schedule.speedup:.2f}x path={path}",
+              flush=True)
+        n_blocks = plan.n_blocks
+    sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+            else (lambda: None))
+    rng = np.random.default_rng(0)
+    B, P = args.batch, args.prompt_len
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P))).to(dev)
+    t0 = time.perf_counter()
+    _, caches = prefill_step(model, prompt, cache_len=P + args.tokens)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    tok = prompt[:, -1:]
+    out = []
+    t0 = time.perf_counter()
+    for i in range(args.tokens):
+        perm = None
+        if cfg.mips_mode == "boundedme":
+            perm = (perm_of(i, n_blocks) if perm_of is not None
+                    else seeded_perm(0, i, n_blocks))
+        nxt, caches = decode_step(model, cfg, caches, tok, P + i, perm=perm)
+        out.append(nxt)
+        tok = nxt[:, None]
+    sync()
+    t_decode = time.perf_counter() - t0
+    gen = torch.stack(out, dim=1).cpu().numpy()
+    per_tok = t_decode / max(1, args.tokens)
+    print(f"[serve] arch={cfg.name} mips={cfg.mips_mode} eps={cfg.mips_eps} "
+          f"batch={B} device={dev}")
+    print(f"[serve] prefill {P} toks: {t_prefill * 1e3:.1f} ms; decode "
+          f"{args.tokens} toks: {t_decode * 1e3:.1f} ms "
+          f"({per_tok * 1e3:.2f} ms/tok)")
+    print(f"[serve] first sequences: {gen[0][:16].tolist()}", flush=True)
+    return {"tokens": gen, "prefill_ms": t_prefill * 1e3,
+            "decode_ms": t_decode * 1e3, "ms_per_token": per_tok * 1e3,
+            "cfg": cfg, "model": model}
+
+
+#: the JAX package's archs of families that wait for their port
+_LATER_ARCHS = {"qwen3-moe-30b-a3b": "moe", "grok-1-314b": "moe",
+                "mamba2-130m": "ssm", "jamba-v0.1-52b": "hybrid",
+                "whisper-medium": "encdec", "internvl2-26b": "vlm",
+                "command-r-35b": "dense"}
+
 #: options of later slices: (flag, is-set test, ROADMAP.md item)
 _LATER = (
     ("--tenants", lambda a: a.tenants is not None,
@@ -395,9 +515,28 @@ _LATER = (
 
 def _validate_args(ap: argparse.ArgumentParser, args) -> None:
     """Refuse what this slice does not serve, and bad values, up front."""
+    if args.arch not in REGISTRY:
+        if args.arch in _LATER_ARCHS:
+            ap.error(f"--arch {args.arch} ({_LATER_ARCHS[args.arch]} "
+                     f"family) is not ported yet: ROADMAP.md queue 1 item 7 "
+                     f"(the model zoo; the port has {sorted(REGISTRY)})")
+        ap.error(f"unknown --arch {args.arch!r}; have {sorted(REGISTRY)}")
     if not args.loop:
-        ap.error("only --loop is ported: the decode demo needs the model "
-                 "zoo (ROADMAP.md queue 1 item 7)")
+        if args.precision == "pq":
+            ap.error("--precision pq requires --loop: pq plans need a "
+                     "measured quantization-error bound calibrated on the "
+                     "served table, which the serving engines perform at "
+                     "build time; the decode demo's plan has no table to "
+                     "calibrate on")
+        for flag, on in (("--runtime", args.runtime),
+                         ("--dynamic", args.dynamic),
+                         ("--metrics-out", args.metrics_out)):
+            if on:
+                ap.error(f"{flag} requires --loop: it serves the request "
+                         f"stream, not the decode demo")
+        if args.prompt_len < 1 or args.tokens < 1:
+            ap.error(f"--prompt-len and --tokens must be >= 1, got "
+                     f"{args.prompt_len} and {args.tokens}")
     for flag, is_set, item in _LATER:
         if is_set(args):
             ap.error(f"{flag} is not ported yet: ROADMAP.md {item}")
@@ -482,6 +621,12 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) launches the CUDA kernel; "
                          "'cpu' runs the plain PyTorch version")
+    ap.add_argument("--mips", default="exact",
+                    choices=["exact", "boundedme"],
+                    help="the decode demo's head: the full vocab matvec "
+                         "and argmax, or the BoundedME bandit")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--eps", type=float, default=0.1)
     ap.add_argument("--delta", type=float, default=0.1)
     ap.add_argument("--precision", default="fp32",
@@ -502,7 +647,7 @@ def _build_parser() -> argparse.ArgumentParser:
                     choices=["row", "coord", "hybrid"])
     ap.add_argument("--batch", type=int, default=4,
                     help="micro-batch size (--loop) / kernel lanes "
-                         "(--runtime)")
+                         "(--runtime) / decode batch (demo)")
     ap.add_argument("--loop", action="store_true",
                     help="run the micro-batching MIPS request loop")
     ap.add_argument("--requests", type=int, default=256)
@@ -595,8 +740,13 @@ def parse_args(argv: Optional[list] = None):
 
 
 def main(argv: Optional[list] = None) -> None:
-    """CLI entry point."""
-    run_loop(parse_args(argv))
+    """CLI entry point: ``--loop`` for the request loop, default for the
+    decode demo."""
+    args = parse_args(argv)
+    if args.loop:
+        run_loop(args)
+    else:
+        run_decode_demo(args)
 
 
 if __name__ == "__main__":

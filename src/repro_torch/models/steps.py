@@ -1,0 +1,124 @@
+"""Prefill and greedy decode steps of the dense model.
+
+The PyTorch counterpart of ``repro.models.steps`` (``prefill_step``,
+``make_mips_plan``, ``decode_step``).  `decode_step` is where the paper
+lands in the serving stack: with ``cfg.mips_mode='boundedme'`` the
+greedy next-token argmax over the vocab table runs as the BoundedME
+bandit — one launch of the fused-cascade kernel for the whole batch
+(`repro_torch.core.boundedme_torch.decode_tiled`) — in place of the full
+``(d x vocab)`` matvec and argmax.
+
+The head's tile-major table and, on the int8 / int4 tiers, its quantized
+artifacts are built once per parameter set and plan (`mips_head`): the
+JAX package re-lays and quantizes the table inside its jitted step, with
+the same results, but per step that would move the whole table again.
+The block permutation of a step is an explicit argument (``perm``), as
+everywhere in the port.  ``loss_fn`` and ``train_step`` wait for
+training, and the mesh branch (a vocab-sharded head) for sharded serving
+(ROADMAP.md queue 1 items 7 and 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.boundedme_torch import (BlockedPlan, decode_tiled,
+                                              draw_perms, make_plan,
+                                              quantize_table, tile_table)
+from repro_torch.models.model import Caches, DenseLM, masked_logits
+
+__all__ = ["prefill_step", "make_mips_plan", "MipsHead", "mips_head",
+           "decode_step"]
+
+
+def prefill_step(model: DenseLM, tokens: torch.Tensor, cache_len: int
+                 ) -> Tuple[torch.Tensor, Caches]:
+    """Process the prompt: ``(last-position hidden (B, d), caches)``."""
+    h, caches = model(tokens, cache_len=cache_len)
+    return h[:, -1], caches
+
+
+def make_mips_plan(cfg: ArchConfig, K: int = 1) -> BlockedPlan:
+    """The static BoundedME plan of the vocab head: ``value_range`` 4.0,
+    tiles of 8 rows, blocks of ``min(512, d_model)`` columns, the
+    config's eps, delta and precision."""
+    if cfg.mips_precision == "pq":
+        raise ValueError("the decode head's plan has no table to calibrate "
+                         "a pq error bound on; pq serves through --loop")
+    return make_plan(cfg.padded_vocab, cfg.d_model, K=K, eps=cfg.mips_eps,
+                     delta=cfg.mips_delta, value_range=4.0, tile=8,
+                     block=min(512, cfg.d_model),
+                     precision=cfg.mips_precision)
+
+
+@dataclasses.dataclass
+class MipsHead:
+    """The bandit head of one parameter set under one plan: the vocab
+    table laid out tile-major (in the table's own type) and its quantized
+    artifacts on the int tiers."""
+
+    plan: BlockedPlan
+    V4: torch.Tensor
+    quantized: Optional[tuple]
+    n_valid: int
+    key: tuple
+
+    def __call__(self, hid: torch.Tensor, perm) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+        """``(ids (B, 1) int32, scores (B, 1) float32)`` of hidden states
+        ``hid (B, d)`` under the block permutation ``perm``."""
+        return decode_tiled(self.V4, hid, perm, plan=self.plan,
+                            final_exact=True, n_valid=self.n_valid,
+                            quantized=self.quantized)
+
+
+def mips_head(model: DenseLM, cfg: ArchConfig) -> MipsHead:
+    """The model's bandit head under ``cfg``'s plan, built at the first
+    call and kept until the plan or the table (its storage or an
+    in-place write) changes."""
+    plan = make_mips_plan(cfg)
+    table = model.head_table
+    key = (plan, table.data_ptr(), table._version)
+    head = getattr(model, "_mips_head", None)
+    if head is None or head.key != key:
+        model._mips_head = None              # free the old copy first
+        V4 = tile_table(table, plan, table.device)
+        quant = (quantize_table(V4, plan) if plan.precision != "fp32"
+                 else None)
+        model._mips_head = MipsHead(plan, V4, quant, cfg.vocab, key)
+    return model._mips_head
+
+
+def decode_step(model: DenseLM, cfg: ArchConfig, caches: Caches,
+                tokens: torch.Tensor, pos: int, perm=None, mesh=None
+                ) -> Tuple[torch.Tensor, Caches]:
+    """One greedy decode step: ``(next_token (B,) int32, caches)``.
+
+    ``cfg.mips_mode='exact'``: the f32 logits of every vocab row, the
+    padding rows at -1e30, and the first index of the maximum.
+    ``'boundedme'``: the bandit head under ``perm``, the step's block
+    permutation shared by the batch (default: `draw_perms` seeded 0),
+    with exact final scores and the padding rows masked in the cascade.
+    """
+    if mesh is not None:
+        raise NotImplementedError("the vocab-sharded head waits for "
+                                  "sharded serving (ROADMAP.md queue 1 "
+                                  "item 6)")
+    h, caches = model(tokens, caches=caches, pos=pos)
+    hid = h[:, -1]
+    if cfg.mips_mode == "boundedme":
+        head = mips_head(model, cfg)
+        if perm is None:
+            perm = draw_perms(head.plan.n_blocks)
+        ids, _ = head(hid, perm)
+        next_tok = ids[:, 0]
+    elif cfg.mips_mode == "exact":
+        next_tok = torch.argmax(masked_logits(cfg, model.head_table, hid),
+                                dim=-1)
+    else:
+        raise ValueError(f"unknown mips_mode {cfg.mips_mode!r}")
+    return next_tok.to(torch.int32), caches

@@ -17,7 +17,8 @@ from the kernel) and refuse a schedule off the flat layout.  The
 gathered tile-dot and the blocked
 matvec agree with their plain versions to rtol 1e-5 and atol 1e-5 *
 max|out| in f32 and bf16: the products are exact in f32 and only the
-order of the sums within a block or slab differs.
+order of the sums within a block or slab differs.  The fp32 tier on a
+bf16 table is bitwise the fp32 launch on the table widened to f32.
 """
 
 import numpy as np
@@ -471,6 +472,72 @@ def test_single_query_kernel_matches_plain_and_batch_of_one(
         dargs[0], dargs[1][None], dargs[2], dargs[3], dargs[4][None], **bkw)
     for a, b in zip(got, batch):
         assert torch.equal(a, b[0])
+
+
+@pytest.mark.parametrize("bound", [None, "hoeffding", "bernstein"])
+@pytest.mark.parametrize("n,N,K,block,mode,tile,n_valid,k_out,cover,B",
+                         [CASES[i] for i in (0, 1, 2, 3, 4, 5, 6, 9)])
+def test_bf16_table_is_bitwise_the_widened_f32_launch(
+        card, bound, n, N, K, block, mode, tile, n_valid, k_out, cover, B):
+    """The fp32 tier on a bf16 table (a bf16 model's vocab head): bitwise
+    the fp32 launch on the table widened to f32, in row and coord mode
+    (float4 and scalar pulls), with and without early exit; agrees with
+    the plain version on the same bf16 operands; one ``[bf16]`` launch;
+    the single-query entry bitwise a B = 1 batched launch."""
+    args, kw = _operands(n, N, K, block, mode, tile,
+                         cover and bound is None, B, seed=n,
+                         bound=bound or "hoeffding")
+    b16 = (args[0].bfloat16(), *args[1:])
+    f32 = (b16[0].float(), *args[1:])
+    kw = dict(kw, k_out=k_out, n_valid=n_valid)
+    if bound is not None:
+        plan = bt.make_plan(n, N, K=K, eps=0.5, delta=0.1, value_range=8.0,
+                            block=block, tile=tile, pull_mode=mode,
+                            coord_block=32 if block < 128 else 128,
+                            bound=bound)
+        kw.update(cert=bt.cert_operand(plan.schedule, torch.device("cpu")),
+                  k_cert=K, track_var=bound == "bernstein")
+    dargs, dkw = _on(card, b16, kw)
+    name = f"fused_cascade_batched[bf16{'' if bound is None else '+adaptive'}]"
+    before = fc.launch_counts()
+    got = ops.fused_cascade_batched(*dargs, **dkw)
+    torch.cuda.synchronize()
+    after = fc.launch_counts()
+    assert after[name] == before[name] + 1
+    assert after["fused_cascade_batched"] == \
+        before["fused_cascade_batched"] + 1
+    wide = fc.fused_cascade_batched_cuda(*(t.to(card) for t in f32), **dkw)
+    for a, b in zip(got, wide):
+        assert torch.equal(a, b)
+    want = ops.fused_cascade_batched(*b16, **kw)     # the plain version
+    if bound is not None:
+        np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].numpy())
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    g, w = got[1].cpu().numpy(), want[1].numpy()
+    fin = np.isfinite(w)
+    np.testing.assert_array_equal(np.isfinite(g), fin)
+    np.testing.assert_allclose(g[fin], w[fin], rtol=1e-5,
+                               atol=1e-6 * float(np.abs(w[fin]).max()))
+    one = fc.fused_cascade_cuda(dargs[0], dargs[1][0].contiguous(),
+                                *dargs[2:4], dargs[4][0].contiguous(),
+                                **dkw)
+    batch = fc.fused_cascade_batched_cuda(dargs[0], dargs[1][:1],
+                                          *dargs[2:4], dargs[4][:1], **dkw)
+    for a, b in zip(one, batch):
+        assert torch.equal(a, b[0])
+
+
+def test_bf16_table_needs_f32_queries(card):
+    """The bf16 instantiation pulls a bf16 table against f32 queries: the
+    host widens a bf16 hidden state first; bf16 or int8 queries are
+    refused, and nothing launches."""
+    args, kw = _operands(203, 300, 3, 64, "row", 8, True, 2, seed=0)
+    V4, Qb, *rest = (t.to(card) for t in args)
+    before = fc.launch_counts()
+    for q in (Qb.bfloat16(), Qb.to(torch.int8), Qb.double()):
+        with pytest.raises(TypeError, match="float32"):
+            fc.fused_cascade_batched_cuda(V4.bfloat16(), q, *rest, **kw)
+    assert fc.launch_counts() == before
 
 
 def _grid_of(module, device, dtype, geo, work):

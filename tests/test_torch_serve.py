@@ -12,8 +12,11 @@
   fraction) must be equal too.
 * `serving_table_from_jax` carries the JAX package's serve table over.
 * The port and ``chip_smoke.py`` import neither jax nor ``repro``.
-* Without CUDA and without ``device="cpu"`` the entry points raise, and
-  the options of later slices are refused.
+* Without CUDA and without ``device="cpu"`` the entry points raise (the
+  decode demo too), and the options of later slices are refused.
+* The decode demo runs on the CPU at smoke size and refuses what it does
+  not serve (`tests/test_torch_decode_demo.py` holds its tokens against
+  the JAX package's).
 """
 
 import ast
@@ -238,9 +241,38 @@ def test_serve_cli_refuses_later_slices(argv, fragment, capsys):
 
 
 def test_serve_cli_refuses_decode_demo(capsys):
-    with pytest.raises(SystemExit):
-        serve.parse_args(["--arch", "qwen1.5-0.5b"])
-    assert "model zoo" in capsys.readouterr().err
+    """The decode demo is ported; what it does not serve is refused with
+    its reason or ROADMAP.md item: pq (no table to calibrate on, as in
+    the JAX package's CLI), the vocab-sharded head, families other than
+    dense, and loop-only modes."""
+    for argv, fragment in (
+            (["--precision", "pq"], "requires --loop"),
+            (["--shards", "2"], "queue 1 item 6"),
+            (["--runtime"], "requires --loop"),
+            (["--tokens", "0"], "must be >= 1")):
+        with pytest.raises(SystemExit):
+            serve.parse_args(["--arch", "qwen1.5-0.5b", *argv])
+        assert fragment in capsys.readouterr().err, argv
+    for arch in ("mamba2-130m", "qwen3-moe-30b-a3b", "whisper-medium",
+                 "command-r-35b"):
+        with pytest.raises(SystemExit):
+            serve.parse_args(["--arch", arch, "--mips", "boundedme"])
+        assert "queue 1 item 7" in capsys.readouterr().err, arch
+    args = serve.parse_args(["--arch", "tinyllama-1.1b", "--smoke"])
+    assert not args.loop and args.mips == "exact" and args.tokens == 32
+
+
+@pytest.mark.parametrize("mips", ["exact", "boundedme"])
+def test_serve_cli_decode_demo_on_cpu(mips, capsys):
+    serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
+                "--mips", mips, "--tokens", "3", "--batch", "2",
+                "--prompt-len", "4"])
+    out = capsys.readouterr().out
+    assert f"mips={mips}" in out and "ms/tok" in out
+    seq = out.strip().splitlines()[-1]
+    assert seq.startswith("[serve] first sequences: [")
+    assert len(seq.split("[")[-1].split(",")) == 3
+    assert ("fused cascade" in out) == (mips == "boundedme")
 
 
 def test_executor_refuses_later_slices():
@@ -267,6 +299,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--loop",
                     "--requests", "4"])
+    for mips in ("exact", "boundedme"):       # the decode demo
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--mips", mips,
+                        "--tokens", "2"])
 
 
 def _imported_modules(path: Path):
@@ -283,7 +319,11 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"repro_torch/launch/admission.py", "repro_torch/launch/faults.py",
             "repro_torch/obs/trace.py", "repro_torch/obs/flight.py",
             "repro_torch/distributed/sharding.py",
-            "repro_torch/store/dynamic_table.py"} <= names
+            "repro_torch/store/dynamic_table.py",
+            "repro_torch/models/layers.py", "repro_torch/models/model.py",
+            "repro_torch/models/steps.py",
+            "repro_torch/configs/tinyllama_1_1b.py",
+            "repro_torch/configs/qwen2_5_3b.py"} <= names
     files.append(ROOT / "chip_smoke.py")
     for f in files:
         for mod in _imported_modules(f):
