@@ -104,7 +104,43 @@ Phases, one line each (any failure exits non-zero before the result):
    per rung beside the runtime phase's, whether the cascade's round-end
    keys need the device workspace (P against ``launch_grid``'s shared
    memory capacity), and the device memory before and at peak;
-7. mips — the library API on the unpadded vocab table (151936, 1024),
+7. tenancy — the ``--loop --tenants`` path in process: four tenants'
+   f32 ``DynamicTableStore``s at slack 1.5, 1,024 wide, drawn on the card
+   — ``vocab`` (151,936 rows, fp32, rate 8), ``items`` (524,288, int8,
+   rate 2), ``cold_a`` (262,144, fp32, eps floor 0.4, rate 1) and
+   ``cold_b`` (262,144, int4, rate 1), about 8.4 GB — in a
+   ``TableRegistry`` whose ``--table-budget-mb`` is the ``vocab``,
+   ``items`` and ``cold_b`` stores' bytes plus 5 %, so the cold tables
+   page each other out; the runtime phase's settings (K = 4, eps = delta
+   = 0.1, 3 rungs where a floor is set, 4 lanes, row mode, queue 16, 20
+   ms request deadline), 384 bursty open-loop arrivals (seed 0) each
+   tenant at its rate factor times the base rate, ``--inject-error-rate
+   0.1 --inject-latency-rate 0.05 --fault-seed 0``, and 64 mutations
+   staged on ``items`` at the middle arrival.  Two streams, each on
+   tables built anew: at the runtime phase's 0.1 ms base spacing (the
+   trace spans about 16 ms, less than one cold page-in, so what follows
+   the first page-in is shed), and at 5 ms (about 0.8 s, every tenant
+   served between page-ins).  Every dispatch (warm-ups too) is held against the
+   plain version on its buffer, permutation and rung plan before the
+   next flush, served scores must be the float64 exact ones of live
+   rows; every page-in must bring back the buffers the table was
+   registered (or last flushed) with, bytewise (copies kept on the card,
+   outside the budget); every eviction must lower
+   ``torch.cuda.memory_allocated()`` by the table's bytes; resident
+   bytes never pass the budget; launches per tier equal the executors'
+   dispatches; every tenant answers (at 5 ms) and no queue passes its
+   capacity;
+   the burst flushes; ``--check-outcomes`` and
+   ``tools/check_obs_artifacts.py --expect-tenants`` hold; and every
+   answered ``vocab`` dispatch is replayed through a dedicated
+   ``ServeRuntime`` on a store of the same rows with the same config and
+   seed: the same permutation and bitwise the same answers.  It prints
+   per tenant the outcome mix, p50 / p99 and requests per rung; the
+   page-outs and page-ins with each page-in's ms; executor rebuilds by
+   cause with their warm ms and each tenant's first dispatch after a
+   warm-up; resident bytes, the budget, device memory before and at
+   peak; the median dispatch ms per tier; the stream's seconds;
+8. mips — the library API on the unpadded vocab table (151936, 1024),
    widened to f32:
    8 seeded queries through ``mips_topk`` (K = 4, eps = delta = 0.1,
    ``final_exact``) per tier and pull mode, and int8 with adaptive
@@ -116,13 +152,13 @@ Phases, one line each (any failure exits non-zero before the result):
    float64 nearest-neighbour search, and ``bounded_me_batched`` on 4
    queries with per-query perms: one batched launch, bitwise equal to
    four single-query calls;
-8. quickstart — the recommender table of ``examples/quickstart.py``
+9. quickstart — the recommender table of ``examples/quickstart.py``
    (``mf_dataset(20000, 8192, rank=32, seed=0)``, block 128, K = 5,
    delta = 0.1, eps in {0.5, 2, 8} sigma, fp32, ``final_exact``):
    kernel held against the plain version, exact scores; prints the top-5
    overlap with exact search, the plan's speedup, and the kernel and call
    ms against ``torch.matmul`` + ``torch.topk``;
-9. decode — the ``repro_torch.launch.serve`` decode demo (no ``--loop``)
+10. decode — the ``repro_torch.launch.serve`` decode demo (no ``--loop``)
    in process: qwen1.5-0.5b at full width and depth, bf16 weights from a
    seeded generator on the card, 4 prompts of 16 tokens, 32 greedy
    tokens, the bandit head at eps = delta = 0.1 (after a 2-token warm-up
@@ -140,8 +176,9 @@ Phases, one line each (any failure exits non-zero before the result):
    the untied unembedding as the head), held the same way; then
    qwen1.5-0.5b at 2 layers in fp32 on the card and on the CPU, same
    weights: equal next tokens, hidden states within rtol 1e-4;
-10. a ``kernels`` JSON line, one entry per kernel and tier (the batched
-   cascade's launches are the serve, runtime, store and decode phases';
+11. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+   cascade's launches are the serve, runtime, store, tenancy and decode
+   phases';
    its ``[bf16]`` entry times the decode head), and last the ``ok`` JSON
    line.
 
@@ -163,6 +200,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -225,6 +263,30 @@ STORE_RUNTIME_TIERS = [TIERS[0], TIERS[1]]
 STORE_ARGV = RUNTIME_ARGV + [
     "--dynamic", "--churn-rate", "0.25", "--capacity-slack",
     str(STORE_SLACK), "--inject-flush-rate", "0.2"]
+#: the tenancy phase's tenants: (name, rows, tier, rate factor, eps floor)
+TENANTS = [("vocab", 151_936, "fp32", 8.0, None),
+           ("items", 524_288, "int8", 2.0, None),
+           ("cold_a", 262_144, "fp32", 1.0, 0.4),
+           ("cold_b", 262_144, "int4", 1.0, None)]
+#: ``--loop --tenants``: four tables under a byte budget, faults on
+TENANCY_ARGV = [
+    "--arch", "qwen1.5-0.5b", "--loop", "--requests", "384", "--batch", "4",
+    "--topk", str(K), "--eps", str(EPS), "--delta", str(DELTA),
+    "--pull-mode", "row", "--degrade-rungs", "3", "--deadline-ms", "2",
+    "--queue-capacity", "16", "--request-deadline-ms", "20",
+    "--max-retries", "2", "--pattern", "bursty",
+    "--stream-seed", "0", "--inject-error-rate", "0.1",
+    "--inject-latency-rate", "0.05", "--fault-seed", "0",
+    "--flight-capacity", "8192", "--check-outcomes"]
+#: the tenancy phase's streams: (``--interarrival-ms``, whether every
+#: tenant must answer).  At 0.1 ms the 384 arrivals span about 16 ms, less
+#: than one cold page-in: the stream measures the shedding that follows;
+#: at 5 ms (about 0.8 s) every tenant is served between page-ins
+TENANCY_STREAMS = [("0.1", False), ("5", True)]
+#: mutations staged on ``items`` at the stream's middle arrival
+TENANCY_BURST = 64
+#: the tenant whose dispatches are replayed through a dedicated runtime
+TENANCY_REPLAY = "vocab"
 
 
 class SmokeFailure(Exception):
@@ -1391,6 +1453,367 @@ def phase_store(table, n_valid, runtime) -> dict:
     return out
 
 
+def tenant_bytes(rows: int, precision: str, N: int = 1024,
+                 block: int = 512, tile: int = 8) -> int:
+    """Device bytes of a tenant's store at slack 1.5, from its geometry:
+    the tiled f32 table plus the int8 / int4 codes and their scales."""
+    cap = -(-int(np.ceil(rows * 1.5)) // tile) * tile
+    block = min(block, N)
+    n_blocks = -(-N // block)
+    total = cap * n_blocks * block * 4
+    if precision in ("int8", "int4"):
+        total += (cap * n_blocks * block // (1 if precision == "int8" else 2)
+                  + cap // tile * n_blocks * 4)
+    return total
+
+
+def phase_tenancy() -> dict:
+    """Phase 7: ``--loop --tenants`` on the card, one run per stream of
+    `TENANCY_STREAMS`; the launches and errors of both for the kernels
+    line."""
+    runs = {}
+    for spacing, every_tenant in TENANCY_STREAMS:
+        runs[spacing] = tenancy_run(spacing, every_tenant)
+        gc.collect()        # the runtime's closures hold its stores
+        torch.cuda.empty_cache()
+    tiers = {t for r in runs.values() for t in r["launches"]}
+    return {"runs": runs,
+            "launches": {t: sum(r["launches"].get(t, 0)
+                                for r in runs.values()) for t in tiers},
+            "max_abs_err": {t: max(r["max_abs_err"].get(t, 0.0)
+                                   for r in runs.values()) for t in tiers}}
+
+
+def tenancy_run(spacing: str, every_tenant: bool) -> dict:
+    """One ``--loop --tenants`` stream at base spacing ``spacing`` ms:
+    four f32 stores under a device byte budget that cannot hold both
+    cold tables beside the others, the runtime phase's stream settings,
+    faults on, a burst of mutations on ``items`` mid-stream; every
+    dispatch held, every page checked, one tenant replayed through a
+    dedicated runtime."""
+    from repro_torch.core.boundedme_torch import decode_tiled
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import CascadeExecutor, ServeRuntime
+    from repro_torch.launch.tenancy import TableRegistry
+    from repro_torch.store import DynamicTableStore
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    art = {k: str(Path(tmp.name) / f"{k}.{ext}") for k, ext in
+           (("metrics", "prom"), ("trace", "json"), ("flight", "json"))}
+    spec = {name: {"rows": rows, "precision": tier, "rate_factor": rate,
+                   **({"eps_floor": floor} if floor else {})}
+            for name, rows, tier, rate, floor in TENANTS}
+    spec_path = Path(tmp.name) / "tenants.json"
+    spec_path.write_text(json.dumps({"tenants": spec}))
+    args = serve.parse_args(TENANCY_ARGV + [
+        "--interarrival-ms", spacing,
+        "--tenants", str(spec_path), "--metrics-out", art["metrics"],
+        "--trace-out", art["trace"], "--flight-recorder-path",
+        art["flight"]])
+    dim = serve.decode_config(args).d_model
+    nbytes = {name: tenant_bytes(rows, tier, N=dim)
+              for name, rows, tier, _, _ in TENANTS}
+    args.table_budget_mb = 1.05 * (nbytes["vocab"] + nbytes["items"]
+                                   + nbytes["cold_b"]) / 2**20
+
+    # registry hooks: each registered table's buffers kept on the card
+    # (outside the budget) to hold every page-in against; card memory
+    # read around every eviction; resident bytes after every change
+    expected, stores = {}, {}
+    log = {"evictions": [], "page_ins": [], "max_resident": 0,
+           "streaming": False, "flushes": []}
+    real = {k: getattr(TableRegistry, k)
+            for k in ("register", "evict", "ensure_resident")}
+    real_dispatch = CascadeExecutor.dispatch
+
+    def budget_held(reg):
+        log["max_resident"] = max(log["max_resident"], reg.resident_bytes())
+        check(reg.resident_bytes() <= reg.byte_budget,
+              f"tenancy: {reg.resident_bytes()} resident bytes past the "
+              f"budget {reg.byte_budget}")
+
+    def keep(name, store):
+        expected[name] = {k: v.clone()
+                          for k, v in store_buffers(store).items()}
+
+    def register(self, name, table, config=None, **kw):
+        store = real["register"](self, name, table, config, **kw)
+        check(store.resident_bytes() == nbytes[name],
+              f"tenancy {name}: {store.resident_bytes()} bytes, the "
+              f"geometry gives {nbytes[name]}")
+        stores[name] = store
+        keep(name, store)
+        budget_held(self)
+        return store
+
+    def evict(self, name):
+        entry = self._entry(name)
+        was = entry.resident
+        before = torch.cuda.memory_allocated()
+        real["evict"](self, name)
+        if was:
+            freed = before - torch.cuda.memory_allocated()
+            check(freed >= entry.nbytes, f"tenancy: evicting {name} freed "
+                  f"{freed} bytes of card memory, not its {entry.nbytes}")
+            log["evictions"].append({"tenant": name, "bytes": entry.nbytes,
+                                     "freed": freed,
+                                     "in_stream": log["streaming"]})
+
+    def ensure_resident(self, name):
+        dt = real["ensure_resident"](self, name)
+        if dt > 0.0:
+            got = store_buffers(self._entry(name).store)
+            check(got.keys() == expected[name].keys() and all(
+                torch.equal(v, expected[name][k]) for k, v in got.items()),
+                f"tenancy: {name} paged in with buffers other than it "
+                f"was paged out with")
+            log["page_ins"].append({"tenant": name, "ms": dt * 1e3,
+                                    "bytes": self.table_bytes(name),
+                                    "in_stream": log["streaming"]})
+        budget_held(self)
+        return dt
+
+    checked, replay, perm_of, after_warm = [], [], {}, {}
+
+    def dispatch(self, Qbuf, perm):
+        out = real_dispatch(self, Qbuf, perm)
+        tenant = self._mlabels.get("tenant")
+        if tenant is None:
+            return out
+        rung = int(self._mlabels["rung"])
+        store = self.store
+        warm = not bool(np.abs(Qbuf).any())
+        Q = torch.from_numpy(Qbuf).to(DEV)
+        with plain_route():
+            ref = decode_tiled(self.tiled_table, Q, perm, plan=self.plan,
+                               final_exact=True, n_valid=self.n_valid,
+                               quantized=self.quantized)
+        r = compare(TiledRows(store), Q,
+                    [torch.from_numpy(out[0]), torch.from_numpy(out[1])],
+                    ref, what=f"tenancy {tenant} rung {rung} dispatch "
+                    f"{len(checked)}")
+        host = store.host_table()
+        for i in np.flatnonzero(np.abs(Qbuf).sum(1) > 0):
+            slots = out[0][i]
+            check(len(set(slots.tolist())) == K
+                  and int(slots.max()) < store.n_live
+                  and (store.external_ids(slots) >= 0).all(),
+                  f"tenancy {tenant}: lane {i} slots {slots.tolist()} with "
+                  f"{store.n_live} live rows")
+            exact = host[slots].astype(np.float64) @ Qbuf[i].astype(
+                np.float64) / store.N
+            check(np.allclose(out[1][i], exact, rtol=EXACT_RTOL, atol=0),
+                  f"tenancy {tenant}: lane {i} scores {out[1][i].tolist()} "
+                  f"vs exact {exact.tolist()}")
+        didx = None if warm else perm_of[id(perm)][1]
+        if warm:
+            after_warm[tenant] = after_warm.get(tenant, []) + [None]
+        elif after_warm.get(tenant) and after_warm[tenant][-1] is None:
+            after_warm[tenant][-1] = out[3] * 1e3
+        checked.append({"tenant": tenant, "rung": rung, "warm": warm,
+                        "didx": didx, "tier": self.plan.precision,
+                        "ms": out[3] * 1e3, "err": r["max_abs_err"],
+                        "ties": r["near_tie_queries"]})
+        if tenant == TENANCY_REPLAY and not warm:
+            replay.append((didx, rung, Qbuf.copy(), perm, out[0].copy(),
+                           out[1].copy()))
+        return out
+
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    TableRegistry.register, TableRegistry.evict = register, evict
+    TableRegistry.ensure_resident = ensure_resident
+    CascadeExecutor.dispatch = dispatch
+    try:
+        t0 = time.perf_counter()
+        engine, qs, trace, labels = serve.build_tenants(args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        reg = engine.registry
+        real_perm = engine._perm_source
+
+        def perm_source(tenant, didx, n_blocks):
+            perm = real_perm(tenant, didx, n_blocks)
+            perm_of[id(perm)] = (tenant, didx, perm)   # keeps the id live
+            return perm
+        engine._perm_source = perm_source
+        items = stores["items"]
+        real_flush = items.flush_updates
+
+        def flush():
+            info = real_flush()
+            keep("items", items)
+            log["flushes"].append(info)
+            return info
+        items.flush_updates = flush
+        burst_rng = np.random.default_rng(29)
+        staged = []
+
+        def churn(eng, i):
+            if i == len(trace) // 2:
+                before = items.pending_updates
+                stage_script(items, burst_rng, TENANCY_BURST)
+                staged.append(items.pending_updates - before)
+        say(f"tenancy: {len(TENANTS)} tables built in {build_s:.2f} s, "
+            f"bytes {nbytes}, budget {reg.byte_budget}, resident "
+            f"{[n for n in reg.tenants() if reg.is_resident(n)]}, "
+            f"{len(trace)} arrivals")
+        kops.reset_launch_counts()
+        warm_s = engine.warmup()
+        log["streaming"] = True
+        t0 = time.perf_counter()
+        stats = serve.serve_tenants(args, engine, qs, trace, labels,
+                                    churn=churn)
+        wall = time.perf_counter() - t0
+        log["streaming"] = False
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        counts = kops.launch_counts()
+    finally:
+        TableRegistry.register, TableRegistry.evict = (real["register"],
+                                                       real["evict"])
+        TableRegistry.ensure_resident = real["ensure_resident"]
+        CascadeExecutor.dispatch = real_dispatch
+
+    try:
+        serve.check_outcomes(args, stats)
+    except SystemExit as e:
+        raise SmokeFailure(f"tenancy: {e}") from None
+    names = [t[0] for t in TENANTS]
+    obs = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_obs_artifacts.py"),
+         "--metrics", art["metrics"], "--trace", art["trace"],
+         "--flight", art["flight"], "--expect-tenants", ",".join(names)],
+        capture_output=True, text=True)
+    check(obs.returncode == 0, f"tenancy: obs artifacts: "
+          f"{obs.stdout.strip()} {obs.stderr.strip()}")
+    flight = json.loads(Path(art["flight"]).read_text())["events"]
+    tmp.cleanup()
+    outs = {e["in_stream"] for e in log["evictions"]}
+    ins = {e["in_stream"] for e in log["page_ins"]}
+    check(True in outs and True in ins, f"tenancy: no page-out or no "
+          f"page-in in the stream ({len(log['evictions'])} out, "
+          f"{len(log['page_ins'])} in)")
+    per = stats["tenants"]
+    for name in names:
+        t = per[name]
+        check(not every_tenant
+              or t["outcomes"]["ok"] + t["outcomes"]["degraded"] > 0,
+              f"tenancy {name}: no request answered: {t['outcomes']}")
+        check(t["queue"]["peak_depth"] <= t["queue"]["capacity"],
+              f"tenancy {name}: queue peak {t['queue']['peak_depth']} past "
+              f"its capacity {t['queue']['capacity']}")
+    check(staged and log["flushes"] and sum(
+        f["applied"] for f in log["flushes"]) == staged[0]
+        and stats["faults"]["update_errors"] == 0,
+        f"tenancy: {staged} staged on items, flushes {log['flushes']}")
+    check(stats["faults"]["dispatch_errors"]
+          == stats["faults"]["injected"]["dispatch_errors"],
+          f"tenancy: {stats['faults']['dispatch_errors']} dispatch errors, "
+          f"{stats['faults']['injected']['dispatch_errors']} injected")
+    dispatched = {}
+    for labels_, value in engine.metrics.get(
+            "cascade_dispatches_total").rows():
+        tier = labels_["precision"]
+        dispatched[tier] = dispatched.get(tier, 0) + int(value)
+    for tier, n in dispatched.items():
+        name = f"fused_cascade_batched[{tier}]"
+        check(counts[name] == n == sum(1 for c in checked
+                                       if c["tier"] == tier),
+              f"tenancy: {counts[name]} {name} launches for {n} executor "
+              f"dispatches")
+    check(counts["fused_cascade_batched"] == sum(dispatched.values()),
+          f"tenancy: {counts['fused_cascade_batched']} launches in all for "
+          f"{dispatched}")
+
+    # the replay: one tenant's dispatches through a dedicated runtime on a
+    # store of the same rows, under its own seed's permutations
+    vstore = stores[TENANCY_REPLAY]
+    rows, ids = vstore.snapshot()
+    cfg = reg.config(TENANCY_REPLAY)
+    dedicated = ServeRuntime(
+        DynamicTableStore(rows, ids=ids, capacity=vstore.capacity_rows,
+                          block=cfg.block, precision=cfg.precision,
+                          device=DEV),
+        K=cfg.K, eps=cfg.eps, delta=cfg.delta, eps_floor=cfg.eps_floor,
+        degrade_rungs=cfg.degrade_rungs, degrade_start=cfg.degrade_start,
+        lanes=args.batch, batch_wait_ms=args.deadline_ms,
+        queue_capacity=cfg.queue_capacity, classes=cfg.priority_classes(),
+        precision=cfg.precision, pull_mode=cfg.pull_mode,
+        cache_entries=cfg.cache_entries, seed=cfg.seed, device=DEV)
+    check(torch.equal(dedicated.store.tiled_table(),
+                      expected[TENANCY_REPLAY]["tiled"]),
+          "tenancy replay: the dedicated store differs from the tenant's")
+    for didx, rung, Qbuf, perm, ids_, scores_ in replay:
+        ex = dedicated.executors[rung]
+        p = dedicated._perm_source(didx, ex.plan.n_blocks)
+        got = ex.dispatch(Qbuf, p)
+        check(torch.equal(torch.as_tensor(p), torch.as_tensor(perm))
+              and np.array_equal(got[0], ids_)
+              and np.array_equal(got[1], scores_),
+              f"tenancy replay: {TENANCY_REPLAY} dispatch {didx} differs "
+              f"from the dedicated runtime's")
+    check(len(replay) > 0, "tenancy replay: nothing to replay")
+    del dedicated, expected
+    torch.cuda.empty_cache()
+
+    served = [c for c in checked if not c["warm"]]
+    rebuilds = {}
+    for e in flight:
+        if e["kind"] == "executor_rebuild":
+            rebuilds.setdefault(e["tenant"], []).append(
+                (e["cause"], round(e["warm_ms"], 3)))
+    res = {
+        "launches": {t: counts[f"fused_cascade_batched[{t}]"]
+                     for t in dispatched},
+        "max_abs_err": {t: max(c["err"] for c in checked if c["tier"] == t)
+                        for t in dispatched},
+        "near_tie_queries": sum(c["ties"] for c in checked),
+        "held_dispatches": len(checked), "warm_dispatches": len(checked)
+        - len(served), "replayed": len(replay),
+        "tenants": {n: {"requests": per[n]["requests"],
+                        "outcomes": per[n]["outcomes"],
+                        "p50_ms": per[n]["latency_ms"]["p50"],
+                        "p99_ms": per[n]["latency_ms"]["p99"],
+                        "served_per_rung": [
+                            int(engine._c_rung.get(tenant=n, rung=str(i)))
+                            for i in range(engine._state(n).ladder.n_rungs)],
+                        "executor_builds": reg.executor_builds(n)}
+                    for n in names},
+        "outcomes": stats["outcomes"], "p50_ms": stats["latency_ms"]["p50"],
+        "p99_ms": stats["latency_ms"]["p99"],
+        "throughput_rps": stats["throughput_rps"],
+        "virtual_s": stats["virtual_s"],
+        "page_outs": [(e["tenant"], e["in_stream"])
+                      for e in log["evictions"]],
+        "page_ins_ms": [(e["tenant"], round(e["ms"], 3), e["in_stream"])
+                        for e in log["page_ins"]],
+        "page_in_gb_per_s": [round(e["bytes"] / e["ms"] / 1e6, 2)
+                             for e in log["page_ins"]],
+        "freed_over_bytes": min(e["freed"] / e["bytes"]
+                                for e in log["evictions"]),
+        "rebuilds": rebuilds,
+        "first_dispatch_after_warm_ms": {
+            t: [round(v, 3) for v in vs if v is not None]
+            for t, vs in after_warm.items()},
+        "dispatch_ms_median_per_tier": {
+            t: statistics.median([c["ms"] for c in served
+                                  if c["tier"] == t] or [0.0])
+            for t in dispatched},
+        "flushes": [(f["applied"], f["requantized_tiles"],
+                     round(1e3 * f["seconds"], 3)) for f in log["flushes"]],
+        "budget": reg.byte_budget, "max_resident": log["max_resident"],
+        "resident_end": reg.resident_bytes(), "table_bytes": nbytes,
+        "mem_before_gb": base_gb, "peak_mem_gb": peak_gb,
+        "reference_copies_gb": sum(nbytes.values()) / 1e9,
+        "build_s": build_s, "warmup_s": warm_s, "wall_s": wall,
+        "phase_s": time.perf_counter() - t_phase}
+    say(f"tenancy {spacing} ms: " + json.dumps(res))
+    return res
+
+
 def mips_run(V, Q, label, precision, adaptive, bound, mode, quant_err,
              exact_ids) -> dict:
     """One tier's queries through ``mips_topk``, launches counted."""
@@ -1433,7 +1856,7 @@ def mips_run(V, Q, label, precision, adaptive, bound, mode, quant_err,
 
 
 def phase_mips(table, n_valid) -> dict:
-    """Phase 7: the library API on the unpadded vocab table."""
+    """Phase 8: the library API on the unpadded vocab table."""
     from repro_torch.core import mips
     from repro_torch.core.boundedme_torch import (bounded_me_batched,
                                                   bounded_me_blocked,
@@ -1608,7 +2031,7 @@ def decode_args(arch: str, mips: str, tokens: int = 32):
 
 
 def phase_decode() -> dict:
-    """Phase 9: the decode demo (``serve`` without ``--loop``) on the
+    """Phase 10: the decode demo (``serve`` without ``--loop``) on the
     card: qwen1.5-0.5b at full width and depth in bf16 with the bandit
     head and with the exact head, tinyllama-1.1b at full width and 2
     layers, and the model on the card against the model on the CPU."""
@@ -1760,7 +2183,7 @@ def phase_decode() -> dict:
 
 
 def phase_quickstart() -> dict:
-    """Phase 8: examples/quickstart.py's regime on the card."""
+    """Phase 9: examples/quickstart.py's regime on the card."""
     from repro_torch.core import mips
     from repro_torch.core.boundedme_torch import (draw_perms, make_plan,
                                                   tile_table)
@@ -1827,11 +2250,11 @@ def phase_quickstart() -> dict:
     return out
 
 
-def kernel_entries(kern, single, aux, served, runtime, stored, lib,
-                   decode) -> list:
+def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
+                   lib, decode) -> list:
     """The ``kernels`` line: one entry per kernel and tier.  The batched
-    cascade's launches are those of the serve, runtime, store and decode
-    phases (the fp32 tier on the f32 store; ``[bf16]`` on the bf16
+    cascade's launches are those of the serve, runtime, store, tenancy and
+    decode phases (the fp32 tier on the f32 stores; ``[bf16]`` on the bf16
     serving table and model heads); its bf16 entry's times are the decode
     head's, on step 0's operands.  Times of a tier are phase 3's, row mode
     (coord beside them)."""
@@ -1842,7 +2265,9 @@ def kernel_entries(kern, single, aux, served, runtime, stored, lib,
     for tag in ["fp32", "bf16"] + [t[0] for t in TIERS[1:]]:
         precision, adaptive, bound = info[tag]
         runs = [served.get(tag, none), runtime.get(tag, none),
-                stored["runtime"].get(tag, none)]
+                stored["runtime"].get(tag, none),
+                {"launches": tenancy["launches"].get(tag, 0),
+                 "max_abs_err": tenancy["max_abs_err"].get(tag, 0.0)}]
         if tag == "bf16":
             runs += [decode["qwen1.5-0.5b"], decode["tinyllama-1.1b"]]
         row, coord = kern[(tag, "row")], kern.get((tag, "coord"))
@@ -1961,6 +2386,8 @@ def main() -> int:
             runtime[tier_tag(tier[0], table)] = runtime_run(*tier)
             torch.cuda.empty_cache()
         stored = phase_store(table32, n_valid, runtime)
+        tenancy = phase_tenancy()
+        torch.cuda.empty_cache()
         lib = phase_mips(table32, n_valid)
         del table, table32
         torch.cuda.empty_cache()
@@ -1973,7 +2400,7 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernel_entries(
-        kern, single, aux, served, runtime, stored, lib, decode)}),
+        kern, single, aux, served, runtime, stored, tenancy, lib, decode)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,8 +100,8 @@ class ServeResult:
     latency_s: float = 0.0
     retries: int = 0
     cached: bool = False
-    #: which tenant's table served this request ("" on the
-    #: single-table runtimes; set by the tenancy runtime, not ported yet)
+    #: which tenant's table served this request ("" on the single-table
+    #: runtimes; set by `repro_torch.launch.tenancy.MultiTenantRuntime`)
     tenant: str = ""
 
     @property

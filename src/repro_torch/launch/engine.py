@@ -219,7 +219,8 @@ class CascadeExecutor:
                  delta: float = 0.1, value_range: Optional[float] = None,
                  qmax_hint: float = 1.0, tile: int = 8, block: int = 512,
                  mesh=None, n_valid: Optional[int] = None,
-                 precision: str = "fp32", adaptive: bool = False,
+                 precision: str = "fp32", range_slack: float = 1.0,
+                 adaptive: bool = False,
                  bound: str = "hoeffding", pull_mode: str = "row",
                  coord_block: int = 128, quant_err: Optional[float] = None,
                  pq_subdims: int = 8, pq_codes: int = 16,
@@ -236,6 +237,7 @@ class CascadeExecutor:
                             f"DynamicTableStore, got "
                             f"{type(table).__name__}")
         self._qmax_hint = float(qmax_hint)
+        self._range_slack = float(range_slack)
         if self.store is not None:
             store = self.store
             if n_valid is not None:
@@ -402,7 +404,9 @@ class CascadeExecutor:
 
         Capacity growth (``grow()``) rebuilds the plan at the new row
         count; monotonic value-range growth past the calibrated bound
-        re-derives the schedule at the new range.  Both are
+        re-derives the schedule at ``range * range_slack`` (a slack above
+        1 buys headroom, so a growing corpus recalibrates O(log growth)
+        times, not per update).  Both are
         counted in ``n_recalibrations``.  No-op without a store.
         """
         store = self.store
@@ -415,7 +419,7 @@ class CascadeExecutor:
             rebuilt += 1
         needed = 2.0 * self._qmax_hint * store.value_abs_max
         if needed > self._plan_value_range:
-            self._build(needed)
+            self._build(needed * self._range_slack)
             rebuilt += 1
         if rebuilt:
             self._c_recal.inc(rebuilt, **self._mlabels)

@@ -53,9 +53,22 @@ lanes::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --loop --precision pq --adaptive --bound bernstein
 
-Options of later slices — ``--tenants``, ``--shards`` > 1, the model
-families other than dense — are refused with a message naming their
-ROADMAP.md item.
+With ``--tenants SPEC.json`` (``--loop``, no ``--runtime``) one
+`repro_torch.launch.tenancy.MultiTenantRuntime` serves several tenants'
+tables on the device: each tenant of the spec file (the JAX package's
+format, e.g. ``configs/tenants_smoke.json``) gets a seeded table of its
+``rows`` in a `DynamicTableStore`, registered in a `TableRegistry` under
+``--table-budget-mb`` (cold tables are paged out least-recently-served
+first), and one merged open-loop stream — each tenant at ``rate_factor``
+times the base rate — is scheduled by deficit round robin across the
+tenants' private queues::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --loop --tenants configs/tenants_smoke.json --table-budget-mb 2048 \
+        --check-outcomes
+
+Options of later slices — ``--shards`` > 1, the model families other than
+dense — are refused with a message naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -63,6 +76,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import sys
 import time
 from typing import Callable, Optional, Tuple
@@ -79,13 +93,17 @@ from repro_torch.launch.admission import STATUSES, PriorityClass
 from repro_torch.launch.engine import (MIPSServeEngine, ServeRuntime,
                                        seeded_perm)
 from repro_torch.launch.faults import FaultInjector
+from repro_torch.launch.tenancy import (MultiTenantRuntime, TableRegistry,
+                                        TenantConfig)
 from repro_torch.models.model import DenseLM
 from repro_torch.models.steps import decode_step, mips_head, prefill_step
 from repro_torch.obs import FlightRecorder, SpanTracer
 from repro_torch.store import DynamicTableStore
 
 __all__ = ["arrival_trace", "simulate_stream", "make_churn", "build_loop",
-           "serve_stream", "decode_config", "run_decode_demo", "main"]
+           "serve_stream", "load_tenant_spec", "tenant_table",
+           "build_tenants", "serve_tenants", "run_tenants", "decode_config",
+           "run_decode_demo", "main"]
 
 #: namespace tag so trace streams never alias other default_rng users
 _TRACE_ROOT = 0x7AC3
@@ -134,6 +152,7 @@ def simulate_stream(engine, queries, *, interarrival_ms: float = 0.1,
                     churn=None, pattern: str = "uniform", seed: int = 0,
                     open_loop: bool = False,
                     classes: Optional[Callable[[int], str]] = None,
+                    tenants: Optional[Callable[[int], str]] = None,
                     burst_factor: float = 8.0, burst_len: int = 16,
                     trace=None, metrics_out=None, trace_out=None) -> dict:
     """Drive a query stream through an engine or runtime on a virtual clock.
@@ -153,7 +172,9 @@ def simulate_stream(engine, queries, *, interarrival_ms: float = 0.1,
     micro-batching engine's.  ``churn(engine, i)`` (optional) runs before
     each arrival — stage store mutations there to simulate a live
     corpus.  ``classes(i)`` (`ServeRuntime` only) names the priority
-    class of arrival ``i``.
+    class of arrival ``i``; ``tenants(i)`` (`MultiTenantRuntime` only)
+    names the tenant whose table serves it — a multi-tenant trace is a
+    merged arrival trace plus this routing function.
 
     ``metrics_out`` / ``trace_out`` (optional paths) receive the metrics
     registry snapshot and the span tracer's Chrome trace-event JSON
@@ -178,6 +199,8 @@ def simulate_stream(engine, queries, *, interarrival_ms: float = 0.1,
             if churn is not None:
                 churn(engine, i)
             kw = {} if classes is None else {"cls": classes(i)}
+            if tenants is not None:
+                kw["tenant"] = tenants(i)
             engine.submit(queries[i],
                           now=(float(trace[i]) if open_loop else now), **kw)
             i += 1
@@ -282,25 +305,13 @@ def build_loop(args) -> Tuple[object, np.ndarray]:
                                      deadline_ms=deadline),
             "batch": PriorityClass("batch", priority=2,
                                    deadline_ms=4 * deadline)}
-        injector = None
-        if (args.inject_latency_rate > 0 or args.inject_error_rate > 0
-                or args.inject_flush_rate > 0):
-            injector = FaultInjector(
-                args.fault_seed, latency_rate=args.inject_latency_rate,
-                error_rate=args.inject_error_rate,
-                flush_failure_rate=args.inject_flush_rate)
         engine = ServeRuntime(
             table, eps_floor=args.eps_floor,
             degrade_rungs=args.degrade_rungs, lanes=args.batch,
             batch_wait_ms=args.deadline_ms,
             queue_capacity=args.queue_capacity, classes=classes,
-            max_retries=args.max_retries, fault_injector=injector,
-            tracer=(SpanTracer(seed=args.stream_seed) if args.trace_out
-                    else None),
-            flight=(FlightRecorder(capacity=args.flight_capacity,
-                                   path=args.flight_recorder_path)
-                    if args.flight_recorder_path else None),
-            **common)
+            max_retries=args.max_retries, fault_injector=_injector(args),
+            **_observers(args), **common)
     else:
         engine = MIPSServeEngine(
             table, batch_size=args.batch, deadline_ms=args.deadline_ms,
@@ -312,6 +323,26 @@ def build_loop(args) -> Tuple[object, np.ndarray]:
         idx = rng.integers(0, max(1, args.requests - n_dup), n_dup)
         qs[args.requests - n_dup:] = qs[idx]
     return engine, qs
+
+
+def _injector(args) -> Optional[FaultInjector]:
+    """The seeded fault injector the ``--inject-*`` flags ask for."""
+    if (args.inject_latency_rate > 0 or args.inject_error_rate > 0
+            or args.inject_flush_rate > 0):
+        return FaultInjector(
+            args.fault_seed, latency_rate=args.inject_latency_rate,
+            error_rate=args.inject_error_rate,
+            flush_failure_rate=args.inject_flush_rate)
+    return None
+
+
+def _observers(args) -> dict:
+    """The span tracer and flight recorder the artifact flags ask for."""
+    return {"tracer": (SpanTracer(seed=args.stream_seed) if args.trace_out
+                       else None),
+            "flight": (FlightRecorder(capacity=args.flight_capacity,
+                                      path=args.flight_recorder_path)
+                       if args.flight_recorder_path else None)}
 
 
 def stream_classes(args) -> Optional[Callable[[int], str]]:
@@ -410,6 +441,166 @@ def check_outcomes(args, stats: dict) -> None:
           f"all typed, p99 {p99:.1f}ms <= {bound:.0f}ms")
 
 
+def load_tenant_spec(path: str) -> dict:
+    """Parse a ``--tenants`` spec file into {name: spec-dict}.
+
+    The JAX package's format: JSON, either a mapping of tenant name ->
+    spec or ``{"tenants": {...}}``.  Each spec holds driver keys —
+    ``rows`` (synthetic table rows, required) and ``rate_factor``
+    (arrival-rate multiplier against ``--interarrival-ms``, default 1.0)
+    — plus any `TenantConfig` field (``eps``, ``precision``, ``weight``,
+    ``pinned``, ...).  Unknown keys are refused, so a mistyped knob
+    cannot silently serve defaults.
+    """
+    with open(path) as f:
+        spec = json.load(f)
+    if isinstance(spec, dict) and isinstance(spec.get("tenants"), dict):
+        spec = spec["tenants"]
+    if not isinstance(spec, dict) or not spec:
+        raise ValueError(f"{path}: expected a non-empty JSON object of "
+                         f"tenant name -> spec")
+    cfg_fields = {f.name for f in dataclasses.fields(TenantConfig)}
+    driver_keys = {"rows", "rate_factor"}
+    for name, s in spec.items():
+        if not isinstance(s, dict) or "rows" not in s:
+            raise ValueError(f"{path}: tenant {name!r} needs at least "
+                             f"{{\"rows\": <n>}}")
+        unknown = set(s) - cfg_fields - driver_keys
+        if unknown:
+            raise ValueError(f"{path}: tenant {name!r} has unknown keys "
+                             f"{sorted(unknown)}")
+        if float(s.get("rate_factor", 1.0)) <= 0:
+            raise ValueError(f"{path}: tenant {name!r} rate_factor must "
+                             f"be > 0")
+    return spec
+
+
+def tenant_table(rows: int, dim: int, seed: int, idx: int,
+                 device) -> torch.Tensor:
+    """Tenant ``idx``'s synthetic ``(rows, dim)`` table, N(0, 1 / dim)
+    in float32, drawn on ``device`` by a generator seeded from
+    ``SeedSequence([_TRACE_ROOT, seed, idx])`` (the JAX package's CLI
+    seeds its numpy draw from the same sequence; the values differ)."""
+    state = np.random.SeedSequence([_TRACE_ROOT, int(seed), int(idx)])
+    g = torch.Generator(device=device)
+    g.manual_seed(int(state.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+    table = torch.randn((rows, dim), generator=g, device=device)
+    return table.div_(math.sqrt(dim))
+
+
+def build_tenants(args) -> Tuple[MultiTenantRuntime, np.ndarray,
+                                 np.ndarray, list]:
+    """The ``--tenants`` runtime and its merged stream: ``(engine,
+    queries, arrival times, tenant of each arrival)``.
+
+    Each tenant of the spec (in name order) gets a `tenant_table` of its
+    ``rows`` at the arch's ``d_model``, registered in a `TableRegistry`
+    on ``--device`` under ``--table-budget-mb``, with a `TenantConfig`
+    from the CLI's flags overridden by its spec and ``seed = --stream-seed
+    + index``.  Each tenant arrives at ``rate_factor`` times the base
+    rate on its own ``--pattern`` trace; the merge is sorted by time.
+    Queries are N(0, 1) from ``default_rng(--stream-seed)`` with the last
+    ``--repeat-rate`` of them repeating earlier ones, as in the JAX
+    package's CLI.
+    """
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    dim = cfg.d_model
+    dev = resolve_device(args.device)
+    spec = load_tenant_spec(args.tenants)
+    obs = _observers(args)
+    budget = (None if args.table_budget_mb is None
+              else int(args.table_budget_mb * 2**20))
+    registry = TableRegistry(byte_budget=budget, lanes=args.batch,
+                             flight=obs["flight"], device=dev)
+    rates = {}
+    for idx, (name, s) in enumerate(sorted(spec.items())):
+        s = dict(s)
+        rows = int(s.pop("rows"))
+        rates[name] = float(s.pop("rate_factor", 1.0))
+        defaults = dict(K=args.topk, eps=args.eps, delta=args.delta,
+                        eps_floor=args.eps_floor,
+                        degrade_rungs=args.degrade_rungs,
+                        precision=args.precision, pull_mode=args.pull_mode,
+                        pq_subdims=args.pq_subdims, adaptive=args.adaptive,
+                        bound=args.bound, cache_entries=args.cache_entries,
+                        deadline_ms=args.request_deadline_ms,
+                        queue_capacity=args.queue_capacity,
+                        seed=args.stream_seed + idx)
+        defaults.update(s)
+        registry.register(name, tenant_table(rows, dim, args.stream_seed,
+                                             idx, dev),
+                          TenantConfig(**defaults))
+    engine = MultiTenantRuntime(
+        registry, batch_wait_ms=args.deadline_ms,
+        max_retries=args.max_retries, fault_injector=_injector(args),
+        recall_sample_rate=args.recall_rate, seed=args.stream_seed, **obs)
+    names = sorted(spec)
+    total_rate = sum(rates.values())
+    times, labels = [], []
+    for idx, name in enumerate(names):
+        tr = arrival_trace(max(1, int(round(args.requests * rates[name]
+                                            / total_rate))),
+                           interarrival_ms=args.interarrival_ms / rates[name],
+                           pattern=args.pattern,
+                           seed=args.stream_seed + 1000 * (idx + 1))
+        times.append(tr)
+        labels.extend([name] * len(tr))
+    times = np.concatenate(times)
+    order = np.argsort(times, kind="stable")
+    trace = times[order]
+    labels = [labels[int(j)] for j in order]
+    qrng = np.random.default_rng(args.stream_seed)
+    qs = qrng.normal(size=(len(trace), dim)).astype(np.float32)
+    if args.repeat_rate > 0:
+        n_dup = int(len(trace) * args.repeat_rate)
+        if n_dup:
+            idxs = qrng.integers(0, max(1, len(trace) - n_dup), n_dup)
+            qs[len(trace) - n_dup:] = qs[idxs]
+    return engine, qs, trace, labels
+
+
+def serve_tenants(args, engine: MultiTenantRuntime, qs, trace, labels,
+                  churn=None) -> dict:
+    """Serve the merged stream open loop through ``engine``, with the
+    artifacts the flags name and a final flight-recorder snapshot;
+    ``churn(engine, i)`` (optional) runs before each arrival."""
+    stats = simulate_stream(
+        engine, qs, interarrival_ms=args.interarrival_ms, churn=churn,
+        pattern=args.pattern, seed=args.stream_seed, open_loop=True,
+        tenants=lambda i: labels[i], trace=trace,
+        metrics_out=args.metrics_out, trace_out=args.trace_out)
+    if engine.flight is not None:
+        dumped = engine.flight.dump("end_of_run", stats["virtual_s"])
+        if dumped:
+            stats.setdefault("artifacts", {})["flight"] = dumped
+    return stats
+
+
+def run_tenants(args) -> dict:
+    """``--tenants``: build the registry and runtime, warm every tenant,
+    serve the merged stream and print the stats as JSON (with
+    ``--check-outcomes``, exit non-zero unless the runtime held its
+    serving contract)."""
+    engine, qs, trace, labels = build_tenants(args)
+    reg = engine.registry
+    budget = reg.byte_budget
+    print(f"[serve] tenants: {len(reg.tenants())} tables "
+          f"dim={qs.shape[1]} "
+          f"device={reg.device} "
+          f"budget={'none' if budget is None else f'{budget}B'} "
+          f"lanes={args.batch} pattern={args.pattern} "
+          f"requests={len(trace)} "
+          f"faults={'on' if engine.injector else 'off'} "
+          f"warmup={engine.warmup():.3f}s", flush=True)
+    stats = serve_tenants(args, engine, qs, trace, labels)
+    print(json.dumps(stats, indent=2))
+    if args.check_outcomes:
+        check_outcomes(args, stats)
+    return stats
+
+
 def decode_config(args) -> ArchConfig:
     """The decode demo's config: ``--arch`` (``--smoke`` reduced) with the
     head's ``--mips``, ``--eps``, ``--delta`` and ``--precision``."""
@@ -506,8 +697,6 @@ _LATER_ARCHS = {"qwen3-moe-30b-a3b": "moe", "grok-1-314b": "moe",
 
 #: options of later slices: (flag, is-set test, ROADMAP.md item)
 _LATER = (
-    ("--tenants", lambda a: a.tenants is not None,
-     "queue 1 item 5 (multi-tenant serving)"),
     ("--shards > 1", lambda a: a.shards > 1,
      "queue 1 item 6 (sharded serving)"),
 )
@@ -540,6 +729,27 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
     for flag, is_set, item in _LATER:
         if is_set(args):
             ap.error(f"{flag} is not ported yet: ROADMAP.md {item}")
+    if args.tenants is not None:
+        if not args.loop:
+            ap.error("--tenants requires --loop: the multi-tenant "
+                     "registry serves the request stream, not the "
+                     "decode demo")
+        if args.runtime:
+            ap.error("--tenants is its own runtime mode; drop --runtime "
+                     "(the MultiTenantRuntime is always continuous-"
+                     "batching)")
+        if args.dynamic or args.shards > 1:
+            ap.error("--tenants builds its own stores per tenant; drop "
+                     "--dynamic/--shards (per-tenant precision and "
+                     "placement live in the spec file)")
+    if args.table_budget_mb is not None:
+        if args.tenants is None:
+            ap.error("--table-budget-mb requires --tenants: the byte "
+                     "budget governs the multi-tenant table registry")
+        if args.table_budget_mb <= 0:
+            ap.error(f"--table-budget-mb must be > 0, got "
+                     f"{args.table_budget_mb}")
+    runtimes = args.runtime or args.tenants is not None
     if args.churn_rate > 0 and not args.dynamic:
         ap.error(f"--churn-rate {args.churn_rate} requires --dynamic: "
                  f"churn mutates a DynamicTableStore, but without "
@@ -553,10 +763,11 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
                  f"single-request batch at every poll (for per-request "
                  f"completion deadlines use --request-deadline-ms)")
     if args.eps_floor is not None:
-        if not args.runtime:
-            ap.error("--eps-floor requires --runtime: the degradation "
-                     "ladder lives in the continuous-batching runtime "
-                     "(add --runtime, or drop --eps-floor)")
+        if not runtimes:
+            ap.error("--eps-floor requires --runtime or --tenants: the "
+                     "degradation ladder lives in the continuous-"
+                     "batching runtimes (add --runtime, or drop "
+                     "--eps-floor)")
         if args.eps_floor < args.eps:
             ap.error(f"--eps-floor {args.eps_floor} must be >= --eps "
                      f"{args.eps}: overload *relaxes* eps toward the "
@@ -567,14 +778,14 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
                       ("--inject-flush-rate", args.inject_flush_rate)):
         if not 0.0 <= val <= 1.0:
             ap.error(f"{name} must be in [0, 1], got {val}")
-        if val > 0 and not args.runtime:
-            ap.error(f"{name} requires --runtime: fault injection is "
-                     f"wired through the runtime's retry/quarantine "
-                     f"machinery (add --runtime)")
-    if args.inject_flush_rate > 0 and not args.dynamic:
-        ap.error("--inject-flush-rate requires --dynamic: flush faults "
-                 "fire inside a store's flush_updates, and without it "
-                 "there is no store")
+        if val > 0 and not runtimes:
+            ap.error(f"{name} requires --runtime or --tenants: fault "
+                     f"injection is wired through the runtimes' "
+                     f"retry/quarantine machinery (add --runtime)")
+    if args.inject_flush_rate > 0 and not (args.dynamic or args.tenants):
+        ap.error("--inject-flush-rate requires --dynamic or --tenants: "
+                 "flush faults fire inside a store's flush_updates, and "
+                 "without either there is no store")
     if args.queue_capacity < 1:
         ap.error(f"--queue-capacity must be >= 1, "
                  f"got {args.queue_capacity}")
@@ -592,12 +803,14 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
                  f"{args.precision} shadow fixes the quantization-block "
                  f"geometry, which only the 'row' plan matches (use "
                  f"--pull-mode row, or fp32)")
-    if args.trace_out and not args.runtime:
-        ap.error("--trace-out requires --runtime: span tracing hooks live "
-                 "in the continuous-batching runtime")
-    if args.flight_recorder_path and not args.runtime:
-        ap.error("--flight-recorder-path requires --runtime: the flight "
-                 "recorder records runtime lifecycle events")
+    if args.trace_out and not runtimes:
+        ap.error("--trace-out requires --runtime or --tenants: span "
+                 "tracing hooks live in the continuous-batching "
+                 "runtimes")
+    if args.flight_recorder_path and not runtimes:
+        ap.error("--flight-recorder-path requires --runtime or "
+                 "--tenants: the flight recorder records runtime "
+                 "lifecycle events")
     if args.flight_capacity < 1:
         ap.error(f"--flight-capacity must be >= 1, "
                  f"got {args.flight_capacity}")
@@ -668,7 +881,6 @@ def _build_parser() -> argparse.ArgumentParser:
                          "table (needs --dynamic)")
     ap.add_argument("--capacity-slack", type=float, default=1.5,
                     help="store capacity headroom factor (--dynamic)")
-    ap.add_argument("--tenants", default=None, metavar="SPEC.json")
     # continuous-batching runtime mode
     ap.add_argument("--runtime", action="store_true",
                     help="serve with the continuous-batching runtime "
@@ -728,6 +940,18 @@ def _build_parser() -> argparse.ArgumentParser:
                          "snapshot (--runtime)")
     ap.add_argument("--flight-capacity", type=int, default=256,
                     help="flight-recorder ring size in events")
+    # multi-tenant mode
+    ap.add_argument("--tenants", default=None, metavar="SPEC.json",
+                    help="serve a multi-tenant registry instead of one "
+                         "table: JSON mapping tenant name -> spec "
+                         "({'rows': n, 'rate_factor': r, plus any "
+                         "TenantConfig field}); drives one merged "
+                         "arrival trace through the deficit-round-robin "
+                         "MultiTenantRuntime (--loop)")
+    ap.add_argument("--table-budget-mb", type=float, default=None,
+                    help="device-memory budget for resident tenant "
+                         "tables (MB); cold tables are paged out LRU "
+                         "(--tenants; default: unbounded)")
     return ap
 
 
@@ -740,10 +964,12 @@ def parse_args(argv: Optional[list] = None):
 
 
 def main(argv: Optional[list] = None) -> None:
-    """CLI entry point: ``--loop`` for the request loop, default for the
-    decode demo."""
+    """CLI entry point: ``--loop`` for the request loop (``--tenants``:
+    the multi-tenant runtime), default for the decode demo."""
     args = parse_args(argv)
-    if args.loop:
+    if args.tenants is not None:
+        run_tenants(args)
+    elif args.loop:
         run_loop(args)
     else:
         run_decode_demo(args)

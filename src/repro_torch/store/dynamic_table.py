@@ -45,6 +45,14 @@ Mutations are *staged* host-side (`upsert` / `delete` / `append`) and
 applied in submission order by `flush_updates` — the engines drain them
 between dispatches, so in-flight queries never see a torn table.
 
+**Paging** (DESIGN.md §16).  `page_out` frees every device buffer and
+keeps the host side; `page_in` lays the host mirror out again and
+re-encodes the shadow, bytewise the buffers it freed.  On a card the host
+mirror is page-locked, so a page-in is one DMA of the table at the bus
+rate plus the shadow's re-encode on the card, with no host copy of the
+rows.  `page_state` / `from_page` remain the portable image (the JAX
+package's keys and types).
+
 Failure modes: rows must be (N,) float and finite (NaN/inf propagate into
 every later score they touch); exceeding capacity raises at flush time
 (`grow` reallocates); deleting an unknown id raises.  The store is not
@@ -88,6 +96,15 @@ class StoreFlushError(RuntimeError):
     """
 
 
+def _host_rows(device: torch.device, rows: int, N: int) -> np.ndarray:
+    """A zeroed ``(rows, N)`` float32 host buffer, page-locked when the
+    store lives on a card (uploads then run as DMA at the bus rate)."""
+    if device.type == "cuda":
+        return torch.zeros((rows, N), dtype=torch.float32,
+                           pin_memory=True).numpy()
+    return np.zeros((rows, N), np.float32)
+
+
 def _pq_encode_tiles(V4: torch.Tensor, tiles: torch.Tensor,
                      codebook: torch.Tensor, out: torch.Tensor) -> None:
     """``out[tiles] = pq_encode(V4[tiles], codebook)``, in place, through
@@ -118,8 +135,9 @@ class DynamicTableStore:
     table-level codebook for 'pq' — each bytewise a fresh build.
 
     Args:
-      table: optional (n0, N) initial rows (any float dtype); row i gets
-        external id ``ids[i]`` (default ``i``).
+      table: optional (n0, N) initial rows (any float dtype; an array, or
+        a tensor on any device); row i gets external id ``ids[i]``
+        (default ``i``).
       dim: N when ``table`` is None (an empty store).
       capacity: minimum row capacity; default ``ceil(n0 * capacity_slack)``.
         Rounded up to a ``tile`` multiple either way.
@@ -156,10 +174,12 @@ class DynamicTableStore:
             if dim is None:
                 raise ValueError("need `table` or `dim`")
             init = np.zeros((0, int(dim)), np.float32)
+        elif isinstance(table, torch.Tensor):
+            init = table.detach()
         else:
             init = np.asarray(table, np.float32)
-            if init.ndim != 2:
-                raise ValueError(f"table must be 2D, got {init.shape}")
+        if init.ndim != 2:
+            raise ValueError(f"table must be 2D, got {tuple(init.shape)}")
         n0, N = init.shape
         if capacity is None:
             capacity = max(n0, int(np.ceil(n0 * float(capacity_slack))))
@@ -187,8 +207,15 @@ class DynamicTableStore:
                 raise ValueError(f"pq_codes must be in [1, 256], "
                                  f"got {self.pq_codes}")
 
-        self._host = np.zeros((self.capacity_rows, N), np.float32)
-        self._host[:n0] = init
+        self._host = _host_rows(self.device, self.capacity_rows, N)
+        if isinstance(init, torch.Tensor):
+            # one copy into the host mirror (from a card: one DMA), and the
+            # range reduced where the rows live
+            torch.from_numpy(self._host)[:n0] = init
+            vmax = float(init.float().abs().max()) if n0 else 0.0
+        else:
+            self._host[:n0] = init
+            vmax = float(np.abs(init).max()) if init.size else 0.0
 
         if ids is None:
             ids = np.arange(n0, dtype=np.int64)
@@ -204,7 +231,7 @@ class DynamicTableStore:
 
         self.n_live = n0
         self.version = 0
-        self._vmax = float(np.abs(init).max()) if init.size else 0.0
+        self._vmax = vmax
         self._staged: List[Tuple[str, int, Optional[np.ndarray]]] = []
         #: optional zero-arg callable invoked at the top of
         #: `flush_updates`; may raise `StoreFlushError` to fail the
@@ -440,6 +467,7 @@ class DynamicTableStore:
             raise RuntimeError(
                 f"refresh_codebook() needs precision='pq', "
                 f"got {self.precision!r}")
+        self._require_resident("refresh_codebook")
         t0 = time.perf_counter()
         self._codebook = pq_train(self._V4, n_codes=self.pq_codes,
                                   subdims=self.pq_subdims)
@@ -530,10 +558,57 @@ class DynamicTableStore:
         st._staged = list(state["staged"])
         return st
 
+    @property
+    def resident(self) -> bool:
+        """True unless `page_out` freed the device buffers."""
+        return self._V4 is not None
+
+    def _require_resident(self, what: str) -> None:
+        if self._V4 is None:
+            raise RuntimeError(f"{what} needs the store's device buffers; "
+                               f"the store is paged out (page_in first)")
+
+    def page_out(self) -> None:
+        """Free every device buffer; keep the host side.
+
+        The tiled table and the int8 / int4 shadow are dropped, the pq
+        codebook moves to the host; the host mirror, id maps,
+        ``version``, ``value_abs_max``, id allocator, staged mutations,
+        fault hook and counters all stay.  Staging (`upsert`, `delete`,
+        `append`) goes on while paged out; anything that reads or writes
+        the device raises until `page_in`.  No-op when paged out.
+        """
+        if self._V4 is None:
+            return
+        if self._codebook is not None:
+            self._codebook = self._codebook.cpu()
+        self._V4 = self._V8 = self._vscale = None
+
+    def page_in(self) -> None:
+        """Rebuild the device buffers `page_out` freed, bytewise.
+
+        The tiled table is the host mirror laid out again (every write
+        goes through the mirror first) and the shadow a pure function of
+        the tiled table and the frozen codebook (every flush re-encodes
+        its dirty tiles bytewise a full encode), so both equal the freed
+        buffers.  Ends in ``torch.cuda.synchronize()`` on a card, so a
+        caller's clock read after it includes the copy.  No-op when
+        resident.
+        """
+        if self._V4 is not None:
+            return
+        self._upload()
+        if self._codebook is not None:
+            self._codebook = self._codebook.to(self.device)
+        self._encode_all()
+        self._synchronize()
+
     def resident_bytes(self) -> int:
         """Device bytes this table pins while resident: the tiled f32
         table plus (on quantized tiers) the shadow — codes, scales and
-        the pq codebook."""
+        the pq codebook; 0 while paged out."""
+        if self._V4 is None:
+            return 0
         total = 0
         for arr in (self._V4, self._V8, self._vscale, self._codebook):
             if arr is not None:
@@ -639,6 +714,7 @@ class DynamicTableStore:
         is untouched and the caller retries at its next flush.
         """
         t0 = time.perf_counter()
+        self._require_resident("flush_updates")
         if self.fault_hook is not None:
             try:
                 self.fault_hook()
@@ -689,7 +765,8 @@ class DynamicTableStore:
         new_rows = -(-capacity // self.tile) * self.tile
         if new_rows <= self.capacity_rows:
             return
-        host = np.zeros((new_rows, self.N), np.float32)
+        self._require_resident("grow")
+        host = _host_rows(self.device, new_rows, self.N)
         host[:self.capacity_rows] = self._host
         slot_ids = np.full(new_rows, -1, np.int64)
         slot_ids[:self.capacity_rows] = self._slot_ids

@@ -13,7 +13,14 @@
 * `serving_table_from_jax` carries the JAX package's serve table over.
 * The port and ``chip_smoke.py`` import neither jax nor ``repro``.
 * Without CUDA and without ``device="cpu"`` the entry points raise (the
-  decode demo too), and the options of later slices are refused.
+  decode demo and ``--tenants`` too), and the options of later slices
+  are refused.
+* ``--tenants`` / ``--table-budget-mb``: the argument checks give the
+  JAX package's CLI's messages; ``--smoke --loop --tenants
+  configs/tenants_smoke.json --device cpu --check-outcomes`` runs to its
+  end with its artifacts valid (``tools/check_obs_artifacts.py
+  --expect-tenants``), its ``stats()`` keys those of the JAX CLI's run;
+  `simulate_stream` routes arrival ``i`` to ``tenants(i)``.
 * The decode demo runs on the CPU at smoke size and refuses what it does
   not serve (`tests/test_torch_decode_demo.py` holds its tokens against
   the JAX package's).
@@ -21,6 +28,7 @@
 
 import ast
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -227,14 +235,16 @@ def test_serve_cli_loop_on_cpu():
 
 @pytest.mark.parametrize("argv,fragment", [
     (["--churn-rate", "0.25"], "requires --dynamic"),
-    (["--tenants", "t.json"], "ROADMAP.md"), (["--shards", "2"], "ROADMAP.md"),
+    (["--tenants", "t.json", "--shards", "2"], "ROADMAP.md"),
+    (["--shards", "2"], "ROADMAP.md"),
     (["--precision", "pq", "--dynamic", "--pull-mode", "coord"],
      "incompatible with a single-device quantized store"),
     (["--adaptive", "--shards", "2"], "ROADMAP.md")])
 def test_serve_cli_refuses_later_slices(argv, fragment, capsys):
-    """Slices not ported yet name their ROADMAP.md item; ``--dynamic`` is
-    ported, and its combinations are refused as the JAX package's CLI
-    refuses them."""
+    """Slices not ported yet name their ROADMAP.md item (sharding, also
+    under ``--tenants``); ``--dynamic`` and ``--tenants`` are ported, and
+    their combinations are refused as the JAX package's CLI refuses
+    them."""
     with pytest.raises(SystemExit):
         serve.parse_args(["--arch", "qwen1.5-0.5b", "--loop", *argv])
     assert fragment in capsys.readouterr().err
@@ -303,6 +313,132 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--mips", mips,
                         "--tokens", "2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--loop",
+                    "--tenants", str(ROOT / "configs" / "tenants_smoke.json")])
+
+
+TENANT_ARGV = [
+    (["--tenants", "t.json"], "--tenants requires --loop"),
+    (["--loop", "--tenants", "t.json", "--runtime"], "own runtime mode"),
+    (["--loop", "--tenants", "t.json", "--dynamic"],
+     "builds its own stores"),
+    (["--loop", "--table-budget-mb", "10"],
+     "--table-budget-mb requires --tenants"),
+    (["--loop", "--tenants", "t.json", "--table-budget-mb", "0"],
+     "--table-budget-mb must be > 0"),
+    (["--loop", "--eps-floor", "0.5"], "requires --runtime or --tenants"),
+    (["--loop", "--inject-error-rate", "0.1"],
+     "requires --runtime or --tenants"),
+    (["--loop", "--runtime", "--inject-flush-rate", "0.1"],
+     "requires --dynamic or --tenants"),
+    (["--loop", "--trace-out", "t.json"], "requires --runtime or --tenants"),
+    (["--loop", "--flight-recorder-path", "f.json"],
+     "requires --runtime or --tenants")]
+
+
+@pytest.mark.parametrize("argv,fragment", TENANT_ARGV)
+def test_serve_cli_tenant_checks_match_jax_package(argv, fragment, capsys):
+    """The ``--tenants`` and ``--table-budget-mb`` checks, and the checks
+    ``--tenants`` relaxes, refuse with the JAX package's CLI's message."""
+    from repro.launch import serve as jserve
+    argv = ["--arch", "qwen1.5-0.5b", *argv]
+    with pytest.raises(SystemExit):
+        serve.parse_args(argv)
+    got = capsys.readouterr().err.strip().splitlines()[-1]
+    ap = jserve._build_parser()
+    with pytest.raises(SystemExit):
+        jserve._validate_args(ap, ap.parse_args(argv))
+    want = capsys.readouterr().err.strip().splitlines()[-1]
+    assert fragment in got
+    assert got.split("error: ", 1)[1] == want.split("error: ", 1)[1]
+
+
+def test_serve_cli_tenant_flags_accepted():
+    """What ``--tenants`` enables parses: the ladder, faults (flush
+    faults too), artifacts and a budget."""
+    args = serve.parse_args([
+        "--arch", "qwen1.5-0.5b", "--loop", "--tenants", "t.json",
+        "--table-budget-mb", "64", "--eps-floor", "0.4",
+        "--inject-error-rate", "0.1", "--inject-flush-rate", "0.1",
+        "--trace-out", "t.json", "--flight-recorder-path", "f.json"])
+    assert args.tenants == "t.json" and args.table_budget_mb == 64.0
+
+
+def test_simulate_stream_routes_tenants():
+    """``tenants(i)`` names arrival ``i``'s tenant; classes stay off."""
+    seen = []
+
+    class Engine:
+        deadline_s, pending_count, metrics, tracer = 1e-3, 0, None, None
+
+        def submit(self, q, now=None, **kw):
+            seen.append((float(q[0]), now, kw))
+
+        def poll(self, now=None):
+            return [], 0.0
+
+        def stats(self):
+            return {}
+
+    qs = np.arange(6, dtype=np.float32)[:, None]
+    serve.simulate_stream(Engine(), qs, tenants=lambda i: "ab"[i % 2],
+                          open_loop=True, interarrival_ms=0.5)
+    assert [kw for _, _, kw in seen] == [{"tenant": "ab"[i % 2]}
+                                         for i in range(6)]
+    assert [t for _, t, _ in seen] == [i * 5e-4 for i in range(6)]
+
+
+def test_serve_cli_tenants_on_cpu(tmp_path, capsys):
+    """The CPU end-to-end ``--tenants`` run: ``--check-outcomes`` holds,
+    every tenant answers, the artifacts validate with their tenants, and
+    the stats keys are the JAX CLI's on the same flags."""
+    from repro.launch import serve as jserve
+    from test_torch_runtime import _keys
+    art = {k: str(tmp_path / f"{k}.{ext}") for k, ext in
+           (("metrics", "prom"), ("trace", "json"), ("flight", "json"))}
+    spec = str(ROOT / "configs" / "tenants_smoke.json")
+    flags = ["--arch", "qwen1.5-0.5b", "--smoke", "--loop", "--tenants",
+             spec, "--requests", "96", "--eps-floor", "4.0",
+             "--inject-error-rate", "0.1", "--table-budget-mb", "1.2",
+             "--check-outcomes"]
+    stats = serve.run_tenants(serve.parse_args(
+        flags + ["--device", "cpu", "--metrics-out", art["metrics"],
+                 "--trace-out", art["trace"],
+                 "--flight-recorder-path", art["flight"]]))
+    out = capsys.readouterr().out
+    assert "[check] OK" in out
+    names = sorted(json.load(open(spec))["tenants"])
+    assert sorted(stats["tenants"]) == names
+    for name in names:       # every request typed once, per tenant
+        t = stats["tenants"][name]
+        assert t["requests"] > 0 and sum(t["outcomes"].values()) == \
+            t["requests"], name
+    assert stats["answered"] > 0 and stats["pending"] == 0
+    assert stats["registry"]["evictions"] > 0
+    assert stats["registry"]["resident_bytes"] <= stats["registry"][
+        "byte_budget"]
+    obs = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_obs_artifacts.py"),
+         "--metrics", art["metrics"], "--trace", art["trace"],
+         "--flight", art["flight"], "--expect-tenants", ",".join(names)],
+        capture_output=True, text=True)
+    assert obs.returncode == 0, obs.stdout + obs.stderr
+    ap = jserve._build_parser()
+    jargs = ap.parse_args(flags)
+    jserve._validate_args(ap, jargs)
+    jserve._run_tenants(jargs)
+    jout = capsys.readouterr().out
+    jstats = json.loads(jout[jout.index("\n{") + 1:jout.rindex("}") + 1])
+    stats.pop("artifacts")
+    for st in (stats, jstats):
+        # residency-dependent: the store block and the rebuild causes
+        for t in st["tenants"].values():
+            t.pop("store", None)
+            t["placement"]["executor_builds"] = {}
+        for t in st["registry"]["tenants"].values():
+            t["executor_builds"] = {}
+    assert _keys(stats) == _keys(jstats)
 
 
 def _imported_modules(path: Path):

@@ -8,7 +8,11 @@ and the int8 / int4 shadow bytewise (maxima, one true division, round
 half to even) — while the pq codes are held bytewise against a fresh
 store built on the card from the snapshot (one encode shape for every
 path).  A store-backed engine's flushes launch the fused cascade over
-the store's own buffers.
+the store's own buffers.  Paging on the card: the host mirror is
+page-locked, a page-out frees exactly the store's ``resident_bytes`` of
+allocated card memory, a page-in brings every buffer back bytewise, and
+the tenancy registry's eviction frees the table's bytes while its
+page-in serves the same answers.
 """
 
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.launch.engine import MIPSServeEngine
+from repro_torch.launch.tenancy import TableRegistry, TenantConfig
 from repro_torch.store import DynamicTableStore
 
 pytestmark = pytest.mark.cuda
@@ -104,3 +109,64 @@ def test_card_store_engine_launches_over_the_store(card, precision):
     exact = (st.host_table()[st._id2slot[winner]].astype(np.float64)
              @ q.astype(np.float64)) / DIM
     np.testing.assert_allclose(scores[0], exact, rtol=1e-4)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8", "int4", "pq"])
+def test_card_page_round_trip_is_bytewise(card, precision):
+    rng = np.random.default_rng(5)
+    rows = rng.normal(size=(N_ROWS, DIM)).astype(np.float32)
+    st = DynamicTableStore(rows, block=BLOCK, precision=precision,
+                           pq_subdims=8, device=card)
+    _script([st], rng, 30)
+    st.flush_updates()
+    _script([st], rng, 6)                 # staged across the round trip
+    assert torch.from_numpy(st._host).is_pinned()
+    before = [b.clone() for b in _buffers(st)]
+    nbytes = st.resident_bytes()
+    assert nbytes == sum(b.numel() * b.element_size() for b in before)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    st.page_out()
+    torch.cuda.synchronize()
+    assert alloc - torch.cuda.memory_allocated() >= nbytes
+    assert st.resident_bytes() == 0 and st.pending_updates > 0
+    st.page_in()
+    assert st.resident_bytes() == nbytes
+    for got, want in zip(_buffers(st), before):
+        assert got.device.type == "cuda" and torch.equal(got, want)
+    st.flush_updates()
+    fresh = DynamicTableStore(*st.snapshot()[:1], ids=st.live_ids(),
+                              capacity=st.capacity_rows, block=BLOCK,
+                              precision=precision, pq_subdims=8,
+                              codebook=st.codebook(), device=card)
+    for got, want in zip(_buffers(st), _buffers(fresh)):
+        assert torch.equal(got, want)
+
+
+def test_card_registry_eviction_frees_the_table(card):
+    rng = np.random.default_rng(6)
+    reg = TableRegistry(lanes=4, device=card)
+    cfg = TenantConfig(K=4, eps=0.1, delta=0.1, block=BLOCK,
+                       precision="int8")
+    st = reg.register("a", rng.normal(size=(N_ROWS, DIM)).astype(
+        np.float32), cfg)
+    execs, _ = reg.executors("a")
+    Q = rng.normal(size=(4, DIM)).astype(np.float32)
+    perm = np.arange(execs[0].plan.n_blocks)
+    ids0, sc0, _, _ = execs[0].dispatch(Q, perm)
+    del execs
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    reg.evict("a")
+    torch.cuda.synchronize()
+    assert alloc - torch.cuda.memory_allocated() >= reg.table_bytes("a")
+    assert not st.resident and reg.resident_bytes() == 0
+    ops.reset_launch_counts()
+    execs, page_s = reg.executors("a")
+    assert page_s > 0.0 and reg.executor_builds("a") == {"new": 1,
+                                                         "page_in": 1}
+    ids1, sc1, _, _ = execs[0].dispatch(Q, perm)
+    np.testing.assert_array_equal(ids0, ids1)
+    np.testing.assert_array_equal(sc0, sc1)
+    # the rebuild warms its one rung (no eps floor), then one dispatch
+    assert ops.launch_counts()["fused_cascade_batched[int8]"] == 2
