@@ -176,11 +176,34 @@ Phases, one line each (any failure exits non-zero before the result):
    the untied unembedding as the head), held the same way; then
    qwen1.5-0.5b at 2 layers in fp32 on the card and on the CPU, same
    weights: equal next tokens, hidden states within rtol 1e-4;
-11. a ``kernels`` JSON line, one entry per kernel and tier (the batched
-   cascade's launches are the serve, runtime, store, tenancy and decode
-   phases';
-   its ``[bf16]`` entry times the decode head), and last the ``ok`` JSON
-   line.
+11. sharded — the vocab table of phase 3 (nothing cut) row-sharded over a
+   mesh that repeats the one card (S logical shards), through the CLI's
+   own code (`serve.build_loop` with the mesh handed in): ``--loop
+   --shards 4`` (64 requests, batch 4, row mode) in every tier of phase 4,
+   and ``--shards 3`` (unequal live rows per shard) in fp32 and int8;
+   ``--loop --runtime --shards 4`` with phase 5's settings (fp32);
+   ``--loop --runtime --dynamic --shards 4`` with phase 6's churn and
+   flush faults on the f32 vocab rows at slack 1.5 (a
+   ``ShardedTableStore``, fp32 and int8); one sharded tenant
+   (``register(mesh=)``, 151,936 rows in 4 shards) beside two paging
+   tenants (131,072 rows, int8 and fp32) under a budget of the sharded
+   table and one other plus 5 %, 96 arrivals 5 ms apart; and
+   ``sharded_mips_topk`` at 4 shards on 8 queries.  Launches of the
+   tier equal S per dispatch; every dispatch is held, before the next
+   flush, against the per-shard plain versions on the same shard tables,
+   perm and live counts, merged by the same rule (ids equal or a
+   near-tie; int8 / int4 scores and ``rounds_used (B, S)`` bitwise; fp32
+   and pq to rtol 1e-5); served scores are float64-exact; the store after
+   the stream is bytewise a fresh ``ShardedTableStore`` over the same live
+   ids; ``--check-outcomes`` and the obs artifacts hold; the sharded
+   tenant stays pinned and its eviction raises.  Prints each run's
+   dispatch ms beside phase 4's unsharded one, recall against exact
+   search on the whole table, the S launches' kernel ms split into round
+   ends and pulls beside phase 3's unsharded launch, and the memory held;
+12. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+   cascade's launches are the serve, runtime, store, tenancy, decode and
+   sharded phases'; its ``[bf16]`` entry times the decode head), and
+   last the ``ok`` JSON line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
 near-tie, counted and printed — every differing candidate's exact float64
@@ -972,6 +995,8 @@ def serve_run(label, precision, adaptive, bound) -> dict:
     lat = stats["latency_ms"]
     res = {"launches": launches, "dispatches": ex.n_dispatches,
            "max_abs_err": max(errs), "near_tie_queries": ties,
+           "dispatch_ms_median": 1e3 * statistics.median(
+               out[3] for _, _, out in flushes),
            "p50_ms": lat["p50"], "p95_ms": lat["p95"],
            "throughput_rps": stats["throughput_rps"], "wall_s": wall,
            "cache_hits": stats["cache"]["hits"],
@@ -2250,12 +2275,511 @@ def phase_quickstart() -> dict:
     return out
 
 
+#: phase 11: the vocab table in S row shards on the one card (a mesh that
+#: repeats it), through the CLI's own code: (label, precision, adaptive,
+#: bound, shards) of every ``--loop --shards`` run
+SHARD_TIERS = [(*t, 4) for t in TIERS] + [(*TIERS[0], 3), (*TIERS[1], 3)]
+SHARD_ARGV = ["--arch", "qwen1.5-0.5b", "--loop", "--requests", "64",
+              "--batch", "4", "--topk", str(K), "--eps", str(EPS),
+              "--delta", str(DELTA), "--pull-mode", "row"]
+#: the sharded tenant beside two paging ones: (name, rows, tier); the
+#: budget holds ``vocab`` and one of the others, plus 5 %
+SHARD_TENANTS = [("vocab", 151_936, "fp32"), ("pages_a", 131_072, "int8"),
+                 ("pages_b", 131_072, "fp32")]
+SHARD_TENANT_ARRIVALS = 96
+SHARD_TENANT_DEADLINE_MS = 20.0
+
+
+def card_mesh(S: int):
+    """S shards on the one card: the mesh repeats it."""
+    from repro_torch.distributed.sharding import Mesh
+    return Mesh([DEV] * S)
+
+
+class ShardRows:
+    """Global row ``i`` of a sharded executor's tables as they stand (a
+    store's tiled shards, or a static table's), indexed as `compare`
+    indexes a table."""
+
+    def __init__(self, ex):
+        self.ex = ex
+
+    def __getitem__(self, i):
+        shards = self.ex.shard_operands()[0]
+        n_local, R = self.ex.plan.n, self.ex.plan.tile
+        s, j = divmod(int(i), n_local)
+        return shards[s][j // R, :, j % R, :].reshape(-1)[:self.ex.N]
+
+
+def hold_sharded(ex, Qbuf, perm, out, what: str) -> dict:
+    """Hold one sharded dispatch against the per-shard plain versions on
+    the same shard tables, artifacts, perm and live counts, merged by the
+    same rule: ids equal (or a near-tie), int8 / int4 scores and
+    ``rounds_used (B, S)`` bitwise, fp32 and pq to ``SCORE_RTOL``."""
+    from repro_torch.distributed.sharding import sharded_decode_tiled
+    shards, quant, nv = ex.shard_operands()
+    Q = torch.from_numpy(Qbuf).to(DEV)
+    with plain_route():
+        ref = sharded_decode_tiled(
+            shards, Q, perm, mesh=ex.mesh, plan=ex.plan, K=ex.K,
+            k_out=ex._k_out, n_valid=nv, quantized=quant,
+            adaptive=ex.adaptive)
+    ref = (ref[0], ref[1], ref[3]) if ex.adaptive else ref[:2]
+    got = [torch.from_numpy(t) for t in out[:3 if ex.adaptive else 2]]
+    return compare(ShardRows(ex), Q, got, ref, what=what,
+                   bitwise=ex.plan.precision in ("int8", "int4"))
+
+
+def shard_split(ex, Qbuf, perm) -> dict:
+    """The S launches of one sharded dispatch, back to back on the card's
+    stream: their ms (CUDA events, median of 10 after 2 warm-ups), and
+    again with every PULL_BIT cleared (the same round ends, no pulls)."""
+    from repro_torch.core.schedule import PULL_BIT
+    from repro_torch.kernels.fused_cascade import fused_cascade_batched_cuda
+    shards, quant, nv = ex.shard_operands()
+    Q = torch.from_numpy(Qbuf).to(DEV)
+    ops = []
+    for s, V4 in enumerate(shards):
+        o, kw = cascade_operands(ex.plan, V4, Q, perm, adaptive=ex.adaptive,
+                                 quantized=None if quant is None
+                                 else quant[s])
+        kw.update(k_out=ex._k_out, n_valid=int(nv[s]))
+        ops.append((o, kw))
+    idle = [((o[0], o[1], o[2] & ~PULL_BIT, o[3], o[4]), kw)
+            for o, kw in ops]
+    ms = time_cuda(lambda: [fused_cascade_batched_cuda(*o, **kw)
+                            for o, kw in ops], 10, 2)
+    ends = time_cuda(lambda: [fused_cascade_batched_cuda(*o, **kw)
+                              for o, kw in idle], 10, 2)
+    return {"kernel_ms": ms, "round_end_ms": ends, "pull_ms": ms - ends}
+
+
+def sharded_serve_run(label, precision, adaptive, bound, S, served,
+                      kern) -> dict:
+    """Phase 11a: ``--loop --shards S`` through `MIPSServeEngine`."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(SHARD_ARGV + [
+        "--shards", str(S), "--precision", precision, "--bound", bound]
+        + (["--adaptive"] if adaptive else []))
+    mesh = card_mesh(S)
+    gc.collect()                # the last run's engine lets go of its table
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    engine, qs = serve.build_loop(args, mesh)
+    ex = engine.executor
+    held_gb = torch.cuda.memory_allocated() / 1e9 - base_gb
+    check(ex.mesh is mesh and ex.plan.n == -(-ex.n // S),
+          f"sharded {label} S={S}: plan of {ex.plan.n} rows for {ex.n}")
+    tag = tier_tag(label, ex._table)
+    name = f"fused_cascade_batched[{tag}]"
+    held, dts = [], []
+    real = ex.dispatch
+
+    def holding(Qbuf, perm):
+        out = real(Qbuf, perm)
+        dts.append(out[3])
+        held.append(hold_sharded(ex, Qbuf, perm, out,
+                                 f"sharded {label} S={S} dispatch "
+                                 f"{len(held)}"))
+        return out
+    ex.dispatch = holding
+    kops.reset_launch_counts()
+    stats = serve.simulate_stream(engine, qs,
+                                  interarrival_ms=args.interarrival_ms,
+                                  pattern=args.pattern,
+                                  seed=args.stream_seed)
+    counts = kops.launch_counts()
+    check(ex.n_dispatches > 0 and counts[name] == S * ex.n_dispatches
+          == counts["fused_cascade_batched"],
+          f"sharded {label} S={S}: {counts[name]} {name} launches "
+          f"({counts['fused_cascade_batched']} in all) for "
+          f"{ex.n_dispatches} dispatches of {S} shards")
+    check(stats["completed"] == args.requests,
+          f"sharded {label} S={S}: {stats['completed']} completed")
+    table, n_valid = ex._table, ex.n_valid
+    recalls = []
+    exact = torch.topk(table[:n_valid].float()
+                       @ torch.from_numpy(qs).to(DEV).T, K, dim=0).indices
+    for rid in range(args.requests):
+        res = engine.result(rid)
+        check(res is not None, f"sharded {label}: request {rid} unanswered")
+        check_served(table, qs[rid], *res, n_valid,
+                     f"sharded {label} S={S}: request {rid}")
+        recalls.append(len(set(res[0].tolist())
+                           & set(exact[:, rid].tolist())) / K)
+    res = {"shards": S, "launches": counts[name],
+           "dispatches": ex.n_dispatches,
+           "max_abs_err": max(h["max_abs_err"] for h in held),
+           "near_tie_queries": sum(h["near_tie_queries"] for h in held),
+           "dispatch_ms_median": 1e3 * statistics.median(dts),
+           "unsharded_dispatch_ms_median":
+               served[tag]["dispatch_ms_median"],
+           "recall_at_k": float(np.mean(recalls)),
+           "p50_ms": stats["latency_ms"]["p50"],
+           "p95_ms": stats["latency_ms"]["p95"],
+           "held_gb": held_gb,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 - base_gb}
+    if adaptive:
+        res["adaptive"] = stats["adaptive"]
+    if label == "fp32":         # (a cleared schedule never exits early)
+        Qbuf = np.ascontiguousarray(qs[:B])
+        res["split"] = shard_split(ex, Qbuf, torch.randperm(
+            ex.plan.n_blocks, generator=torch.Generator().manual_seed(0)))
+        res["unsharded_kernel_ms"] = kern[(tag, "row")]["kernel_ms"]
+    ex.dispatch = real
+    say(f"sharded {label} S={S}: " + json.dumps(res))
+    return res
+
+
+def sharded_runtime_run(label, precision, adaptive, bound, S,
+                        dynamic: bool) -> dict:
+    """Phase 11b-c: ``--loop --runtime --shards S`` with the runtime
+    phase's settings, and with ``--dynamic`` under churn and flush
+    faults; every dispatch held before the next flush; the store after
+    the stream bytewise a fresh store over the same live ids."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.store import ShardedTableStore
+
+    tmp = tempfile.TemporaryDirectory()
+    art = {k: str(Path(tmp.name) / f"{k}.{ext}") for k, ext in
+           (("metrics", "prom"), ("trace", "json"), ("flight", "json"))}
+    argv = (STORE_ARGV if dynamic else RUNTIME_ARGV) + [
+        "--shards", str(S), "--precision", precision, "--bound", bound,
+        "--metrics-out", art["metrics"], "--trace-out", art["trace"],
+        "--flight-recorder-path", art["flight"]] + (
+            ["--adaptive"] if adaptive else [])
+    args = serve.parse_args(argv)
+    what = f"sharded {'store ' if dynamic else ''}runtime {label} S={S}"
+    mesh = card_mesh(S)
+    gc.collect()                # the last run's engine lets go of its table
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    engine, qs = serve.build_loop(args, mesh)
+    execs, store = engine.executors, engine.store
+    held_gb = torch.cuda.memory_allocated() / 1e9 - base_gb
+    check(all(ex.mesh is mesh for ex in execs)
+          and (store is not None) == dynamic,
+          f"{what}: rungs {[ex.mesh for ex in execs]}, store {store}")
+    if dynamic:
+        check(isinstance(store, ShardedTableStore)
+              and all(ex.shard_operands()[0][s] is store.tiled_shards()[s]
+                      for ex in execs for s in range(S)),
+              f"{what}: rungs do not read the store's shards")
+    qs = list(qs)
+    N = engine.N
+    for i, bad in zip((5, 70, 140, 210), (
+            np.full(N, np.nan, np.float32), np.full(N, np.inf, np.float32),
+            np.ones(N + 1, np.float32), np.ones(N - 3, np.float32))):
+        qs[i] = bad
+    tag = label if dynamic else tier_tag(label, execs[0]._table)
+    name = f"fused_cascade_batched[{tag}]"
+    kops.reset_launch_counts()
+    warm_s = engine.warmup()
+    held = []
+    for rung, ex in enumerate(execs):
+        def holding(Qbuf, perm, rung=rung, ex=ex, real=ex.dispatch):
+            out = real(Qbuf, perm)
+            r = hold_sharded(ex, Qbuf, perm, out,
+                             f"{what} rung {rung} dispatch {len(held)}")
+            # served slots distinct live rows, scores exact as they stand
+            rows = ShardRows(ex)
+            live = (store.live_mask() if dynamic
+                    else np.arange(ex.n) < ex.n_valid)
+            for i in np.flatnonzero(np.abs(Qbuf).sum(1) > 0):
+                slots = out[0][i]
+                check(len(set(slots.tolist())) == K and live[slots].all(),
+                      f"{what}: lane {i} slots {slots.tolist()}")
+                exact = torch.stack([rows[j] for j in slots]).double() @ \
+                    torch.from_numpy(Qbuf[i]).to(DEV).double() / N
+                check(np.allclose(out[1][i], exact.cpu().numpy(),
+                                  rtol=EXACT_RTOL, atol=0),
+                      f"{what}: lane {i} scores {out[1][i].tolist()} vs "
+                      f"exact {exact.tolist()}")
+            held.append((rung, out[3], r))
+            return out
+        ex.dispatch = holding
+    t0 = time.perf_counter()
+    stats = serve.serve_stream(args, engine, qs)
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    n_disp = sum(ex.n_dispatches for ex in execs)
+    check(counts[name] == S * n_disp == counts["fused_cascade_batched"]
+          and n_disp == len(execs) + len(held),
+          f"{what}: {counts[name]} {name} launches "
+          f"({counts['fused_cascade_batched']} in all) for {n_disp} rung "
+          f"dispatches of {S} shards, {len(held)} after warm-up")
+    try:
+        serve.check_outcomes(args, stats)
+    except SystemExit as e:
+        raise SmokeFailure(f"{what}: {e}") from None
+    f = stats["faults"]
+    check(f["dispatch_errors"] == f["injected"]["dispatch_errors"],
+          f"{what}: {f['dispatch_errors']} dispatch errors, "
+          f"{f['injected']['dispatch_errors']} injected")
+    res = {"shards": S, "launches": counts[name],
+           "dispatches": stats["dispatches"], "held_dispatches": len(held),
+           "max_abs_err": max(h[2]["max_abs_err"] for h in held),
+           "near_tie_queries": sum(h[2]["near_tie_queries"] for h in held),
+           "outcomes": stats["outcomes"],
+           "p50_ms": stats["latency_ms"]["p50"],
+           "p99_ms": stats["latency_ms"]["p99"],
+           "served_per_rung": stats["degradation"]["served_per_rung"],
+           "dispatch_ms_median": 1e3 * statistics.median(
+               h[1] for h in held),
+           "held_gb": held_gb,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 - base_gb,
+           "warmup_s": warm_s, "wall_s": wall}
+    if dynamic:
+        check(f["store_flush_failures"] == f["injected"]["flush_failures"]
+              == store.n_flush_failures > 0 and f["update_errors"] == 0
+              and stats["updates"]["applied"] > 0,
+              f"{what}: faults {f}, updates {stats['updates']}")
+        rows, ids, counts_s = store.snapshot()
+        fresh = ShardedTableStore(rows, ids=ids, shard_counts=counts_s,
+                                  capacity=store.capacity_rows, mesh=mesh,
+                                  block=store.block)
+        check(np.array_equal(fresh.host_table(), store.host_table())
+              and np.array_equal(fresh._slot_ids, store._slot_ids)
+              and all(torch.equal(a, b) for a, b in
+                      zip(fresh.tiled_shards(), store.tiled_shards())),
+              f"{what}: the store after churn differs from a fresh store "
+              f"over the same live ids")
+        res.update(per_shard_live=store.n_valid_vector().tolist(),
+                   rows_applied=stats["updates"]["applied"],
+                   flush_failures=f["store_flush_failures"],
+                   bytewise_fresh=True,
+                   store_gb=store.device_bytes() / 1e9)
+        del fresh
+    obs = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_obs_artifacts.py"),
+         "--metrics", art["metrics"], "--trace", art["trace"],
+         "--flight", art["flight"]], capture_output=True, text=True)
+    check(obs.returncode == 0, f"{what}: obs artifacts: "
+          f"{obs.stdout.strip()} {obs.stderr.strip()}")
+    tmp.cleanup()
+    say(f"{what}: " + json.dumps(res))
+    return res
+
+
+def sharded_tenancy_run() -> dict:
+    """Phase 11d: one sharded tenant (``register(mesh=)``, 4 shards)
+    beside two paging tenants, under a budget of the sharded table and
+    one other plus 5 %: a short stream pages the two in and out, the
+    sharded one stays; evicting it raises; every dispatch held."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import CascadeExecutor
+    from repro_torch.launch.tenancy import (MultiTenantRuntime,
+                                            TableRegistry, TenancyError,
+                                            TenantConfig)
+
+    mesh = card_mesh(4)
+    nbytes = {name: rows * 1024 * 4 * 3 // 2 for name, rows, _ in
+              SHARD_TENANTS}
+    budget = int(1.05 * (nbytes["vocab"] + max(nbytes["pages_a"] * 5 // 4,
+                                               nbytes["pages_b"])))
+    reg = TableRegistry(byte_budget=budget, lanes=B, device=DEV)
+    held, launches = [], {"sharded": 0, "fp32": 0, "int8": 0}
+    real = CascadeExecutor.dispatch
+
+    failures = []
+
+    def holding(ex, Qbuf, perm):
+        # each dispatch's launches, read from the counter around it; a
+        # failed check is kept, as the runtime's retries would absorb it
+        before = kops.launch_counts().get("fused_cascade_batched", 0)
+        out = real(ex, Qbuf, perm)
+        n = kops.launch_counts().get("fused_cascade_batched", 0) - before
+        try:
+            if ex.mesh is not None:
+                check(n == len(ex.mesh.devices),
+                      f"sharded tenancy: {n} launches for a dispatch over "
+                      f"{len(ex.mesh.devices)} shards")
+                held.append(hold_sharded(ex, Qbuf, perm, out,
+                                         f"sharded tenancy dispatch "
+                                         f"{len(held)}"))
+                launches["sharded"] += n
+            else:
+                check(n == 1, f"sharded tenancy: {n} launches for an "
+                      f"unsharded dispatch")
+                launches[ex.plan.precision] += n
+        except SmokeFailure as e:
+            failures.append(str(e))
+            raise
+        return out
+    CascadeExecutor.dispatch = holding
+    try:
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        kops.reset_launch_counts()
+        for idx, (name, rows, tier) in enumerate(SHARD_TENANTS):
+            cfg = TenantConfig(K=K, eps=EPS, delta=DELTA, precision=tier,
+                               block=512,
+                               deadline_ms=SHARD_TENANT_DEADLINE_MS,
+                               queue_capacity=16, seed=idx)
+            reg.register(name, serve.tenant_table(rows, 1024, 0, idx, DEV),
+                         cfg, mesh=mesh if name == "vocab" else None)
+        check(reg.is_pinned("vocab") and reg.stats()["tenants"]["vocab"][
+            "sharded"], "sharded tenancy: vocab is not a pinned shard set")
+        try:
+            reg.evict("vocab")
+            raise SmokeFailure("sharded tenancy: evicting vocab did not "
+                               "raise")
+        except TenancyError:
+            pass
+        engine = MultiTenantRuntime(reg, batch_wait_ms=2.0, seed=0)
+        engine.warmup()
+        # vocab every other arrival; the paging tenants one half each, so
+        # each is paged in once the stream turns to it
+        names = [t[0] for t in SHARD_TENANTS]
+        half = SHARD_TENANT_ARRIVALS // 2
+        labels = [names[0] if i % 2 == 0 else names[1 + (i >= half)]
+                  for i in range(SHARD_TENANT_ARRIVALS)]
+        qs = np.random.default_rng(0).normal(
+            size=(SHARD_TENANT_ARRIVALS, 1024)).astype(np.float32)
+        trace = serve.arrival_trace(SHARD_TENANT_ARRIVALS,
+                                    interarrival_ms=5.0)
+        stats = serve.simulate_stream(engine, qs, trace=trace,
+                                      open_loop=True,
+                                      tenants=lambda i: labels[i])
+        counts = kops.launch_counts()
+    finally:
+        CascadeExecutor.dispatch = real
+    check(not failures, f"sharded tenancy: {failures[:3]}")
+    r = reg.stats()
+    check(counts["fused_cascade_batched[fp32]"]
+          == launches["sharded"] + launches["fp32"]
+          and counts["fused_cascade_batched[int8]"] == launches["int8"]
+          and launches["sharded"] > 0 and r["evictions"] > 0
+          and r["page_ins"] > 0 and reg.is_resident("vocab")
+          and r["resident_bytes"] <= budget,
+          f"sharded tenancy: launches {counts} vs {launches}, registry {r}")
+    answered = {n: stats["tenants"][n]["outcomes"]["ok"]
+                + stats["tenants"][n]["outcomes"]["degraded"]
+                for n in names}
+    check(all(v > 0 for v in answered.values()),
+          f"sharded tenancy: answered {answered}")
+    res = {"launches": launches["sharded"],
+           "unsharded_launches": launches["fp32"] + launches["int8"],
+           "max_abs_err": max(h["max_abs_err"] for h in held),
+           "held_dispatches": len(held), "answered": answered,
+           "evictions": r["evictions"], "page_ins": r["page_ins"],
+           "budget_gb": budget / 1e9,
+           "resident_gb": r["resident_bytes"] / 1e9,
+           "sharded_gb": reg.table_bytes("vocab") / 1e9,
+           "mem_gb": torch.cuda.memory_allocated() / 1e9 - base_gb}
+    say("sharded tenancy: " + json.dumps(res))
+    del engine, reg
+    gc.collect()
+    return res
+
+
+def sharded_mips_run(table32, n_valid) -> dict:
+    """Phase 11e: `sharded_mips_topk` at 4 shards on 8 queries, one
+    batched launch per shard with per-query perms, held against the
+    plain versions; served scores exact; recall against exact search."""
+    from repro_torch.core.mips import sharded_mips_topk
+    from repro_torch.kernels import ops as kops
+
+    V = table32[:n_valid]
+    rng = np.random.default_rng(11)
+    Q = rng.normal(size=(N_MIPS_QUERIES, V.shape[1])).astype(np.float32)
+    vr = 2.0 * float(np.abs(Q).max()) * float(V.abs().max())
+    g = torch.Generator().manual_seed(3)
+    n_blocks = -(-V.shape[1] // 512)
+    perms = torch.stack([torch.randperm(n_blocks, generator=g)
+                         for _ in range(N_MIPS_QUERIES)])
+    kw = dict(mesh=card_mesh(4), eps=EPS, delta=DELTA, value_range=vr,
+              final_exact=True)
+    kops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, scores = sharded_mips_topk(V, Q, perms, K, **kw)
+    torch.cuda.synchronize()
+    call_ms = 1e3 * (time.perf_counter() - t0)
+    launches = kops.launch_counts()["fused_cascade_batched[fp32]"]
+    check(launches == 4 == kops.launch_counts()["fused_cascade_batched"],
+          f"sharded mips: {launches} launches for 4 shards")
+    with plain_route():
+        ref = sharded_mips_topk(V, Q, perms, K, **kw)
+    Qd = torch.from_numpy(Q).to(DEV)
+    r = compare(V, Qd, (ids, scores), ref, what="sharded mips")
+    exact = torch.topk(V @ Qd.T, K, dim=0).indices.T.cpu()
+    recall = []
+    for b in range(N_MIPS_QUERIES):
+        check_served(V, Q[b], ids[b].cpu().numpy(), scores[b].cpu().numpy(),
+                     n_valid, f"sharded mips: query {b}")
+        recall.append(len(set(ids[b].tolist()) & set(exact[b].tolist()))
+                      / K)
+    res = {"launches": launches, "max_abs_err": r["max_abs_err"],
+           "near_tie_queries": r["near_tie_queries"],
+           "recall_at_k": float(np.mean(recall)), "call_ms": call_ms}
+    say("sharded mips: " + json.dumps(res))
+    return res
+
+
+def phase_sharded(table, n_valid, served, kern) -> dict:
+    """Phase 11: sharded serving on the one card; per tier tag the
+    launches and errors of every run for the kernels line."""
+    from repro_torch.launch import serve
+    drawn = {}
+    real_draw = serve.make_serving_table
+
+    def drawn_once(cfg, seed=0, device="cuda"):
+        # the CLI draws the same table for every run: draw it once (the
+        # card's copy is the phase's, a CPU copy for the store runs)
+        key = (cfg.name, seed, str(device))
+        if key not in drawn:
+            drawn[key] = ((table, n_valid) if str(device) == DEV
+                          else real_draw(cfg, seed, device))
+        return drawn[key]
+    serve.make_serving_table = drawn_once
+    runs = {}
+    try:
+        for tier in SHARD_TIERS:
+            runs[(tier[0], tier[4])] = sharded_serve_run(*tier, served, kern)
+            torch.cuda.empty_cache()
+        runs["runtime"] = sharded_runtime_run(*TIERS[0], 4, dynamic=False)
+        torch.cuda.empty_cache()
+        for tier in STORE_RUNTIME_TIERS:
+            runs[("store", tier[0])] = sharded_runtime_run(*tier, 4,
+                                                           dynamic=True)
+            torch.cuda.empty_cache()
+    finally:
+        serve.make_serving_table = real_draw
+    runs["tenancy"] = sharded_tenancy_run()
+    torch.cuda.empty_cache()
+    runs["mips"] = sharded_mips_run(table.float(), n_valid)
+    torch.cuda.empty_cache()
+    per_tag = {}
+
+    def add(tag, r):
+        t = per_tag.setdefault(tag, {"launches": 0, "max_abs_err": 0.0})
+        t["launches"] += r["launches"]
+        t["max_abs_err"] = max(t["max_abs_err"], r["max_abs_err"])
+    for (label, _), r in ((k, v) for k, v in runs.items()
+                          if isinstance(k, tuple) and k[0] != "store"):
+        add(tier_tag(label, table), r)
+    add(tier_tag("fp32", table), runs["runtime"])
+    for key in [k for k in runs if isinstance(k, tuple) and k[0] == "store"]:
+        add(key[1], runs[key])
+    add("fp32", runs["tenancy"])
+    add("fp32", runs["mips"])
+    return {"runs": runs, "per_tag": per_tag}
+
+
 def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
-                   lib, decode) -> list:
+                   lib, decode, sharded) -> list:
     """The ``kernels`` line: one entry per kernel and tier.  The batched
-    cascade's launches are those of the serve, runtime, store, tenancy and
-    decode phases (the fp32 tier on the f32 stores; ``[bf16]`` on the bf16
-    serving table and model heads); its bf16 entry's times are the decode
+    cascade's launches are those of the serve, runtime, store, tenancy,
+    decode and sharded phases (the fp32 tier on the f32 stores and the
+    sharded library call; ``[bf16]`` on the bf16 serving table and model
+    heads; S per sharded dispatch); its bf16 entry's times are the decode
     head's, on step 0's operands.  Times of a tier are phase 3's, row mode
     (coord beside them)."""
     none = {"launches": 0, "max_abs_err": 0.0}
@@ -2270,6 +2794,7 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
                  "max_abs_err": tenancy["max_abs_err"].get(tag, 0.0)}]
         if tag == "bf16":
             runs += [decode["qwen1.5-0.5b"], decode["tinyllama-1.1b"]]
+        runs.append(sharded["per_tag"].get(tag, none))
         row, coord = kern[(tag, "row")], kern.get((tag, "coord"))
         timed = decode["head"] if tag == "bf16" else row
         entry = {
@@ -2394,14 +2919,20 @@ def main() -> int:
         phase_quickstart()
         torch.cuda.empty_cache()
         decode = phase_decode()
+        torch.cuda.empty_cache()
+        table, n_valid = make_serving_table(get_config("qwen1.5-0.5b"), 0,
+                                            DEV)
+        sharded = phase_sharded(table, n_valid, served, kern)
+        del table
+        torch.cuda.empty_cache()
         say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernel_entries(
-        kern, single, aux, served, runtime, stored, tenancy, lib, decode)}),
-        flush=True)
+        kern, single, aux, served, runtime, stored, tenancy, lib, decode,
+        sharded)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -607,12 +607,26 @@ def _run_tiled(V4: torch.Tensor, Qp: torch.Tensor, perm, *,
     always, in their own type: bf16 queries get bf16-rounded scales, as
     in the JAX package), one fused dispatch on f32 queries for the fp32
     and pq tiers, then the fp32 rescore or the padding rescale."""
-    dev = V4.device
-    Qb = Qp.reshape(*Qp.shape[:-1], plan.n_blocks, plan.block).contiguous()
-    perm = _check_perm(perm, plan.n_blocks, dev)
+    perm = _check_perm(perm, plan.n_blocks, V4.device)
     if perm.dim() == 2 and (not batched or perm.shape[0] != Qp.shape[0]):
         raise ValueError(f"per-query perms {tuple(perm.shape)} need a "
                          f"batch of {perm.shape[0]} queries")
+    return cascade_tiled(V4, Qp, perm, plan=plan, batched=batched,
+                         final_exact=final_exact, k_out=k_out,
+                         n_valid=n_valid, quantized=quantized,
+                         adaptive=adaptive)
+
+
+def cascade_tiled(V4: torch.Tensor, Qp: torch.Tensor, perm: torch.Tensor, *,
+                  plan: BlockedPlan, batched: bool, final_exact: bool,
+                  k_out: int, n_valid: int, quantized=None,
+                  adaptive: bool = False):
+    """`_run_tiled` past its checks: ``Qp`` and a checked int64 ``perm``
+    (`_check_perm`) already on ``V4``'s device.  Nothing here waits for
+    the device, so a caller may issue it on several devices (or several
+    times on one) before it synchronizes
+    (`repro_torch.distributed.sharding.sharded_decode_tiled`)."""
+    Qb = Qp.reshape(*Qp.shape[:-1], plan.n_blocks, plan.block).contiguous()
     quantized_plan = plan.precision != "fp32"
     if quantized is not None:
         Vq, vaux = _check_quantized(quantized, V4, plan)

@@ -4,8 +4,10 @@
 (eps, delta) suboptimality knob.  It runs on the card by default (one
 `repro_torch.kernels.ops.fused_cascade` launch per call) and on the CPU,
 through the kernel's plain PyTorch version, with ``device="cpu"``.
-``sharded_mips_topk`` comes with the port's sharding (ROADMAP queue 1
-item 10).
+``sharded_mips_topk`` serves a batch over a row-sharded table (one
+batched launch per shard and a top-K merge); the serving engine's
+multi-device path, ``sharded_bounded_me_decode``, is re-exported here
+from `repro_torch.distributed.sharding`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,9 +18,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.boundedme_torch import bounded_me_blocked, resolve_device
+from repro_torch.core.boundedme_torch import (BlockedPlan,
+                                              bounded_me_blocked,
+                                              cascade_tiled, make_plan,
+                                              quantize_table, resolve_device,
+                                              tile_table)
+from repro_torch.distributed.sharding import (_check_axis, device_guard,
+                                              merge_topk,
+                                              sharded_bounded_me_decode,
+                                              stage_batch)
 
-__all__ = ["mips_topk", "nns_topk", "exact_topk", "default_value_range",
+__all__ = ["mips_topk", "nns_topk", "sharded_mips_topk", "exact_topk",
+           "sharded_bounded_me_decode", "default_value_range",
            "table_abs_max"]
 
 
@@ -167,3 +178,89 @@ def nns_topk(V, q, K: int = 1, **kw):
     aug_V = torch.cat([root2 * V, -(V * V).sum(dim=1, keepdim=True)], dim=1)
     aug_q = torch.cat([root2 * q, torch.ones(1, dtype=q.dtype, device=dev)])
     return mips_topk(aug_V, aug_q, K, **kw)
+
+
+def sharded_mips_topk(table, queries, perms, K: int, *, mesh,
+                      model_axis: str = "model", batch_axes=None,
+                      n_valid: Optional[int] = None,
+                      plan: Optional[BlockedPlan] = None, eps: float = 0.05,
+                      delta: float = 0.05, value_range: float = 4.0,
+                      tile: int = 8, block: int = 512,
+                      final_exact: bool = True, precision: str = "fp32",
+                      pull_mode: str = "row", coord_block: int = 128,
+                      quant_err: Optional[float] = None,
+                      pq_subdims: int = 8, pq_codes: int = 16):
+    """Batched MIPS over a row-sharded table: shard-local bandits, K-merge.
+
+    ``table`` (n, N) is split into ``shards`` row blocks of n / shards
+    (n must divide evenly; `sharded_bounded_me_decode` serves ragged
+    tables), one per device of ``mesh``.  Every shard runs the same
+    static plan on its rows (delta split across shards by union bound;
+    a quantized shard quantizes its own rows) for the whole batch in ONE
+    batched fused-cascade launch with per-query permutations, then the
+    global top-K of the shards' K winners is taken on
+    ``mesh.devices[0]`` — lower position first on ties, as
+    ``jax.lax.top_k``.
+
+    Args:
+      table: (n, N) float arm matrix.  queries: (B, N) query batch.
+      perms: (B, n_blocks) per-query block permutations, in place of the
+        JAX package's per-query keys.
+      K / eps / delta / value_range / tile / block / final_exact /
+        precision / pull_mode / coord_block / quant_err / pq_subdims /
+        pq_codes: as in `mips_topk` ('pq' needs ``quant_err`` or a
+        ``plan``); ``plan``, when given, is the shard plan.
+      mesh: the `repro_torch.distributed.sharding.Mesh`.  ``model_axis``
+        must be ``"model"`` and ``batch_axes`` None (the JAX signature;
+        the batch is replicated).
+      n_valid: real row count when ``table`` carries padding rows (e.g. a
+        padded vocab); padding is masked out of the merge.
+
+    Returns:
+      ``(ids (B, K) int32, scores (B, K) float32)``.
+    """
+    _check_axis(model_axis)
+    if batch_axes is not None:
+        raise ValueError("batch_axes must be None: the port's serving mesh "
+                         "has only the row axis")
+    S = len(mesh.devices)
+    n, N = table.shape
+    if n % S != 0:
+        raise ValueError(f"{n} rows do not split evenly over {S} shards; "
+                         f"use sharded_bounded_me_decode for a ragged table")
+    n_local = n // S
+    if plan is None:
+        plan = make_plan(n_local, N, K=K, eps=eps, delta=delta / S,
+                         value_range=value_range, tile=tile, block=block,
+                         precision=precision, pull_mode=pull_mode,
+                         coord_block=coord_block, quant_err=quant_err,
+                         pq_subdims=pq_subdims, pq_codes=pq_codes)
+    table = torch.as_tensor(table)
+    Q = torch.as_tensor(queries, dtype=torch.float32)
+    if torch.as_tensor(perms).shape != (Q.shape[0], plan.n_blocks):
+        raise ValueError(f"perms must be ({Q.shape[0]}, {plan.n_blocks})")
+    # table shards, their artifacts, queries and perms all staged before
+    # the first launch, which nothing then waits for
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        V4 = tile_table(table[s * n_local:(s + 1) * n_local], plan, dev)
+        shards.append((V4, quantize_table(V4, plan)
+                       if plan.precision != "fp32" else None))
+    batch = stage_batch(Q, perms, mesh, plan)
+    parts = []
+    for s, dev in enumerate(mesh.devices):
+        (V4, quant), (Qp, perm_d) = shards[s], batch[dev]
+        with device_guard(dev):
+            ids, scores = cascade_tiled(
+                V4, Qp, perm_d, plan=plan, batched=True,
+                final_exact=final_exact, k_out=plan.K, n_valid=plan.n,
+                quantized=quant)
+            gids = ids + s * n_local
+            if n_valid is not None and n_valid < n:
+                # vocab-padding rows (zeros) must never win the merge
+                scores = torch.where(gids < n_valid, scores,
+                                     torch.full_like(scores, -torch.inf))
+            parts.append((gids, scores))
+    home = mesh.devices[0]
+    return merge_topk(torch.cat([p[0].to(home) for p in parts], dim=1),
+                      torch.cat([p[1].to(home) for p in parts], dim=1), K)

@@ -1,3 +1,4 @@
-"""Multi-device serving of the port (``repro.distributed``): only the
-per-dispatch lane accounting so far; the sharded decode is ROADMAP.md
-queue 1 item 6."""
+"""Multi-device serving of the port (``repro.distributed``): the serving
+mesh, the sharded decode and its table placement, and the per-dispatch
+lane accounting.  Model-parameter sharding waits for the model zoo
+(ROADMAP.md queue 1 item 7)."""

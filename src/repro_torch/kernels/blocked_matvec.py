@@ -129,6 +129,7 @@ def blocked_matvec_cuda(W: torch.Tensor, q: torch.Tensor, *,
                       W.data_ptr() % 16)
     lib = _lib()
     with library.on_device(dev):
+        library.require_current(dev)
         s = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.blocked_matvec(code, W.data_ptr(), q.data_ptr(),
                                 out.data_ptr(), _GRID.on(dev).data_ptr(), n,

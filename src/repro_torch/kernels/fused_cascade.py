@@ -11,10 +11,10 @@ Two entries share one templated body, as the two TPU kernels share
 ``_make_kernel``: `fused_cascade_batched_cuda` (a (B, N) batch) and
 `fused_cascade_cuda` (one query).  Each is one cooperative launch of one
 CTA per SM (`launch_grid`; `launched_grid` reads back the grid a launch
-ran with); each launches on CUDA tensors and raises on anything else,
-and on a schedule not laid out as ``flatten_schedule`` lays it out
-(`check_layout`).  `repro_torch.kernels.ops` chooses between them and
-the plain PyTorch versions by the tensors' device.
+ran with); each launches on CUDA tensors, on their card, and raises on
+anything else, and on a schedule not laid out as ``flatten_schedule``
+lays it out (`check_layout`).  `repro_torch.kernels.ops` chooses
+between them and the plain PyTorch versions by the tensors' device.
 """
 
 from __future__ import annotations
@@ -278,7 +278,10 @@ def _launch(single: bool, V4: torch.Tensor, Qb: torch.Tensor,
         return None if off is None else work.data_ptr() + 4 * off
     lib = _lib()
     entry = "fused_cascade" if single else "fused_cascade_batched"
-    with torch.cuda.device(dev):
+    with library.on_device(dev):
+        # the entry reads the current card's SM count and shared memory
+        # and launches on its stream
+        library.require_current(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry)(
             TIERS.index(tier), int(cert is not None), int(track_var),

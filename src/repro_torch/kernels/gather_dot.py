@@ -140,11 +140,12 @@ def gather_block_dot_cuda(V4: torch.Tensor, idx: torch.Tensor,
                       V4.data_ptr() % 16)
     lib = _lib()
     with library.on_device(dev):
+        library.require_current(dev)
         s = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gather_block_dot(
             code, V4.data_ptr(), idx.data_ptr(), cols.data_ptr(),
-            qsel.data_ptr(), out.data_ptr(), _GRID.on(dev).data_ptr(), T, grid,
-            n_tiles, n_blocks, R, C, dt, *geo.ints(GEOMETRY), s)
+            qsel.data_ptr(), out.data_ptr(), _GRID.on(dev).data_ptr(), T,
+            grid, n_tiles, n_blocks, R, C, dt, *geo.ints(GEOMETRY), s)
     library.check_launch(lib, rc, "gather_block_dot")
     library.count("gather_block_dot", f"gather_block_dot[{geo.branch}]")
     return out

@@ -9,7 +9,10 @@ library whose name carries a hash of the source; `load` opens it with
 The launch counts of every kernel wrapper live here too: a wrapper adds
 one to its names (`count`) where it launches its kernel, and nowhere
 else; so do the word a launch writes its grid into (`GridWord`) and the
-occupancy query of a source's ``<entry>_config``.
+occupancy query of a source's ``<entry>_config``.  A wrapper makes its
+operands' card current (`on_device`), so a call on any card launches
+there, and checks that card right before the C entry
+(`require_current`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 __all__ = ["CSRC", "build", "load", "check_launch", "register", "count",
            "launch_counts", "reset_launch_counts", "on_device",
+           "require_current",
            "occupancy", "GridWord"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -127,6 +131,22 @@ def on_device(device: torch.device):
     if device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def require_current(device: torch.device) -> None:
+    """Raise unless ``device`` is the current CUDA device.
+
+    A C entry reads the SM count and shared-memory limit of the current
+    device (``cudaGetDevice``) and launches on its stream, so a launch
+    whose operands lie on another card would run there with the wrong
+    geometry.  Each wrapper calls this inside its `on_device` context,
+    right before the C entry.
+    """
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise ValueError(f"kernel operands are on {device} but the current "
+                         f"device is cuda:{current}; launch under "
+                         f"torch.cuda.device({device})")
 
 
 def occupancy(lib: ctypes.CDLL, entry: str, device: torch.device,

@@ -25,11 +25,16 @@ admission/policy half lives in
 The table is a static tensor or array, or a live
 `repro_torch.store.DynamicTableStore`: the engines drain its staged
 mutations between dispatches, and every executor reads its tiled table
-and shadow in place.  The engine and the runtime draw each dispatch's
-block permutation from a ``torch.Generator`` seeded from ``(seed,
-dispatch sequence)`` (`seeded_perm`); ``perm_source`` replaces that draw
-(tests inject the JAX package's permutations through it).  Meshes are a
-later slice (ROADMAP.md queue 1 item 6) and are refused here.
+and shadow in place.  With ``mesh`` (a `repro_torch.distributed.
+sharding.Mesh`) the table is row-sharded over the mesh's devices — a
+static table once at construction, a `repro_torch.store.
+ShardedTableStore` read in place — and each dispatch is one fused-cascade
+launch per shard plus the exact cross-shard merge
+(`repro_torch.distributed.sharding.sharded_decode_tiled`).  The engine
+and the runtime draw each dispatch's block permutation from a
+``torch.Generator`` seeded from ``(seed, dispatch sequence)``
+(`seeded_perm`); ``perm_source`` replaces that draw (tests inject the
+JAX package's permutations through it).
 """
 
 from __future__ import annotations
@@ -50,13 +55,19 @@ from repro_torch.core.boundedme_torch import (as_kept, decode_operands,
                                               tile_table)
 from repro_torch.core.mips import exact_topk, table_abs_max
 from repro_torch.core.schedule import pulls_through_round
-from repro_torch.distributed.sharding import dispatch_lane_stats
+from repro_torch.distributed.sharding import (dispatch_lane_stats,
+                                              make_shard_plan,
+                                              quantize_shards,
+                                              shard_valid_counts,
+                                              sharded_decode_tiled)
+from repro_torch.distributed.specs import serving_table_sharding
 from repro_torch.launch.admission import (AdmissionController,
                                           DegradationLadder, PriorityClass,
                                           ServeResult, Ticket)
 from repro_torch.obs.metrics import (PULL_FRAC_BUCKETS, MetricsRegistry,
                                      summarize_latencies)
-from repro_torch.store import DynamicTableStore, StoreFlushError
+from repro_torch.store import (DynamicTableStore, ShardedTableStore,
+                               StoreFlushError)
 
 __all__ = ["QuantizedLRU", "CascadeExecutor", "MIPSServeEngine",
            "ServeRuntime", "DispatchFailed", "dispatch_with_retries",
@@ -184,11 +195,6 @@ class _Pending:
     cache_key: Optional[bytes]
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet ({item} of "
-                              f"ROADMAP.md); the port serves one device")
-
-
 class CascadeExecutor:
     """The executor layer: one calibrated (eps, delta) dispatch path.
 
@@ -203,16 +209,28 @@ class CascadeExecutor:
     caches and results; the executor serves a full lane buffer:
 
       * `dispatch` runs one fused-cascade launch over a padded ``(lanes,
-        N)`` query buffer and returns host arrays plus the measured
-        seconds (ending in ``torch.cuda.synchronize()`` on the card);
+        N)`` query buffer (one per shard under a mesh) and returns host
+        arrays plus the measured seconds (ending in
+        ``torch.cuda.synchronize()`` on the card);
       * `sync_store` re-derives the plan when the store's capacity or
         monotonic value range outgrows the calibrated bound (counted in
         ``n_recalibrations``);
       * `recall_of` rescoring a query exhaustively against the live
         table; `external_ids` mapping served slots to the store's ids.
 
+    **Sharded serving** (``mesh``, DESIGN.md §7): the plan is the shard
+    plan of `make_shard_plan` and each dispatch runs
+    `sharded_decode_tiled`.  A static table is padded and split into row
+    shards once, each laid out tile-major (and on a quantized tier
+    quantized over its own rows) on its device; a `ShardedTableStore`'s
+    shards are read in place, with the codes the store keeps at the
+    plan's geometry (`ShardedTableStore.shard_operands`: one copy per
+    store version, shared by every rung, bitwise a fresh quantization of
+    each shard's current rows).  A mesh needs a static table or a
+    `ShardedTableStore`; ``coord`` and ``hybrid`` serve every tier there.
+
     A `ServeRuntime` holds one executor per degradation-ladder rung; on
-    a store they all read the store's one tiled table.
+    a store they all read the store's tiled tables.
     """
 
     def __init__(self, table, *, K: int = 1, eps: float = 0.1,
@@ -227,22 +245,29 @@ class CascadeExecutor:
                  metrics: Optional[MetricsRegistry] = None,
                  metrics_labels: Optional[Dict[str, str]] = None,
                  device="cuda"):
-        if mesh is not None:
-            _refuse("sharded serving", "queue 1 item 6")
-        self.store = (table if isinstance(table, DynamicTableStore)
+        self.store = (table if isinstance(table, (DynamicTableStore,
+                                                  ShardedTableStore))
                       else None)
         if self.store is None and not isinstance(table, (torch.Tensor,
                                                           np.ndarray)):
-            raise TypeError(f"table must be a tensor, an array or a "
-                            f"DynamicTableStore, got "
-                            f"{type(table).__name__}")
+            raise TypeError(f"table must be a tensor, an array, a "
+                            f"DynamicTableStore or a ShardedTableStore, "
+                            f"got {type(table).__name__}")
         self._qmax_hint = float(qmax_hint)
         self._range_slack = float(range_slack)
+        if isinstance(self.store, ShardedTableStore):
+            if mesh is not None and mesh is not self.store.mesh:
+                raise ValueError("mesh differs from the store's mesh")
+            mesh = self.store.mesh
+        elif self.store is not None and mesh is not None:
+            raise ValueError("serving a mesh needs a ShardedTableStore")
+        self.mesh = mesh
         if self.store is not None:
             store = self.store
             if n_valid is not None:
                 raise ValueError("n_valid is store-managed")
-            self.device = store.device
+            self.device = (mesh.devices[0] if mesh is not None
+                           else store.device)
             # the store owns the kernel geometry (its shadow and the
             # executor's plan must agree tile for tile)
             tile, block = store.tile, store.block
@@ -266,9 +291,11 @@ class CascadeExecutor:
                     f"pull_mode={pull_mode!r} is incompatible with a "
                     f"single-device {store.precision} store shadow (its "
                     f"quantization cells are fixed at the store's block "
-                    f"width); use pull_mode='row' or an fp32 store")
+                    f"width); use pull_mode='row', an fp32 store, or a "
+                    f"ShardedTableStore")
         else:
-            self.device = resolve_device(device)
+            self.device = (mesh.devices[0] if mesh is not None
+                           else resolve_device(device))
             # a bf16 table stays bf16 (its tiled copy too), as the JAX
             # executor serves a bf16 model's embedding in its own dtype
             self._table = as_kept(table, self.device)
@@ -288,10 +315,20 @@ class CascadeExecutor:
         self._pq_subdims, self._pq_codes = int(pq_subdims), int(pq_codes)
         self._build(float(value_range))
         if self.store is None:
-            self._V4 = tile_table(self._table, self.plan, self.device)
-            self._quant = (quantize_table(self._V4, self.plan)
-                           if self.plan.precision != "fp32" else None)
             self._nv = n if n_valid is None else int(n_valid)
+            if mesh is None:
+                self._V4 = tile_table(self._table, self.plan, self.device)
+                self._quant = (quantize_table(self._V4, self.plan)
+                               if self.plan.precision != "fp32" else None)
+            else:
+                # padded and split once; no unsharded tiled copy is kept
+                self._shards = serving_table_sharding(self._table, mesh,
+                                                      self.plan)
+                self._shard_quant = quantize_shards(self._shards, self.plan)
+        elif mesh is not None:
+            # the store's operands at this plan's geometry, built now and
+            # at every flush, not in a dispatch
+            self.store.shard_operands(self.plan)
         # the store's table re-laid at a coord plan's pull width, keyed
         # on the store's (version, capacity); fp32 stores only
         self._relaid = (None, None)
@@ -322,7 +359,8 @@ class CascadeExecutor:
         Called once at construction and again only when `sync_store`
         observes the store's capacity or monotonic value range outgrowing
         the calibrated bound.  A pq plan without an explicit
-        ``quant_err`` re-measures it on the served table.
+        ``quant_err`` re-measures it on the served table (the whole
+        table, on a mesh too).  Under a mesh the plan is the shard plan.
         """
         self._plan_value_range = float(value_range)
         tile, block = self._tile, self._block
@@ -339,19 +377,24 @@ class CascadeExecutor:
                 V_cal, precision="pq", tile=tile, block=w,
                 pq_subdims=self._pq_subdims, pq_codes=self._pq_codes,
                 device=self.device) for w in widths)
-        self.plan = make_plan(self.n, self.N, K=self.K, eps=self.eps,
-                              delta=self.delta, value_range=value_range,
-                              tile=tile, block=block,
-                              precision=self._precision, bound=self._bound,
-                              pull_mode=self._pull_mode,
-                              coord_block=self._coord_block,
-                              quant_err=quant_err,
-                              pq_subdims=self._pq_subdims,
-                              pq_codes=self._pq_codes)
+        kw = dict(K=self.K, eps=self.eps, delta=self.delta,
+                  value_range=value_range, tile=tile, block=block,
+                  precision=self._precision, bound=self._bound,
+                  pull_mode=self._pull_mode, coord_block=self._coord_block,
+                  quant_err=quant_err, pq_subdims=self._pq_subdims,
+                  pq_codes=self._pq_codes)
+        if self.mesh is None:
+            self.plan = make_plan(self.n, self.N, **kw)
+            devices = (self.device,)
+        else:
+            self.plan, _, _, self._k_out = make_shard_plan(
+                self.n, self.N, len(self.mesh.devices), **kw)
+            devices = tuple(dict.fromkeys(self.mesh.devices))
         # the schedule operands every dispatch reads: built now, not in
         # the first request's dispatch
-        decode_operands(self.plan, final_exact=True, adaptive=self.adaptive,
-                        device=self.device)
+        for dev in devices:
+            decode_operands(self.plan, final_exact=True,
+                            adaptive=self.adaptive, device=dev)
 
     @property
     def n_dispatches(self) -> int:
@@ -372,7 +415,11 @@ class CascadeExecutor:
     def tiled_table(self) -> torch.Tensor:
         """The tile-major table every dispatch reads: the store's own
         (re-laid at the plan's pull width when that differs from the
-        store's block), or the static table's copy."""
+        store's block), or the static table's copy.  One device only:
+        a mesh's are `shard_operands`."""
+        if self.mesh is not None:
+            raise ValueError("a sharded executor's tables are per shard; "
+                             "see shard_operands()")
         store = self.store
         if store is None:
             return self._V4
@@ -385,16 +432,32 @@ class CascadeExecutor:
                                             self.device))
         return self._relaid[1]
 
+    def shard_operands(self):
+        """``(shards, quantized, n_valid)`` a sharded dispatch reads: each
+        shard's tile-major table on its device, its tier artifacts (None
+        on fp32) and the per-shard live counts: a static table's shards,
+        or a `ShardedTableStore`'s (`ShardedTableStore.shard_operands`)."""
+        store = self.store
+        if store is None:
+            return self._shards, self._shard_quant, shard_valid_counts(
+                self._nv, len(self._shards), self.plan.n)
+        shards, quant = store.shard_operands(self.plan)
+        return shards, quant, store.n_valid_vector()
+
     @property
     def n_valid(self) -> int:
         """Rows at or past this index never win a ranking (a store's
-        live-row count)."""
+        live-row count; one device)."""
         return self.store.n_live if self.store is not None else self._nv
 
     @property
     def quantized(self):
         """The table artifacts every dispatch reads on a quantized tier
-        (`quantize_table` layout; a store's shadow), else None."""
+        (`quantize_table` layout; a store's shadow), else None (one
+        device: a mesh's are `shard_operands`)."""
+        if self.mesh is not None:
+            raise ValueError("a sharded executor's artifacts are per "
+                             "shard; see shard_operands()")
         if self.store is not None:
             return self.store.quantized()
         return self._quant
@@ -425,23 +488,39 @@ class CascadeExecutor:
             self._c_recal.inc(rebuilt, **self._mlabels)
         return rebuilt
 
+    def _synchronize(self) -> None:
+        devices = self.mesh.devices if self.mesh is not None else (
+            self.device,)
+        for dev in dict.fromkeys(devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
     def dispatch(self, Qbuf: np.ndarray, perm) -> Tuple[
             np.ndarray, np.ndarray, Optional[np.ndarray], float]:
-        """Serve one padded (lanes, N) buffer in a single kernel launch.
+        """Serve one padded (lanes, N) buffer: a single kernel launch, or
+        under a mesh one per shard and the exact merge.
 
         ``perm`` is the batch's shared block permutation.  Returns ``(ids,
         scores, rounds_used, seconds)``, the first three as host arrays
-        (``rounds_used`` is None unless adaptive; ids are table slots, see
+        (``rounds_used`` is None unless adaptive, ``(B,)`` on one device
+        and ``(B, shards)`` under a mesh; ids are table slots, see
         `external_ids`); ``seconds`` is the measured blocking time, which
         virtual-clock loops add to their clock.
         """
-        on_card = self.device.type == "cuda"
         t0 = time.perf_counter()
-        out = decode_tiled(self.tiled_table, Qbuf, perm, plan=self.plan,
-                           final_exact=True, n_valid=self.n_valid,
-                           quantized=self.quantized, adaptive=self.adaptive)
-        if on_card:
-            torch.cuda.synchronize(self.device)
+        if self.mesh is None:
+            out = decode_tiled(self.tiled_table, Qbuf, perm, plan=self.plan,
+                               final_exact=True, n_valid=self.n_valid,
+                               quantized=self.quantized,
+                               adaptive=self.adaptive)
+        else:
+            shards, quant, nv = self.shard_operands()
+            out = sharded_decode_tiled(
+                shards, Qbuf, perm, mesh=self.mesh, plan=self.plan,
+                K=self.K, k_out=self._k_out, n_valid=nv, final_exact=True,
+                quantized=quant, adaptive=self.adaptive)
+            out = (out[0], out[1], out[3]) if self.adaptive else out[:2]
+        self._synchronize()
         dt = time.perf_counter() - t0
         self._c_dispatch.inc(**self._mlabels)
         self._h_dispatch.observe(dt * 1e3, **self._mlabels)
@@ -451,7 +530,8 @@ class CascadeExecutor:
     def recall_of(self, q: np.ndarray, got_slots: np.ndarray) -> float:
         """Exact-top-K overlap of a served answer: an exhaustive rescore
         of the live rows (a store's host mirror, as the JAX package's
-        executor does; a static table on the executor's device)."""
+        executor does; a static table on the executor's device, its
+        padding rows masked)."""
         if self.store is not None:
             s = self.store.host_table() @ q
             s[~self.store.live_mask()] = -np.inf
@@ -496,8 +576,9 @@ class MIPSServeEngine:
     permutation draw (`seeded_perm`).
 
     **Live corpora** (DESIGN.md §11): ``table`` may be a
-    `repro_torch.store.DynamicTableStore`.  The engine then serves the
-    store's capacity table with ``n_valid = n_live`` at every flush;
+    `repro_torch.store.DynamicTableStore` (or, with its ``mesh``, a
+    `ShardedTableStore`).  The engine then serves the store's capacity
+    table with ``n_valid = n_live`` (per shard) at every flush;
     staged mutations are drained by `apply_updates` — called at every
     `submit`, `poll` and `drain`, i.e. between micro-batch flushes —
     which also bumps the engine's table version (salting and
@@ -644,8 +725,9 @@ class MIPSServeEngine:
         return self._exec
 
     @property
-    def store(self) -> Optional[DynamicTableStore]:
-        """The served store, or None on a static table."""
+    def store(self):
+        """The served store (a `DynamicTableStore` or a
+        `ShardedTableStore`), or None on a static table."""
         return self._store
 
     @property
@@ -768,7 +850,9 @@ class MIPSServeEngine:
         ids = ids[:len(batch)]
         scores = scores[:len(batch)]
         if rounds is not None:
-            self._rounds.extend(rounds[:len(batch)].tolist())
+            # (B,) on one device, (B, shards) sharded: every shard's exit
+            # round of the real batch rows
+            self._rounds.extend(rounds[:len(batch)].reshape(-1).tolist())
         self._batch_seq += 1
         self._occupancy.append(len(batch))
         self._h_occupancy.observe(len(batch))
@@ -863,9 +947,9 @@ class MIPSServeEngine:
 class ServeRuntime:
     """Continuous-batching serving runtime with admission + degradation.
 
-    The port of ``repro.launch.engine.ServeRuntime`` on one device, over
-    a static table or a `repro_torch.store.DynamicTableStore`.  Three
-    layers:
+    The port of ``repro.launch.engine.ServeRuntime``, over a static
+    table or a `repro_torch.store.DynamicTableStore`, or sharded over a
+    ``mesh`` (a static table or a `ShardedTableStore`).  Three layers:
 
       * **admission** (`AdmissionController`): every `submit` is
         validated (poison NaN/Inf/wrong-dim queries are rejected at the
@@ -942,8 +1026,13 @@ class ServeRuntime:
         self.flight = flight
         self.ladder = DegradationLadder(eps, eps_floor, rungs=degrade_rungs,
                                         start=degrade_start)
-        dev = (table.device if isinstance(table, DynamicTableStore)
-               else resolve_device(device))
+        if isinstance(table, DynamicTableStore):
+            dev = table.device
+        elif isinstance(table, ShardedTableStore):
+            dev = table.mesh.devices[0]
+        else:
+            dev = (mesh.devices[0] if mesh is not None
+                   else resolve_device(device))
         if isinstance(table, np.ndarray):
             # one device copy shared by every rung (each still re-lays
             # its own tiled, and on quantized tiers quantized, table; a
@@ -1058,7 +1147,8 @@ class ServeRuntime:
         #: NOT registry-backed so metric wiring can never perturb sampling
         self._dispatch_seq = 0
         self._seen_refreshes = (0 if self._store is None
-                                else self._store.codebook_refreshes)
+                                else getattr(self._store,
+                                             "codebook_refreshes", 0))
 
     # ---- counter surface (registry-backed) -------------------------------
 
@@ -1126,8 +1216,9 @@ class ServeRuntime:
         return int(self._c_slow.total())
 
     @property
-    def store(self) -> Optional[DynamicTableStore]:
-        """The served store, or None on a static table."""
+    def store(self):
+        """The served store (a `DynamicTableStore` or a
+        `ShardedTableStore`), or None on a static table."""
         return self._store
 
     @property
@@ -1358,7 +1449,7 @@ class ServeRuntime:
         if rebuilt and self.flight is not None:
             self.flight.record("recalibration", now, rebuilds=rebuilt,
                                version=store.version)
-        refreshes = store.codebook_refreshes
+        refreshes = getattr(store, "codebook_refreshes", 0)
         if refreshes != self._seen_refreshes:
             self._seen_refreshes = refreshes
             if self.flight is not None:

@@ -228,7 +228,8 @@ class FaultInjector:
     # ---- store-flush surface --------------------------------------------
 
     def attach(self, store) -> None:
-        """Install this injector as ``store.fault_hook``.
+        """Install this injector as ``store.fault_hook`` (a
+        `repro_torch.store.DynamicTableStore` or `ShardedTableStore`).
 
         The store calls the hook at the top of every `flush_updates`,
         *before* taking staged mutations — a failed flush leaves the

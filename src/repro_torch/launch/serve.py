@@ -67,8 +67,21 @@ tenants' private queues::
         --loop --tenants configs/tenants_smoke.json --table-budget-mb 2048 \
         --check-outcomes
 
-Options of later slices — ``--shards`` > 1, the model families other than
-dense — are refused with a message naming their ROADMAP.md item.
+With ``--shards S`` (``--loop``, with or without ``--runtime`` and
+``--dynamic``) the vocab table is row-sharded over a serving mesh of S
+cards (`repro_torch.launch.mesh.make_serving_mesh`; ``--dynamic``: a
+`repro_torch.store.ShardedTableStore`), each dispatch one fused-cascade
+launch per shard and the exact cross-shard merge.  As in the JAX
+package, the mesh is capped at the cards there are, and on one card (or
+on the CPU) the loop serves unsharded; the decode demo ignores
+``--shards``.  `build_loop` and `run_loop` also take a mesh from their
+caller (one that repeats a device: S shards on one card or on the CPU)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --loop --runtime --dynamic --shards 4 --churn-rate 0.25
+
+The model families other than dense are refused with a message naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -93,12 +106,13 @@ from repro_torch.launch.admission import STATUSES, PriorityClass
 from repro_torch.launch.engine import (MIPSServeEngine, ServeRuntime,
                                        seeded_perm)
 from repro_torch.launch.faults import FaultInjector
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.launch.tenancy import (MultiTenantRuntime, TableRegistry,
                                         TenantConfig)
 from repro_torch.models.model import DenseLM
 from repro_torch.models.steps import decode_step, mips_head, prefill_step
 from repro_torch.obs import FlightRecorder, SpanTracer
-from repro_torch.store import DynamicTableStore
+from repro_torch.store import DynamicTableStore, ShardedTableStore
 
 __all__ = ["arrival_trace", "simulate_stream", "make_churn", "build_loop",
            "serve_stream", "load_tenant_spec", "tenant_table",
@@ -238,8 +252,9 @@ def simulate_stream(engine, queries, *, interarrival_ms: float = 0.1,
             **engine.stats()}
 
 
-def make_churn(store: DynamicTableStore, churn_rate: float, scale: float):
-    """The ``--dynamic`` mutation closure: before each arrival, with
+def make_churn(store, churn_rate: float, scale: float):
+    """The ``--dynamic`` mutation closure over a `DynamicTableStore` or a
+    `ShardedTableStore`: before each arrival, with
     probability ``churn_rate``, stage an upsert of a live id (70 %) or a
     delete + append pair, of a row drawn N(0, scale^2 / N).  Draws come
     from ``default_rng(1)`` in the JAX package's order, so both packages
@@ -263,23 +278,28 @@ def make_churn(store: DynamicTableStore, churn_rate: float, scale: float):
     return churn
 
 
-def build_loop(args) -> Tuple[object, np.ndarray]:
+def build_loop(args, mesh=None) -> Tuple[object, np.ndarray]:
     """The ``--loop`` engine (``--runtime``: the `ServeRuntime`, with its
     span tracer, flight recorder and fault injector as the flags ask)
     over the arch's vocab table, and its queries.
 
     With ``--dynamic`` the table is a `DynamicTableStore` of the vocab's
     ``vocab`` live rows (no padding rows) and ``--capacity-slack``
-    headroom, on the serving device.  Queries are N(0, 1) from
-    ``default_rng(0)`` with the last ``--repeat-rate`` of them repeating
-    earlier ones, as in the JAX package's loop.
+    headroom, on the serving device.  ``mesh`` (default
+    ``make_serving_mesh(--shards)``, None on one card) shards the table
+    over its devices: ``--dynamic`` builds a `ShardedTableStore` (fp32;
+    the engines quantize each shard at ``--precision``).  Queries are
+    N(0, 1) from ``default_rng(0)`` with the last ``--repeat-rate`` of
+    them repeating earlier ones, as in the JAX package's loop.
     """
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     dev = resolve_device(args.device)
+    if mesh is None and args.shards > 1:
+        mesh = make_serving_mesh(args.shards, device=dev)
     block = min(512, cfg.d_model)
-    common = dict(K=args.topk, eps=args.eps, delta=args.delta,
+    common = dict(K=args.topk, eps=args.eps, delta=args.delta, mesh=mesh,
                   recall_sample_rate=args.recall_rate,
                   cache_entries=args.cache_entries, precision=args.precision,
                   adaptive=args.adaptive, bound=args.bound,
@@ -288,10 +308,15 @@ def build_loop(args) -> Tuple[object, np.ndarray]:
     if args.dynamic:
         # the store is fp32, as the JAX package casts the table for it
         rows, _ = make_serving_table(cfg, 0, "cpu")
-        table = DynamicTableStore(
-            rows[:cfg.vocab].float().numpy(), block=block,
-            capacity_slack=args.capacity_slack, precision=args.precision,
-            pq_subdims=args.pq_subdims, device=dev)
+        rows = rows[:cfg.vocab].float().numpy()
+        if mesh is not None:
+            table = ShardedTableStore(rows, mesh=mesh, block=block,
+                                      capacity_slack=args.capacity_slack)
+        else:
+            table = DynamicTableStore(
+                rows, block=block, capacity_slack=args.capacity_slack,
+                precision=args.precision, pq_subdims=args.pq_subdims,
+                device=dev)
     else:
         table, n_valid = make_serving_table(cfg, 0, dev)
         common.update(block=block, n_valid=n_valid)
@@ -381,12 +406,14 @@ def serve_stream(args, engine, qs) -> dict:
     return stats
 
 
-def run_loop(args) -> dict:
+def run_loop(args, mesh=None) -> dict:
     """``--loop``: serve the stream and print the stats as JSON (with
     ``--check-outcomes``, exit non-zero unless the runtime held its
-    serving contract)."""
-    engine, qs = build_loop(args)
+    serving contract); ``mesh`` as in `build_loop`."""
+    engine, qs = build_loop(args, mesh)
     plan = engine.plan
+    mesh = (engine.executors[0] if args.runtime else engine.executor).mesh
+    shards = 1 if mesh is None else mesh.shape["model"]
     if args.runtime:
         print(f"[serve] runtime: table=({engine.n},{engine.N}) "
               f"device={args.device} K={args.topk} eps={args.eps} "
@@ -396,6 +423,7 @@ def run_loop(args) -> dict:
               f"precision={plan.precision} adaptive={args.adaptive} "
               f"bound={args.bound} pull_mode={args.pull_mode} "
               f"dynamic={bool(args.dynamic)} churn={args.churn_rate} "
+              f"shards={shards} "
               f"faults={'on' if engine.injector else 'off'} "
               f"warmup={engine.warmup():.3f}s", flush=True)
     else:
@@ -403,7 +431,7 @@ def run_loop(args) -> dict:
               f"device={args.device} K={args.topk} eps={args.eps} "
               f"batch={args.batch} deadline={args.deadline_ms}ms "
               f"dynamic={bool(args.dynamic)} churn={args.churn_rate} "
-              f"rounds={len(plan.schedule.rounds)} "
+              f"shards={shards} rounds={len(plan.schedule.rounds)} "
               f"precision={plan.precision} quant_err={plan.quant_err:.6g} "
               f"eps_eff={plan.eps_effective:.4f} adaptive={args.adaptive} "
               f"bound={args.bound} pull_mode={plan.pull_mode} "
@@ -695,13 +723,6 @@ _LATER_ARCHS = {"qwen3-moe-30b-a3b": "moe", "grok-1-314b": "moe",
                 "whisper-medium": "encdec", "internvl2-26b": "vlm",
                 "command-r-35b": "dense"}
 
-#: options of later slices: (flag, is-set test, ROADMAP.md item)
-_LATER = (
-    ("--shards > 1", lambda a: a.shards > 1,
-     "queue 1 item 6 (sharded serving)"),
-)
-
-
 def _validate_args(ap: argparse.ArgumentParser, args) -> None:
     """Refuse what this slice does not serve, and bad values, up front."""
     if args.arch not in REGISTRY:
@@ -726,9 +747,6 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
         if args.prompt_len < 1 or args.tokens < 1:
             ap.error(f"--prompt-len and --tokens must be >= 1, got "
                      f"{args.prompt_len} and {args.tokens}")
-    for flag, is_set, item in _LATER:
-        if is_set(args):
-            ap.error(f"{flag} is not ported yet: ROADMAP.md {item}")
     if args.tenants is not None:
         if not args.loop:
             ap.error("--tenants requires --loop: the multi-tenant "
@@ -796,13 +814,13 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
     if args.max_retries < 0:
         ap.error(f"--max-retries must be >= 0, got {args.max_retries}")
     if (args.pull_mode != "row" and args.dynamic
-            and args.precision != "fp32"):
+            and args.precision != "fp32" and args.shards <= 1):
         ap.error(f"--pull-mode {args.pull_mode} is incompatible with a "
                  f"single-device quantized store (--dynamic --precision "
                  f"{args.precision}): the store's incrementally maintained "
                  f"{args.precision} shadow fixes the quantization-block "
                  f"geometry, which only the 'row' plan matches (use "
-                 f"--pull-mode row, or fp32)")
+                 f"--pull-mode row, fp32, or --shards 2+)")
     if args.trace_out and not runtimes:
         ap.error("--trace-out requires --runtime or --tenants: span "
                  "tracing hooks live in the continuous-batching "
@@ -868,7 +886,10 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="batch-assembly wait (micro-batch deadline)")
     ap.add_argument("--interarrival-ms", type=float, default=0.1)
     ap.add_argument("--topk", type=int, default=4)
-    ap.add_argument("--shards", type=int, default=1)
+    ap.add_argument("--shards", type=int, default=1,
+                    help="row shards of the --loop table, one per card "
+                         "(capped at the cards there are; one card "
+                         "serves unsharded)")
     ap.add_argument("--cache-entries", type=int, default=512)
     ap.add_argument("--repeat-rate", type=float, default=0.1,
                     help="fraction of requests repeating an earlier query")

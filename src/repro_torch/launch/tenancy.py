@@ -11,8 +11,8 @@ calibrated plan.  Three parts, as in the JAX package:
     priority and deadline, queue capacity, DRR weight, store capacity,
     pinning).
   * :class:`TableRegistry` — the **table manager**: named
-    `repro_torch.store.DynamicTableStore` instances on one device under a
-    device byte budget.  Cold tables are paged out least-recently-served
+    `repro_torch.store.DynamicTableStore` instances on one device (and
+    pinned `ShardedTableStore`s over a mesh) under a device byte budget.  Cold tables are paged out least-recently-served
     first, so registering a tenant never runs the card out of memory: it
     fits after evictions or is refused with a typed :class:`TenancyError`.
     Pinned and in-flight tables are never evicted.  The registry also
@@ -38,10 +38,14 @@ page-in lays the page-locked host mirror out on the card again and
 re-encodes the shadow there (`page_in`), bytewise the buffers before
 eviction — one DMA of the table and no host copy of its rows, where the
 JAX package rebuilds the store from a `page_state` image.  The budget
-counts what each store really holds on the card (`resident_bytes`); an
-fp32 store served in ``coord`` mode keeps a re-laid copy per executor
-outside it (ROADMAP.md queue 1 item 4).  Sharded tables are not ported
-(``mesh=`` is refused, queue 1 item 6).
+counts each store's `resident_bytes`, in the JAX package's unit (an
+``(capacity_rows, N)`` f32 table plus the shadow; the tiled table's
+zero-padded columns, where ``N`` is not a whole number of blocks, lie
+outside it, as does the re-laid copy an fp32 store served in ``coord``
+mode keeps per executor, ROADMAP.md queue 1 item 4).  A sharded tenant
+(``register(..., mesh=)``, a `repro_torch.store.ShardedTableStore`) is
+counted against the budget and pinned: per-shard slot pools are never
+paged out, as in the JAX package.
 
 Observability: every ``serve_*`` family carries a ``tenant`` label, spans
 are annotated with the tenant at `request_begin`, and the flight recorder
@@ -74,7 +78,8 @@ from repro_torch.launch.engine import (CascadeExecutor, DispatchFailed,
                                        seeded_perm)
 from repro_torch.obs.metrics import (PULL_FRAC_BUCKETS, MetricsRegistry,
                                      summarize_latencies)
-from repro_torch.store import DynamicTableStore, StoreFlushError
+from repro_torch.store import (DynamicTableStore, ShardedTableStore,
+                               StoreFlushError)
 
 __all__ = ["TenancyError", "TenantConfig", "TableRegistry",
            "MultiTenantRuntime"]
@@ -172,17 +177,18 @@ class _TableEntry:
 
     name: str
     config: TenantConfig
-    store: DynamicTableStore
+    store: object
     nbytes: int
     pinned: bool
     last_serve: int
+    sharded: bool = False
     in_flight: bool = False
     page_ins: int = 0
     exec_salt: Optional[tuple] = None
 
     @property
     def resident(self) -> bool:
-        return self.store.resident
+        return self.sharded or self.store.resident
 
 
 class TableRegistry:
@@ -285,7 +291,7 @@ class TableRegistry:
         """Total device bytes of currently-resident tables."""
         return sum(e.nbytes for e in self._entries.values() if e.resident)
 
-    def store(self, name: str) -> Optional[DynamicTableStore]:
+    def store(self, name: str):
         """The tenant's live store, or None while paged out (use
         `ensure_resident` to page in)."""
         entry = self._entry(name)
@@ -308,27 +314,31 @@ class TableRegistry:
     # ---- registration / residency -----------------------------------------
 
     def register(self, name: str, table, config: Optional[TenantConfig]
-                 = None, *, mesh=None) -> DynamicTableStore:
+                 = None, *, mesh=None):
         """Admit a new tenant table under the byte budget; returns it.
 
         ``table`` may be raw (n, N) rows (an array, or a tensor on any
         device: a store is built on the registry's device with the
         config's geometry, tier and capacity), or an existing
-        `DynamicTableStore` on that device to adopt.  If admitting the
-        table would exceed ``byte_budget``, cold evictable tables are
-        paged out least-recently-served first; when even that cannot make
-        room the registration is refused with `TenancyError` and the pool
-        is left as it was.  ``mesh=`` (a sharded table) is refused: not
-        ported yet (ROADMAP.md queue 1 item 6).
+        `DynamicTableStore` on that device or `ShardedTableStore` to
+        adopt.  ``mesh`` builds a `ShardedTableStore` over the mesh's
+        devices (fp32; the tenant's executors quantize each shard at its
+        tier); sharded tables are pinned.  If admitting the table would
+        exceed ``byte_budget``, cold evictable tables are paged out
+        least-recently-served first; when even that cannot make room the
+        registration is refused with `TenancyError` and the pool is left
+        as it was.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded tenant tables (mesh=) are not ported yet (queue 1 "
-                "item 6 of ROADMAP.md); the port serves one device")
         if name in self._entries:
             raise TenancyError(f"tenant {name!r} already registered")
         config = config if config is not None else TenantConfig()
-        if isinstance(table, DynamicTableStore):
+        if isinstance(table, ShardedTableStore):
+            store = table
+        elif mesh is not None:
+            store = ShardedTableStore(
+                table, mesh=mesh, capacity=config.capacity,
+                tile=config.tile, block=config.block)
+        elif isinstance(table, DynamicTableStore):
             store = table
             if store.device != self.device or not store.resident:
                 raise ValueError(
@@ -348,15 +358,17 @@ class TableRegistry:
                 f"{self.byte_budget}: table cannot fit even alone")
         self._make_room(nbytes)
         self._serve_clock += 1
+        sharded = isinstance(store, ShardedTableStore)
         entry = _TableEntry(name=name, config=config, store=store,
-                            nbytes=nbytes, pinned=bool(config.pinned),
-                            last_serve=self._serve_clock)
+                            nbytes=nbytes,
+                            pinned=bool(config.pinned) or sharded,
+                            last_serve=self._serve_clock, sharded=sharded)
         self._entries[name] = entry
         self._c_registrations.inc(tenant=name)
         if self.flight is not None:
             self.flight.record("tenant_registered", None, tenant=name,
                                bytes=nbytes, pinned=entry.pinned,
-                               sharded=False,
+                               sharded=sharded,
                                resident_bytes=self.resident_bytes())
         return store
 
@@ -369,7 +381,8 @@ class TableRegistry:
         del self._entries[name]
 
     def _evictable(self, entry: _TableEntry) -> bool:
-        return entry.resident and not entry.pinned and not entry.in_flight
+        return (entry.resident and not entry.pinned and not entry.in_flight
+                and not entry.sharded)
 
     def _make_room(self, incoming: int) -> None:
         """Page out LRU evictable tables until ``incoming`` bytes fit."""
@@ -385,8 +398,8 @@ class TableRegistry:
             self.evict(order[0])
 
     def evict(self, name: str) -> None:
-        """Page one table out of device memory (refuses pinned and
-        in-flight tables with `TenancyError`).
+        """Page one table out of device memory (refuses pinned, in-flight
+        and sharded tables with `TenancyError`).
 
         The tenant's cached executors are dropped first, then the store
         frees its device buffers (`DynamicTableStore.page_out`): no
@@ -398,6 +411,9 @@ class TableRegistry:
         entry = self._entry(name)
         if not entry.resident:
             return
+        if entry.sharded:
+            raise TenancyError(f"tenant {name!r} is sharded (auto-pinned: "
+                               f"per-shard slot pools have no page image)")
         if entry.pinned:
             raise TenancyError(f"tenant {name!r} is pinned; unpin before "
                                f"evicting")
@@ -491,14 +507,18 @@ class TableRegistry:
         self._entry(name).pinned = True
 
     def unpin(self, name: str) -> None:
-        """Make a tenant's table evictable again.
+        """Make a tenant's table evictable again (a sharded table stays
+        pinned, as in the JAX package: it has no page image).
 
         If pinned growth had pushed the pool past the budget (the
         override `_reaccount` allows), releasing a pin rebalances at
         once: evictable tables are paged out LRU-first until the budget
         holds again.
         """
-        self._entry(name).pinned = False
+        entry = self._entry(name)
+        if entry.sharded:
+            return
+        entry.pinned = False
         if self.byte_budget is not None:
             try:
                 self._make_room(0)
@@ -526,7 +546,7 @@ class TableRegistry:
     def _salt(self, entry: _TableEntry) -> tuple:
         store = entry.store
         return ((id(store), entry.page_ins), store.capacity_rows,
-                store.codebook_refreshes)
+                getattr(store, "codebook_refreshes", 0))
 
     def _drop_executors(self, name: str) -> None:
         for key in [k for k in self._exec_cache if k[0] == name]:
@@ -619,7 +639,7 @@ class TableRegistry:
 
     def stats(self) -> dict:
         """Registry telemetry: budget, residency, per-tenant placement
-        (the JAX package's keys; ``sharded`` is always False here)."""
+        (the JAX package's keys)."""
         return {
             "byte_budget": self.byte_budget,
             "resident_bytes": self.resident_bytes(),
@@ -633,7 +653,7 @@ class TableRegistry:
                 "resident": e.resident,
                 "bytes": e.nbytes,
                 "pinned": e.pinned,
-                "sharded": False,
+                "sharded": e.sharded,
                 "last_serve": e.last_serve,
                 "executor_builds": self.executor_builds(e.name),
             } for e in self._entries.values()},
@@ -818,7 +838,7 @@ class MultiTenantRuntime:
             # refreshes (its host side stays)
             store = self.registry._entry(name).store
             st = _TenantState(name, cfg, store.N, store.version,
-                              store.codebook_refreshes)
+                              getattr(store, "codebook_refreshes", 0))
             self._states[name] = st
             self.drr.add_flow(name, cfg.weight)
             for s in st.outcomes:
@@ -996,7 +1016,7 @@ class MultiTenantRuntime:
         if store.version != st.version:
             st.version = store.version
             st.cache.invalidate()
-        refreshes = store.codebook_refreshes
+        refreshes = getattr(store, "codebook_refreshes", 0)
         if refreshes != st.seen_refreshes:
             st.seen_refreshes = refreshes
             if self.flight is not None:

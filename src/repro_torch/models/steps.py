@@ -13,9 +13,12 @@ artifacts are built once per parameter set and plan (`mips_head`): the
 JAX package re-lays and quantizes the table inside its jitted step, with
 the same results, but per step that would move the whole table again.
 The block permutation of a step is an explicit argument (``perm``), as
-everywhere in the port.  ``loss_fn`` and ``train_step`` wait for
-training, and the mesh branch (a vocab-sharded head) for sharded serving
-(ROADMAP.md queue 1 items 7 and 6).
+everywhere in the port.  With ``mesh`` the head is vocab-sharded: the
+table split into row shards over the mesh's devices once per parameter
+set (`sharded_mips_head`), and each step one launch per shard and the
+exact cross-shard merge, as the JAX package's step runs
+``sharded_bounded_me_decode`` under a bound mesh.  ``loss_fn`` and
+``train_step`` wait for training (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -29,10 +32,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.boundedme_torch import (BlockedPlan, decode_tiled,
                                               draw_perms, make_plan,
                                               quantize_table, tile_table)
+from repro_torch.distributed.sharding import (make_shard_plan,
+                                              quantize_shards,
+                                              sharded_decode_tiled)
+from repro_torch.distributed.specs import serving_table_sharding
 from repro_torch.models.model import Caches, DenseLM, masked_logits
 
 __all__ = ["prefill_step", "make_mips_plan", "MipsHead", "mips_head",
-           "decode_step"]
+           "ShardedMipsHead", "sharded_mips_head", "decode_step"]
 
 
 def prefill_step(model: DenseLM, tokens: torch.Tensor, cache_len: int
@@ -93,6 +100,63 @@ def mips_head(model: DenseLM, cfg: ArchConfig) -> MipsHead:
     return model._mips_head
 
 
+@dataclasses.dataclass
+class ShardedMipsHead:
+    """The vocab-sharded bandit head of one parameter set over one mesh:
+    the shard plan (`make_shard_plan` at the head's settings), each row
+    shard of the table laid out tile-major on its device, and the shards'
+    quantized artifacts on the int tiers."""
+
+    plan: BlockedPlan
+    mesh: object
+    shards: list
+    quantized: Optional[list]
+    k_out: int
+    n_valid: int
+    key: tuple
+
+    def __call__(self, hid: torch.Tensor, perm) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+        """``(ids (B, 1) int32, scores (B, 1) float32)`` of hidden states
+        ``hid (B, d)`` (cast to the table's type, as in the JAX package)
+        under the block permutation ``perm``, on the mesh's first
+        device."""
+        out = sharded_decode_tiled(
+            self.shards, hid.to(self.shards[0].dtype), perm, mesh=self.mesh,
+            plan=self.plan, K=1, k_out=self.k_out, n_valid=self.n_valid,
+            final_exact=True, quantized=self.quantized)
+        return out[0], out[1]
+
+
+def sharded_mips_head(model: DenseLM, cfg: ArchConfig,
+                      mesh) -> ShardedMipsHead:
+    """The model's vocab-sharded head under ``cfg`` over ``mesh`` — the
+    JAX package's sharded step settings: K = 1, ``value_range`` 4.0,
+    tiles of 8 rows, blocks of ``min(512, d_model)``, the padding rows
+    masked — built at the first call and kept until the mesh, the plan's
+    settings or the table change."""
+    if cfg.mips_precision == "pq":
+        raise ValueError("the decode head's plan has no table to calibrate "
+                         "a pq error bound on; pq serves through --loop")
+    table = model.head_table
+    key = (id(mesh), cfg.padded_vocab, cfg.d_model, cfg.mips_eps,
+           cfg.mips_delta, cfg.mips_precision, table.data_ptr(),
+           table._version)
+    head = getattr(model, "_sharded_head", None)
+    if head is None or head.key != key:
+        model._sharded_head = None            # free the old shards first
+        plan, _, _, k_out = make_shard_plan(
+            cfg.padded_vocab, cfg.d_model, len(mesh.devices), K=1,
+            eps=cfg.mips_eps, delta=cfg.mips_delta, value_range=4.0,
+            tile=8, block=min(512, cfg.d_model),
+            precision=cfg.mips_precision)
+        shards = serving_table_sharding(table, mesh, plan)
+        model._sharded_head = ShardedMipsHead(plan, mesh, shards,
+                                              quantize_shards(shards, plan),
+                                              k_out, cfg.vocab, key)
+    return model._sharded_head
+
+
 def decode_step(model: DenseLM, cfg: ArchConfig, caches: Caches,
                 tokens: torch.Tensor, pos: int, perm=None, mesh=None
                 ) -> Tuple[torch.Tensor, Caches]:
@@ -102,15 +166,20 @@ def decode_step(model: DenseLM, cfg: ArchConfig, caches: Caches,
     padding rows at -1e30, and the first index of the maximum.
     ``'boundedme'``: the bandit head under ``perm``, the step's block
     permutation shared by the batch (default: `draw_perms` seeded 0),
-    with exact final scores and the padding rows masked in the cascade.
+    with exact final scores and the padding rows masked in the cascade;
+    with ``mesh`` (more than one shard) the vocab-sharded head
+    (`sharded_mips_head`), its next tokens back on the model's device.
     """
-    if mesh is not None:
-        raise NotImplementedError("the vocab-sharded head waits for "
-                                  "sharded serving (ROADMAP.md queue 1 "
-                                  "item 6)")
     h, caches = model(tokens, caches=caches, pos=pos)
     hid = h[:, -1]
-    if cfg.mips_mode == "boundedme":
+    if cfg.mips_mode == "boundedme" and mesh is not None \
+            and len(mesh.devices) > 1:
+        head = sharded_mips_head(model, cfg, mesh)
+        if perm is None:
+            perm = draw_perms(head.plan.n_blocks)
+        ids, _ = head(hid, perm)
+        next_tok = ids[:, 0].to(hid.device)
+    elif cfg.mips_mode == "boundedme":
         head = mips_head(model, cfg)
         if perm is None:
             perm = draw_perms(head.plan.n_blocks)

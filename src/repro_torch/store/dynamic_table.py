@@ -604,16 +604,29 @@ class DynamicTableStore:
         self._synchronize()
 
     def resident_bytes(self) -> int:
-        """Device bytes this table pins while resident: the tiled f32
-        table plus (on quantized tiers) the shadow — codes, scales and
-        the pq codebook; 0 while paged out."""
+        """Device bytes this table pins while resident, in the JAX
+        package's unit (the tenancy registry's budget counts these): the
+        ``(capacity_rows, N)`` f32 table plus (on quantized tiers) the
+        shadow — codes, scales and the pq codebook; 0 while paged out.
+        Where ``N`` is not a whole number of blocks the tiled table also
+        holds zero-padded columns, which `device_bytes` counts."""
         if self._V4 is None:
             return 0
-        total = 0
-        for arr in (self._V4, self._V8, self._vscale, self._codebook):
+        total = self.capacity_rows * self.N * 4
+        for arr in (self._V8, self._vscale, self._codebook):
             if arr is not None:
                 total += arr.numel() * arr.element_size()
         return total
+
+    def device_bytes(self) -> int:
+        """Device bytes the store really holds while resident: the tiled
+        f32 table with its padded columns, plus the shadow; 0 while paged
+        out (what a page-out frees)."""
+        if self._V4 is None:
+            return 0
+        return sum(arr.numel() * arr.element_size()
+                   for arr in (self._V4, self._V8, self._vscale,
+                               self._codebook) if arr is not None)
 
     # ---- write side (staged) --------------------------------------------
 

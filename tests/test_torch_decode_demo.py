@@ -21,7 +21,6 @@ JAX package's, and the bf16 vocab head it serves on.
 """
 
 import dataclasses
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +43,8 @@ from repro_torch.core import quantize as tq
 from repro_torch.core.boundedme_torch import (decode_operands, decode_tiled,
                                               make_plan, tile_table)
 from repro_torch.kernels import ops, ref
+from repro_torch.distributed.sharding import (Mesh,
+                                              sharded_bounded_me_decode)
 from repro_torch.launch import serve
 from repro_torch.launch.engine import CascadeExecutor
 from repro_torch.models.model import DenseLM
@@ -223,9 +224,15 @@ def test_serving_tables_keep_the_models_type():
         carried.float().numpy(), np.asarray(params["embed"], np.float32))
 
 
-def test_decode_head_is_built_once_and_refuses_pq_and_mesh():
-    from repro_torch.models.steps import decode_step, make_mips_plan, \
-        mips_head
+def test_decode_head_is_built_once_refuses_pq_and_shards_over_a_mesh():
+    """The head is built once per parameter set and plan; pq has no table
+    to calibrate on.  With ``mesh`` (refused before sharded serving was
+    ported) the step runs the vocab-sharded head: its tokens are those of
+    `sharded_bounded_me_decode` on the step's hidden states, K = 1, the
+    padding rows masked, built once per parameter set and mesh."""
+    from repro_torch.core.boundedme_torch import draw_perms
+    from repro_torch.models.steps import (decode_step, make_mips_plan,
+                                          mips_head, sharded_mips_head)
     cfg = dataclasses.replace(get_config("qwen1.5-0.5b").smoke(),
                               mips_mode="boundedme")
     model = DenseLM(cfg, seed=1)
@@ -238,8 +245,18 @@ def test_decode_head_is_built_once_and_refuses_pq_and_mesh():
     assert mips_head(model, cfg) is not head
     with pytest.raises(ValueError, match="pq"):
         make_mips_plan(dataclasses.replace(cfg, mips_precision="pq"))
-    _, caches = model(torch.zeros((1, 3), dtype=torch.long), cache_len=5)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        decode_step(model, cfg, caches, torch.zeros((1, 1),
-                                                    dtype=torch.long), 3,
-                    mesh=SimpleNamespace())
+    mesh = Mesh(["cpu"] * 3)
+    tokens = torch.tensor([[5, 7, 9], [1, 2, 3]])
+    perm = draw_perms(make_mips_plan(cfg).n_blocks)
+    _, caches = model(tokens, cache_len=5)
+    tok, _ = decode_step(model, cfg, caches, tokens[:, -1:], 3, perm=perm,
+                         mesh=mesh)
+    _, caches = model(tokens, cache_len=5)
+    h, _ = model(tokens[:, -1:], caches=caches, pos=3)
+    want = sharded_bounded_me_decode(
+        model.head_table, h[:, -1], perm, mesh=mesh, K=1,
+        n_valid=cfg.vocab, eps=cfg.mips_eps, delta=cfg.mips_delta,
+        value_range=4.0, block=128)
+    assert torch.equal(tok, want[0][:, 0]) and tok.dtype == torch.int32
+    assert sharded_mips_head(model, cfg, mesh) is model._sharded_head
+    assert len(model._sharded_head.shards) == 3

@@ -44,6 +44,7 @@ from repro.launch.engine import ServeRuntime as JaxRuntime
 from repro.launch.faults import FaultInjector as JaxInjector
 from repro.obs import FlightRecorder as JaxFlight
 from repro.obs import SpanTracer as JaxTracer
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.launch import serve
 from repro_torch.launch.admission import STATUSES, PriorityClass
 from repro_torch.launch.engine import (DispatchFailed, ServeRuntime,
@@ -331,8 +332,10 @@ def test_dispatch_with_retries_reuses_the_perm():
 def test_runtime_refuses_what_is_not_ported():
     with pytest.raises(TypeError, match="DynamicTableStore"):
         ServeRuntime({"rows": _table()}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ServeRuntime(_table(), mesh=object(), device="cpu")
+    # a mesh (refused before sharded serving was ported) shards every rung
+    mesh = Mesh(["cpu"] * 2)
+    sharded = ServeRuntime(_table(), K=2, lanes=2, mesh=mesh, device="cpu")
+    assert all(ex.mesh is mesh for ex in sharded.executors)
     for kw, match in ((dict(batch_wait_ms=0), "batch_wait_ms"),
                       (dict(lanes=0), "lanes"),
                       (dict(max_retries=-1), "max_retries")):

@@ -46,8 +46,10 @@ from repro_torch.configs import get_config
 from repro_torch.convert import make_serving_table, serving_table_from_jax
 from repro_torch.core.boundedme_torch import bounded_me_decode, make_plan
 from repro_torch.launch import serve
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.launch.engine import (CascadeExecutor, MIPSServeEngine,
                                        seeded_perm)
+from repro_torch.store import DynamicTableStore
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -235,29 +237,62 @@ def test_serve_cli_loop_on_cpu():
 
 @pytest.mark.parametrize("argv,fragment", [
     (["--churn-rate", "0.25"], "requires --dynamic"),
-    (["--tenants", "t.json", "--shards", "2"], "ROADMAP.md"),
-    (["--shards", "2"], "ROADMAP.md"),
+    (["--tenants", "t.json", "--shards", "2"], "drop --dynamic/--shards"),
     (["--precision", "pq", "--dynamic", "--pull-mode", "coord"],
-     "incompatible with a single-device quantized store"),
-    (["--adaptive", "--shards", "2"], "ROADMAP.md")])
+     "incompatible with a single-device quantized store")])
 def test_serve_cli_refuses_later_slices(argv, fragment, capsys):
-    """Slices not ported yet name their ROADMAP.md item (sharding, also
-    under ``--tenants``); ``--dynamic`` and ``--tenants`` are ported, and
-    their combinations are refused as the JAX package's CLI refuses
-    them."""
+    """Combinations the JAX package's CLI refuses are refused with its
+    reasons (``--shards`` under ``--tenants``: placement lives in the
+    spec file)."""
     with pytest.raises(SystemExit):
         serve.parse_args(["--arch", "qwen1.5-0.5b", "--loop", *argv])
     assert fragment in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("argv", [
+    ["--shards", "2"], ["--adaptive", "--shards", "2"],
+    ["--precision", "int8", "--dynamic", "--pull-mode", "coord",
+     "--shards", "2"],
+    ["--runtime", "--eps-floor", "0.4", "--shards", "2",
+     "--check-outcomes"],
+    ["--runtime", "--dynamic", "--churn-rate", "0.25",
+     "--inject-flush-rate", "0.2", "--shards", "2", "--check-outcomes"]])
+def test_serve_cli_serves_shards(argv, capsys):
+    """``--shards`` (refused until sharded serving was ported) serves:
+    with a two-shard CPU mesh handed in, the loop's executor shards the
+    table (``--dynamic``: a `ShardedTableStore`, which also lifts the
+    single-device store's pull-mode rule) and the startup line says
+    ``shards=2``; without one, the CPU is one device and the loop serves
+    unsharded, as the JAX package's CLI does on one device (where a
+    quantized single-device store then refuses the coord plan, as the
+    JAX package's executor does)."""
+    args = serve.parse_args(["--arch", "qwen1.5-0.5b", "--smoke", "--loop",
+                             "--device", "cpu", "--requests", "12",
+                             *argv])
+    mesh = Mesh(["cpu"] * 2)
+    stats = serve.run_loop(args, mesh=mesh)
+    assert "shards=2" in capsys.readouterr().out
+    assert stats["completed"] == 12
+    if args.dynamic:
+        assert stats["store"]["n_shards"] == 2
+    if args.adaptive:
+        assert stats["adaptive"]["samples"] % 2 == 0
+    if args.pull_mode != "row":
+        with pytest.raises(ValueError, match="incompatible"):
+            serve.build_loop(args)
+        return
+    engine, _ = serve.build_loop(args)
+    execs = engine.executors if args.runtime else [engine.executor]
+    assert all(ex.mesh is None for ex in execs)
+
+
 def test_serve_cli_refuses_decode_demo(capsys):
     """The decode demo is ported; what it does not serve is refused with
     its reason or ROADMAP.md item: pq (no table to calibrate on, as in
-    the JAX package's CLI), the vocab-sharded head, families other than
-    dense, and loop-only modes."""
+    the JAX package's CLI), families other than dense, and loop-only
+    modes."""
     for argv, fragment in (
             (["--precision", "pq"], "requires --loop"),
-            (["--shards", "2"], "queue 1 item 6"),
             (["--runtime"], "requires --loop"),
             (["--tokens", "0"], "must be >= 1")):
         with pytest.raises(SystemExit):
@@ -270,6 +305,10 @@ def test_serve_cli_refuses_decode_demo(capsys):
         assert "queue 1 item 7" in capsys.readouterr().err, arch
     args = serve.parse_args(["--arch", "tinyllama-1.1b", "--smoke"])
     assert not args.loop and args.mips == "exact" and args.tokens == 32
+    # the decode demo takes --shards and serves unsharded, as the JAX
+    # package's demo does (it was refused before sharding was ported)
+    args = serve.parse_args(["--arch", "qwen1.5-0.5b", "--shards", "2"])
+    assert args.shards == 2 and not args.loop
 
 
 @pytest.mark.parametrize("mips", ["exact", "boundedme"])
@@ -285,12 +324,25 @@ def test_serve_cli_decode_demo_on_cpu(mips, capsys):
     assert ("fused cascade" in out) == (mips == "boundedme")
 
 
-def test_executor_refuses_later_slices():
+def test_executor_serves_a_mesh_and_refuses_other_tables():
+    """``mesh=`` (refused before sharded serving was ported) shards the
+    table: fp32, int8 and adaptive serve over two CPU shards; a mesh
+    needs a static table or a `ShardedTableStore`."""
     table = _table(64, 32)
-    for kw in (dict(mesh=object()), dict(mesh=object(), precision="int8"),
-               dict(mesh=object(), adaptive=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CascadeExecutor(table, device="cpu", **kw)
+    mesh = Mesh(["cpu"] * 2)
+    for kw in (dict(mesh=mesh), dict(mesh=mesh, precision="int8"),
+               dict(mesh=mesh, adaptive=True)):
+        ex = CascadeExecutor(table, K=2, device="cpu", **kw)
+        assert ex.mesh is mesh and ex.plan.n == 32
+        ids, _, rounds, _ = ex.dispatch(table[:3],
+                                        np.arange(ex.plan.n_blocks))
+        assert ids.shape == (3, 2) and (ids < 64).all()
+        assert (rounds is not None) == ex.adaptive
+        if ex.adaptive:
+            assert rounds.shape == (3, 2)
+    with pytest.raises(ValueError, match="needs a ShardedTableStore"):
+        CascadeExecutor(DynamicTableStore(table, device="cpu"),
+                        mesh=mesh, device="cpu")
     with pytest.raises(TypeError, match="DynamicTableStore"):
         CascadeExecutor({"rows": table}, device="cpu")
 

@@ -9,7 +9,7 @@ half to even) — while the pq codes are held bytewise against a fresh
 store built on the card from the snapshot (one encode shape for every
 path).  A store-backed engine's flushes launch the fused cascade over
 the store's own buffers.  Paging on the card: the host mirror is
-page-locked, a page-out frees exactly the store's ``resident_bytes`` of
+page-locked, a page-out frees exactly the store's ``device_bytes`` of
 allocated card memory, a page-in brings every buffer back bytewise, and
 the tenancy registry's eviction frees the table's bytes while its
 page-in serves the same answers.
@@ -122,16 +122,17 @@ def test_card_page_round_trip_is_bytewise(card, precision):
     _script([st], rng, 6)                 # staged across the round trip
     assert torch.from_numpy(st._host).is_pinned()
     before = [b.clone() for b in _buffers(st)]
-    nbytes = st.resident_bytes()
+    nbytes = st.device_bytes()
     assert nbytes == sum(b.numel() * b.element_size() for b in before)
+    assert st.resident_bytes() == nbytes        # DIM is whole blocks
     torch.cuda.synchronize()
     alloc = torch.cuda.memory_allocated()
     st.page_out()
     torch.cuda.synchronize()
     assert alloc - torch.cuda.memory_allocated() >= nbytes
-    assert st.resident_bytes() == 0 and st.pending_updates > 0
+    assert st.device_bytes() == 0 and st.pending_updates > 0
     st.page_in()
-    assert st.resident_bytes() == nbytes
+    assert st.device_bytes() == nbytes
     for got, want in zip(_buffers(st), before):
         assert got.device.type == "cuda" and torch.equal(got, want)
     st.flush_updates()

@@ -63,7 +63,8 @@ from repro_torch.launch.faults import FaultInjector
 from repro_torch.launch.tenancy import (MultiTenantRuntime, TableRegistry,
                                         TenancyError, TenantConfig)
 from repro_torch.obs import FlightRecorder, SpanTracer
-from repro_torch.store import DynamicTableStore
+from repro_torch.distributed.sharding import Mesh
+from repro_torch.store import DynamicTableStore, ShardedTableStore
 from test_torch_runtime import _keys, _same
 
 DIM = 96
@@ -77,6 +78,63 @@ def _table(rows, seed, scale=1.0, dim=DIM):
     rng = np.random.default_rng(seed)
     return (scale * rng.normal(size=(rows, dim)) / np.sqrt(dim)
             ).astype(np.float32)
+
+
+def _lru_script(seed, dim=DIM, block=512, precision="fp32"):
+    """Drive both registries through one seeded script of registrations,
+    serves, pins, unpins and evictions under a budget of about three
+    tables; their decisions, residency and stats must agree."""
+    rng = np.random.default_rng(seed)
+    sizes = {n: int(rng.integers(40, 120)) for n in "abcdef"}
+    kw = dict(K=1, eps=2.0, block=block, precision=precision)
+    one = DynamicTableStore(_table(64, 0, dim=dim), block=block,
+                            precision=precision,
+                            device="cpu").resident_bytes()
+    budget = int(3.1 * one)
+    jreg = JaxRegistry(byte_budget=budget, lanes=LANES,
+                       warm_on_build=False)
+    treg = TableRegistry(byte_budget=budget, lanes=LANES,
+                         warm_on_build=False, device="cpu")
+    log = {"jax": [], "port": []}
+    for name in "abcdef":
+        table = _table(sizes[name], ord(name), dim=dim)
+        outs = []
+        for reg, err in ((jreg, JaxTenancyError),
+                         (treg, TenancyError)):
+            try:
+                reg.register(name, table,
+                             (JaxConfig if reg is jreg
+                              else TenantConfig)(**kw))
+                outs.append("ok")
+            except err:
+                outs.append("refused")
+        assert outs[0] == outs[1]
+    for step in range(40):
+        name = "abcdef"[int(rng.integers(0, 6))]
+        op = rng.random()
+        for reg, key, err in ((jreg, "jax", JaxTenancyError),
+                              (treg, "port", TenancyError)):
+            if name not in reg.tenants():
+                continue
+            try:
+                if op < 0.7:
+                    reg.executors(name)
+                elif op < 0.8:
+                    reg.pin(name)
+                elif op < 0.9:
+                    reg.unpin(name)
+                else:
+                    reg.evict(name)
+                res = "ok"
+            except err:
+                res = "refused"
+            assert reg.resident_bytes() <= budget
+            log[key].append((step, res, [reg.is_resident(n)
+                                         for n in reg.tenants()]))
+    assert log["port"] == log["jax"]
+    for key in ("evictions", "page_ins", "resident_bytes", "tables",
+                "tables_resident"):
+        assert treg.stats()[key] == jreg.stats()[key], key
 
 
 def _queries(n, seed):
@@ -560,77 +618,70 @@ class TestResidency:
         """A seeded script of registrations, serves (executors), pins and
         evictions under a budget: both registries page the same tables
         in and out, and resident bytes never pass the budget."""
-        rng = np.random.default_rng(seed)
-        sizes = {n: int(rng.integers(40, 120)) for n in "abcdef"}
-        one = DynamicTableStore(_table(64, 0), device="cpu").resident_bytes()
-        budget = int(3.1 * one)
-        jreg = JaxRegistry(byte_budget=budget, lanes=LANES,
-                           warm_on_build=False)
-        treg = TableRegistry(byte_budget=budget, lanes=LANES,
-                             warm_on_build=False, device="cpu")
-        log = {"jax": [], "port": []}
-        for name in "abcdef":
-            table = _table(sizes[name], ord(name))
-            outs = []
-            for reg, err in ((jreg, JaxTenancyError),
-                             (treg, TenancyError)):
-                try:
-                    reg.register(name, table,
-                                 (JaxConfig if reg is jreg
-                                  else TenantConfig)(K=1, eps=2.0))
-                    outs.append("ok")
-                except err:
-                    outs.append("refused")
-            assert outs[0] == outs[1]
-        for step in range(40):
-            name = "abcdef"[int(rng.integers(0, 6))]
-            op = rng.random()
-            for reg, key, err in ((jreg, "jax", JaxTenancyError),
-                                  (treg, "port", TenancyError)):
-                if name not in reg.tenants():
-                    continue
-                try:
-                    if op < 0.7:
-                        reg.executors(name)
-                    elif op < 0.8:
-                        reg.pin(name)
-                    elif op < 0.9:
-                        reg.unpin(name)
-                    else:
-                        reg.evict(name)
-                    res = "ok"
-                except err:
-                    res = "refused"
-                assert reg.resident_bytes() <= budget
-                log[key].append((step, res, [reg.is_resident(n)
-                                             for n in reg.tenants()]))
-        assert log["port"] == log["jax"]
-        for key in ("evictions", "page_ins", "resident_bytes", "tables",
-                    "tables_resident"):
-            assert treg.stats()[key] == jreg.stats()[key], key
+        _lru_script(seed)
+
+    @pytest.mark.parametrize("precision", ["fp32", "int8"])
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_lru_decisions_match_jax_registry_on_padded_blocks(
+            self, seed, precision):
+        """The same script where ``dim`` is not a whole number of blocks
+        (100 over 64): the port's tiled tables hold zero-padded columns,
+        which its budget does not charge (the JAX package's unit), so both
+        registries evict and page in at the same points."""
+        _lru_script(seed, dim=100, block=64, precision=precision)
 
     @pytest.mark.parametrize("precision", TIERS)
     @pytest.mark.parametrize("dim,block", [(128, 64), (100, 64)])
     def test_resident_bytes_side_by_side(self, precision, dim, block):
-        """Both packages' ``resident_bytes`` on the same rows: equal where
-        ``dim`` fills whole blocks; where it does not, the port's tiled
-        table also holds the zero-padded columns, ``capacity_rows *
-        (n_blocks * block - dim) * 4`` bytes more (its shadow already
-        matches the JAX package's tile-major shadow)."""
+        """Both packages' ``resident_bytes`` on the same rows are equal at
+        every ``(dim, block)``: the budget's unit is the JAX package's
+        ``(capacity_rows, dim)`` f32 table plus the shadow.  Where ``dim``
+        is not a whole number of blocks the port's tiled table also holds
+        zero-padded columns, ``capacity_rows * (n_blocks * block - dim) *
+        4`` bytes, which `device_bytes` counts."""
         rows = _table(192, 3, dim=dim)
         kw = dict(block=block, precision=precision, pq_subdims=8)
         jst = JaxStore(rows, **kw)
         tst = DynamicTableStore(rows, device="cpu", **kw)
+        assert tst.resident_bytes() == jst.resident_bytes()
         pad = -(-dim // block) * block - dim
         extra = tst.capacity_rows * pad * 4
-        assert tst.resident_bytes() == jst.resident_bytes() + extra
+        assert tst.device_bytes() == tst.resident_bytes() + extra
         assert (extra == 0) == (dim % block == 0)
+        tst.page_out()
+        assert tst.resident_bytes() == tst.device_bytes() == 0
 
-    def test_mesh_is_refused(self):
-        reg = TableRegistry(lanes=LANES, device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            reg.register("s", _table(64, 1), TenantConfig(), mesh=object())
-        assert reg.tenants() == []
+    def test_mesh_registers_a_pinned_sharded_tenant(self):
+        """``register(..., mesh=)`` builds a `ShardedTableStore` (formerly
+        refused): counted against the budget in the JAX package's unit,
+        pinned, never evicted (`evict` raises, `unpin` leaves it pinned,
+        as in the JAX package), reported ``sharded``; its executors serve
+        over the mesh at the tenant's tier beside a paging tenant."""
+        one = DynamicTableStore(_table(64, 0), device="cpu").resident_bytes()
+        reg = TableRegistry(byte_budget=int(2.5 * one), lanes=LANES,
+                            device="cpu")
+        mesh = Mesh(["cpu"] * 2)
+        store = reg.register("s", _table(64, 1), TenantConfig(
+            K=2, eps=2.0, precision="int8"), mesh=mesh)
+        assert isinstance(store, ShardedTableStore) and store.mesh is mesh
+        assert reg.table_bytes("s") == store.resident_bytes() \
+            == store.capacity_rows * DIM * 4
+        assert reg.is_pinned("s") and reg.stats()["tenants"]["s"]["sharded"]
+        with pytest.raises(TenancyError, match="sharded"):
+            reg.evict("s")
+        reg.unpin("s")
+        assert reg.is_pinned("s") and reg.is_resident("s")
+        reg.register("a", _table(64, 2), TenantConfig(K=2, eps=2.0))
+        reg.register("b", _table(64, 3), TenantConfig(K=2, eps=2.0))
+        assert reg.is_resident("s") and not reg.is_resident("a")
+        assert reg.lru_order() == ["b"]
+        execs, page_s = reg.executors("s")
+        assert page_s == 0.0 and all(ex.mesh is mesh for ex in execs)
+        ids, scores, _, _ = execs[0].dispatch(_queries(LANES, 5),
+                                              np.arange(
+                                                  execs[0].plan.n_blocks))
+        assert ids.shape == (LANES, 2) and (ids < 64 * 2).all()
+        assert reg.resident_bytes() <= reg.byte_budget
 
     @pytest.mark.parametrize("precision", ["fp32", "int8"])
     def test_evicting_stream_matches_jax_runtime(self, precision,
