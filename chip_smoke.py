@@ -200,7 +200,34 @@ Phases, one line each (any failure exits non-zero before the result):
    dispatch ms beside phase 4's unsharded one, recall against exact
    search on the whole table, the S launches' kernel ms split into round
    ends and pulls beside phase 3's unsharded launch, and the memory held;
-12. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+12. paper — the paper's own algorithms and baselines (`repro_torch.core`'s
+   ``boundedme``, ``median_elim``, ``bounded_se``; `repro_torch.baselines`),
+   plain PyTorch ops on the card (no kernel of the port runs: every launch
+   count stays 0).  Fig. 1 at the paper's size, 10,000 arms x 100,000
+   rewards (``benchmarks/fig1_guarantee.py:5``; the script cuts it to
+   (2000, 20000)): 10 trials (seeds 1000 + t), each trial's f32 R (4.0 GB)
+   built once on the card from the numpy draw of each row's ones (its first
+   64 rows bitwise ``adversarial_dataset(64, N, seed)``) and all 20 (eps,
+   delta) pairs of the script run on it; Theorem 1 must hold for every
+   pair (the (1 - delta) quantile of the exact suboptimality below eps)
+   and each call's ``total_pulls`` and ``rounds`` equal
+   ``make_schedule``'s.  Prints ms per ``bounded_me`` call (host clock
+   ending in ``torch.cuda.synchronize()``) beside its bytes' bound, and
+   one exact ``R.sum(1)`` beside its bound.  Then the Figs. 2-4 regime
+   (``fig23_synthetic.py``, ``fig4_real.py``: (2000, 20000), K = 5, 3
+   queries with the scripts' seeds and permutations) on ``gaussian``,
+   ``uniform`` and ``mf_dataset(rank=32)``: every BoundedME eps, LSH (a,
+   b), GREEDY budget and PCA spill of ``fig23_synthetic.py:40-86`` on the
+   card, each row's per-query ids and cost held against the port's own
+   CPU run of the same calls (equal, but a tie — both id sets' exact
+   float64 scores within 1e-5, costs equal — or a PCA row on a tree whose
+   leaves the two SVDs made differ; both counted and printed), with the
+   card's ms per call and the fastest method at precision 1.0 / 0.8 /
+   0.6; and Table 1's rows (``table1_complexity.py:50-69``): the LSH,
+   GREEDY and PCA builds at (1000, 4096) timed on the card against
+   BoundedME's zero preprocessing, and BoundedSE against BoundedME pull
+   counts, equal to the CPU's;
+13. a ``kernels`` JSON line, one entry per kernel and tier (the batched
    cascade's launches are the serve, runtime, store, tenancy, decode and
    sharded phases'; its ``[bf16]`` entry times the decode head), and
    last the ``ok`` JSON line.
@@ -2773,6 +2800,304 @@ def phase_sharded(table, n_valid, served, kern) -> dict:
     return {"runs": runs, "per_tag": per_tag}
 
 
+#: phase 12: the paper's Fig. 1 at the paper's own size
+#: (``benchmarks/fig1_guarantee.py:5``; the script cuts it to (2000,
+#: 20000) for the CPU): its 20 (eps, delta) pairs, 10 trials, seeds 1000 + t
+FIG1_SHAPE = (10_000, 100_000)
+FIG1_TRIALS = 10
+FIG1_PAIRS = [(e, d) for e in (0.1, 0.2, 0.3, 0.45, 0.6)
+              for d in (0.05, 0.1, 0.2, 0.3)]
+#: the regime of ``benchmarks/fig23_synthetic.py`` and ``fig4_real.py``:
+#: their shape, K, query count and seeds, and fig23's knobs (:40-86)
+PAPER_SHAPE, PAPER_K, PAPER_QUERIES = (2000, 20_000), 5, 3
+PAPER_EPS = (0.05, 0.1, 0.2, 0.4, 0.7, 1.0)
+PAPER_LSH = ((12, 8), (8, 8), (6, 16), (4, 32))
+PAPER_BUDGETS = (20, 100, 400, 1600)
+PAPER_SPILLS = (0.0, 0.05, 0.2, 0.5)
+#: ``benchmarks/table1_complexity.py:50-69``
+TABLE1_SHAPE = (1000, 4096)
+
+
+def adversarial_on_card(n: int, N: int, seed: int):
+    """``adversarial_dataset(n, N, seed)`` built on the card from the same
+    numpy draw of each row's count of ones: ``(R, ones)``."""
+    rng = np.random.default_rng(seed)
+    ones = np.rint(rng.uniform(0, 1, size=n) * N).astype(np.int64)
+    R = (torch.arange(N, device=DEV)
+         < torch.from_numpy(ones).to(DEV)[:, None]).to(torch.float32)
+    return R, ones
+
+
+def fig1_run() -> dict:
+    """Theorem 1 at the paper's Fig. 1 size: each trial's R (4.0 GB, f32)
+    built once on the card, all 20 pairs run on it, then freed."""
+    from repro_torch.core.boundedme import bounded_me
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.data.synthetic import adversarial_dataset
+
+    n, N = FIG1_SHAPE
+    sched = {p: make_schedule(n, N, K=1, eps=p[0], delta=p[1])
+             for p in FIG1_PAIRS}
+    subopt = {p: [] for p in FIG1_PAIRS}
+    call_ms = {p: [] for p in FIG1_PAIRS}
+    t_phase = time.perf_counter()
+    for t in range(FIG1_TRIALS):
+        seed = 1000 + t
+        R, ones = adversarial_on_card(n, N, seed)
+        # a draw's first rows are a smaller draw's on the same seed
+        check(torch.equal(R[:64], torch.from_numpy(
+            adversarial_dataset(64, N, seed=seed)).to(DEV)),
+              f"fig1: trial {t}: R on the card is not adversarial_dataset's")
+        true = ones / N                  # each arm's exact mean
+        if t == 0:
+            bounded_me(R, K=1, eps=FIG1_PAIRS[0][0],
+                       delta=FIG1_PAIRS[0][1])          # warm-up
+            sum_ms = time_cuda(lambda: R.sum(dim=1), 10, 2)
+        for p in FIG1_PAIRS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = bounded_me(R, K=1, eps=p[0], delta=p[1])
+            torch.cuda.synchronize()
+            call_ms[p].append(1e3 * (time.perf_counter() - t0))
+            check(res.topk.device == R.device,
+                  f"fig1 {p}: result on {res.topk.device}")
+            check((res.total_pulls, res.rounds)
+                  == (sched[p].total_pulls, len(sched[p].rounds)),
+                  f"fig1 {p}: pulls {res.total_pulls} rounds {res.rounds} "
+                  f"vs the schedule's {sched[p].total_pulls} "
+                  f"{len(sched[p].rounds)}")
+            subopt[p].append(float(true.max() - true[int(res.topk[0])]))
+        del R
+        torch.cuda.empty_cache()
+    rows = []
+    for eps, delta in FIG1_PAIRS:
+        p = (eps, delta)
+        quant = float(np.quantile(subopt[p], 1.0 - delta))
+        check(quant < eps, f"fig1: Theorem 1 fails at eps {eps} delta "
+              f"{delta}: the {1 - delta:g} quantile of the suboptimality "
+              f"is {quant:.6g}")
+        rows.append({"eps": eps, "delta": delta, "subopt_quantile": quant,
+                     "pulls": sched[p].total_pulls,
+                     "rounds": len(sched[p].rounds),
+                     "ms": statistics.median(call_ms[p]),
+                     "bound_ms": 4e3 * sched[p].total_pulls
+                     / HBM_BYTES_PER_S})
+        say("paper fig1: " + json.dumps(rows[-1]))
+    out = {"rows": rows, "sum_ms": sum_ms,
+           "sum_bound_ms": 4e3 * n * N / HBM_BYTES_PER_S,
+           "seconds": time.perf_counter() - t_phase}
+    say(f"paper fig1: Theorem 1 holds for all {len(rows)} (eps, delta) "
+        f"pairs at {n} x {N} over {FIG1_TRIALS} trials; exact R.sum(1) "
+        f"{sum_ms:.3f} ms (bound {out['sum_bound_ms']:.3f} ms); "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def paper_datasets():
+    """The Figs. 2-4 tables and queries, with their scripts' seeds."""
+    from repro_torch.data.synthetic import (gaussian_dataset, mf_dataset,
+                                            uniform_dataset)
+    n, N = PAPER_SHAPE
+    for name, gen in (("gaussian", gaussian_dataset),
+                      ("uniform", uniform_dataset)):
+        yield name, gen(n, N, seed=0)[0], [
+            gen(1, N, seed=100 + i)[1] for i in range(PAPER_QUERIES)]
+    yield "mf", mf_dataset(n, N, rank=32, seed=0)[0], [
+        mf_dataset(1, N, rank=32, seed=50 + i)[1]
+        for i in range(PAPER_QUERIES)]
+
+
+def paper_sweep(V: np.ndarray, queries, device: str) -> dict:
+    """Every method and knob of the Figs. 2-4 sweep on ``device``: per
+    row, each query's returned ids and cost, and the card's ms per call."""
+    from repro_torch.baselines import (build_greedy, build_lsh,
+                                       build_pca_tree, exact_mips,
+                                       greedy_mips, lsh_mips, pca_mips)
+    from repro_torch.core.boundedme import bounded_me, reward_matrix
+
+    Vd = torch.from_numpy(V).to(device)
+    qs = [torch.from_numpy(q).to(device) for q in queries]
+    rng = np.random.default_rng(0)
+    perms = [rng.permutation(V.shape[1]) for _ in qs]
+    vrange = [float(np.abs(V).max() * np.abs(q).max()) for q in queries]
+    truth = [exact_mips(Vd, q, PAPER_K).topk.tolist() for q in qs]
+    rows = {}
+
+    def row(name, call):
+        recs, ms = [], []
+        for i in range(len(qs)):
+            t0 = time.perf_counter()
+            ids, cost = call(i)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            recs.append((ids.tolist(), cost))
+        rows[name] = {"recs": recs, "ms": statistics.median(ms)}
+
+    for eps in PAPER_EPS:
+        def bme(i, eps=eps):
+            R = reward_matrix(Vd, qs[i], perms[i])
+            r = bounded_me(R, K=PAPER_K, eps=eps * vrange[i], delta=0.1,
+                           value_range=2 * vrange[i])
+            return r.topk, r.total_pulls
+        row(f"boundedme_eps{eps}", bme)
+    for a, b in PAPER_LSH:
+        index = build_lsh(Vd, a=a, b=b, seed=1)
+        row(f"lsh_a{a}_b{b}", lambda i: (
+            (r := lsh_mips(index, qs[i], PAPER_K)).topk, r.query_multiplies))
+    gidx = build_greedy(Vd)
+    for budget in PAPER_BUDGETS:
+        row(f"greedy_B{budget}", lambda i: (
+            (r := greedy_mips(gidx, qs[i], PAPER_K, budget=budget)).topk,
+            r.query_multiplies))
+    tree = build_pca_tree(Vd, depth=8)
+    for spill in PAPER_SPILLS:
+        row(f"pca_spill{spill}", lambda i: (
+            (r := pca_mips(tree, qs[i], PAPER_K, spill=spill)).topk,
+            r.query_multiplies))
+    naive = V.shape[0] * V.shape[1]
+    for name, r in rows.items():
+        r["speedup"] = float(np.mean([naive / max(1, c)
+                                      for _, c in r["recs"]]))
+        r["precision"] = float(np.mean([
+            len(set(ids) & set(t)) / PAPER_K
+            for (ids, _), t in zip(r["recs"], truth)]))
+    return {"rows": rows, "components": tree.components.cpu(),
+            "leaves": paper_leaves(tree)}
+
+
+def paper_leaves(tree) -> set:
+    """A PCA tree's leaves as sets of row ids."""
+    out, stack = set(), [tree.root]
+    while stack:
+        node = stack.pop()
+        if node.ids is not None:
+            out.add(frozenset(node.ids.tolist()))
+        else:
+            stack += [node.left, node.right]
+    return out
+
+
+def paper_compare(label: str, card: dict, cpu: dict, V: np.ndarray,
+                  queries) -> dict:
+    """Hold each row of the card's sweep against the CPU's: the same ids
+    and costs per query, but where the two SVDs' trees differ (PCA rows)
+    or the two id sets tie (their exact float64 scores within 1e-5
+    relative, position by position; costs still equal)."""
+    V64 = torch.from_numpy(V).double()
+    same_tree = card["leaves"] == cpu["leaves"]
+    ties, svd = [], []
+    for name, c in card["rows"].items():
+        p = cpu["rows"][name]
+        if c["recs"] == p["recs"]:
+            continue
+        if name.startswith("pca"):
+            check(not same_tree, f"paper {label} {name}: card {c['recs']} "
+                  f"vs cpu {p['recs']} on equal trees")
+            svd.append(name)
+            continue
+        for i, ((ids_c, cost_c), (ids_p, cost_p)) in enumerate(
+                zip(c["recs"], p["recs"])):
+            check(cost_c == cost_p, f"paper {label} {name} query {i}: cost "
+                  f"{cost_c} on the card vs {cost_p} on the CPU")
+            q64 = torch.from_numpy(queries[i]).double()
+            sc, sp = V64[ids_c] @ q64, V64[ids_p] @ q64
+            check(len(ids_c) == len(ids_p) and torch.allclose(
+                sc, sp, rtol=1e-5, atol=0.0),
+                  f"paper {label} {name} query {i}: ids {ids_c} (exact "
+                  f"{sc.tolist()}) vs {ids_p} ({sp.tolist()})")
+        ties.append(name)
+    flips = int((card["components"].double() * cpu["components"].double()
+                 ).sum(dim=1).lt(0).sum())
+    for name, c in card["rows"].items():
+        say(f"paper {label} {name}: speedup {c['speedup']:.6g} precision "
+            f"{c['precision']:.6g} (cpu {cpu['rows'][name]['speedup']:.6g}"
+            f" / {cpu['rows'][name]['precision']:.6g}) {c['ms']:.3f} ms "
+            f"per call on the card")
+    wins = {}
+    for level in (1.0, 0.8, 0.6):
+        best = max(((c["speedup"], n) for n, c in card["rows"].items()
+                    if c["precision"] >= level - 1e-9), default=None)
+        wins[level] = best and {"method": best[1], "speedup": best[0]}
+    out = {"tie_rows": ties, "svd_rows": svd, "sign_flips": flips,
+           "same_tree": same_tree, "wins": wins,
+           "rows": {n: {k: c[k] for k in ("speedup", "precision", "ms")}
+                    for n, c in card["rows"].items()}}
+    say(f"paper {label}: {len(ties)} tie rows {ties}, {len(svd)} PCA rows "
+        f"off the CPU's tree {svd} ({flips} of the 8 components' signs "
+        f"flipped, leaves equal: {same_tree}); fastest at precision >= "
+        f"level: {json.dumps(wins)}")
+    return out
+
+
+def table1_run() -> dict:
+    """Table 1's rows: the baselines' preprocessing on the card against
+    BoundedME's none, and BoundedSE against BoundedME pull counts, which
+    must equal the CPU's."""
+    from repro_torch.baselines import build_greedy, build_lsh, build_pca_tree
+    from repro_torch.core.bounded_se import bounded_se
+    from repro_torch.core.boundedme import bounded_me
+    from repro_torch.data.synthetic import (adversarial_dataset,
+                                            gaussian_dataset)
+
+    V = torch.from_numpy(gaussian_dataset(*TABLE1_SHAPE, seed=0)[0]).to(DEV)
+    builds = {"lsh": lambda: build_lsh(V, a=8, b=16),
+              "greedy": lambda: build_greedy(V),
+              "pca": lambda: build_pca_tree(V, depth=6)}
+    secs = {"boundedme": 0.0}
+    for name, build in builds.items():
+        build()                                   # warm-up
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        secs[name] = statistics.median(ts)
+    rng = np.random.default_rng(0)
+    means = np.full(400, 0.3)
+    means[0] = 0.7
+    R_easy = (rng.uniform(0, 1, (400, 4000)) < means[:, None]).astype(
+        np.float32)
+    R_adv = rng.permuted(adversarial_dataset(400, 4000, seed=9), axis=1)
+    pulls = {}
+    for tag, R in (("easy", R_easy), ("adversarial", R_adv)):
+        got = {}
+        for dev in (DEV, "cpu"):
+            me = bounded_me(R, K=1, eps=0.05, delta=0.1, device=dev)
+            se = bounded_se(R, K=1, eps=0.05, delta=0.1, device=dev)
+            got[dev] = (me.total_pulls, se.total_pulls, me.topk.tolist(),
+                        se.topk.tolist())
+        check(got[DEV] == got["cpu"], f"table1 boundedse_{tag}: card "
+              f"{got[DEV]} vs cpu {got['cpu']}")
+        me_p, se_p = got[DEV][:2]
+        pulls[tag] = {"me_pulls": me_p, "se_pulls": se_p,
+                      "se_speedup": me_p / max(1, se_p)}
+    out = {"preprocessing_s": secs, "boundedse": pulls}
+    say("paper table1: " + json.dumps(out))
+    return out
+
+
+def phase_paper() -> dict:
+    """Phase 12: the paper's algorithms and baselines on the card (plain
+    PyTorch ops: no kernel of the port runs here)."""
+    from repro_torch.kernels import ops as kops
+
+    t0 = time.perf_counter()
+    kops.reset_launch_counts()
+    out = {"fig1": fig1_run(), "figs": {}}
+    for label, V, queries in paper_datasets():
+        card, cpu = (paper_sweep(V, queries, dev) for dev in (DEV, "cpu"))
+        out["figs"][label] = paper_compare(label, card, cpu, V, queries)
+    out["table1"] = table1_run()
+    launched = sum(kops.launch_counts().values())
+    check(launched == 0, f"paper: {launched} kernel launches")
+    out["seconds"] = time.perf_counter() - t0
+    say(f"paper: all rows held in {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
                    lib, decode, sharded) -> list:
     """The ``kernels`` line: one entry per kernel and tier.  The batched
@@ -2924,6 +3249,8 @@ def main() -> int:
                                             DEV)
         sharded = phase_sharded(table, n_valid, served, kern)
         del table
+        torch.cuda.empty_cache()
+        phase_paper()
         torch.cuda.empty_cache()
         say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:

@@ -29,8 +29,9 @@ its own rows in every dispatch.  The port quantizes once per store
 version instead: `shard_operands` keeps each shard's codes at every
 geometry an executor serves (shared by a runtime's rungs), and
 `flush_updates` rebuilds them, so no dispatch quantizes.  They are
-bitwise a fresh quantization of each shard's current rows, and
-`resident_bytes` counts them, as a `DynamicTableStore`'s shadow.  A
+bitwise a fresh quantization of each shard's current rows.
+`device_bytes` counts them; `resident_bytes`, the tenancy budget's unit,
+does not, as the JAX store's counts only its f32 capacity buffer.  A
 sharded table is never paged (tenancy pins it).
 """
 
@@ -363,29 +364,28 @@ class ShardedTableStore:
         return (self._host[live].copy(), self._slot_ids[live].copy(),
                 self._n_live.copy())
 
-    def _cached(self, quantized_only: bool):
+    def _cached(self):
         for _, _, (shards, quant) in self._operands.values():
-            if not quantized_only and shards[0] is not self._V4[0]:
+            if shards[0] is not self._V4[0]:
                 yield from shards                  # a re-laid copy
             for art in quant or ():
                 yield from art
 
     def resident_bytes(self) -> int:
         """Device bytes this table pins, summed over shards, in the JAX
-        package's unit: the (capacity_rows, N) f32 capacity buffer, plus
-        (as a `DynamicTableStore`'s shadow) the quantized shards of
-        `shard_operands`.  The tenancy registry counts them against its
-        budget but never pages a sharded table.  `device_bytes` is what
-        the store really holds."""
-        return self.capacity_rows * self.N * 4 + sum(
-            t.numel() * t.element_size() for t in self._cached(True))
+        package's unit: the (capacity_rows, N) f32 capacity buffer alone
+        (the JAX store quantizes per dispatch and keeps no codes).  The
+        tenancy registry counts them against its budget but never pages
+        a sharded table.  `device_bytes` is what the store really holds,
+        the cached quantized shards of `shard_operands` included."""
+        return self.capacity_rows * self.N * 4
 
     def device_bytes(self) -> int:
         """Bytes the store really holds on its devices: the tiled shards
         (columns zero-padded to whole blocks) and every cached
         `shard_operands` copy."""
         return sum(t.numel() * t.element_size()
-                   for t in (*self._V4, *self._cached(False)))
+                   for t in (*self._V4, *self._cached()))
 
     # ---- write side (staged) --------------------------------------------
 

@@ -511,7 +511,15 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch/models/layers.py", "repro_torch/models/model.py",
             "repro_torch/models/steps.py",
             "repro_torch/configs/tinyllama_1_1b.py",
-            "repro_torch/configs/qwen2_5_3b.py"} <= names
+            "repro_torch/configs/qwen2_5_3b.py",
+            "repro_torch/core/boundedme.py",
+            "repro_torch/core/median_elim.py",
+            "repro_torch/core/bounded_se.py",
+            "repro_torch/baselines/__init__.py",
+            "repro_torch/baselines/exact.py",
+            "repro_torch/baselines/lsh_mips.py",
+            "repro_torch/baselines/pca_mips.py",
+            "repro_torch/baselines/greedy_mips.py"} <= names
     files.append(ROOT / "chip_smoke.py")
     for f in files:
         for mod in _imported_modules(f):

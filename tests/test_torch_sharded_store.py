@@ -171,8 +171,9 @@ def test_executor_reads_the_store_in_place(precision):
     shards (the fp32 shards read in place; a quantized tier's codes kept
     by the store at the plan's geometry, one copy per version shared by
     every executor there, rebuilt by each flush, bitwise a fresh
-    quantization of each shard's rows and counted in
-    ``resident_bytes``), with the store's per-shard live counts."""
+    quantization of each shard's rows and counted in ``device_bytes``,
+    not in ``resident_bytes``, the JAX unit), with the store's per-shard
+    live counts."""
     mesh = Mesh(["cpu"] * 2)
     st = ShardedTableStore(_rows(120, seed=1), mesh=mesh, block=64)
     table_bytes = st.capacity_rows * DIM * 4
@@ -200,7 +201,7 @@ def test_executor_reads_the_store_in_place(precision):
         fresh(quant)
         codes = sum(t.numel() * t.element_size() for art in quant
                     for t in art)
-        assert st.resident_bytes() == table_bytes + codes
+        assert st.resident_bytes() == table_bytes
         assert st.device_bytes() == st.capacity_rows * 128 * 4 + codes
     np.testing.assert_array_equal(nv, st.n_valid_vector())
     st.delete(0)
@@ -220,6 +221,34 @@ def test_executor_reads_the_store_in_place(precision):
     np.testing.assert_array_equal(scores, want[1].numpy())
     live = set(np.flatnonzero(st.live_mask()).tolist())
     assert set(ids.ravel().tolist()) <= live
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8", "int4", "pq"])
+@pytest.mark.parametrize("S,n0,dim", [(2, 61, DIM), (3, 100, 128)])
+def test_resident_bytes_side_by_side(jax_store, precision, S, n0, dim):
+    """``resident_bytes`` equals the JAX store's (its f32 capacity
+    buffer) before and after an executor of any tier caches the shards'
+    codes, and after a flush grows nothing; `device_bytes` holds what
+    the port keeps besides."""
+    rows = _rows(n0, seed=S, dim=dim)
+    jst = jax_store(rows, S, block=64)
+    tst = ShardedTableStore(rows, mesh=Mesh(["cpu"] * S), block=64)
+    assert tst.resident_bytes() == jst.resident_bytes()
+    ex = CascadeExecutor(tst, K=2, eps=0.5, precision=precision,
+                         device="cpu",
+                         quant_err=1e-3 if precision == "pq" else None)
+    quant = ex.shard_operands()[1]
+    codes = sum(t.numel() * t.element_size() for art in quant or ()
+                for t in art)
+    assert (codes > 0) == (precision != "fp32")
+    assert tst.resident_bytes() == jst.resident_bytes()
+    assert tst.device_bytes() == sum(
+        t.numel() * 4 for t in tst.tiled_shards()) + codes
+    for st in (jst, tst):
+        st.delete(int(st.live_ids()[0]))
+        st.flush_updates()
+    ex.shard_operands()
+    assert tst.resident_bytes() == jst.resident_bytes()
 
 
 def test_coord_executors_share_one_relaid_copy():

@@ -32,20 +32,24 @@ pages in by laying its host mirror out again (`DynamicTableStore.
 page_out` / `page_in`); the buffers after a round trip are bytewise the
 buffers before it, and a JAX ``page_state`` image loads into the port's
 registry through `store_from_jax`.  ``resident_bytes`` of both packages
-are stated side by side: equal where the feature axis fills whole
-blocks, the port's larger by its zero-padded columns where it does not
-(ROADMAP.md queue 3).  ``test_sharded_tenant_two_devices`` is not
-mirrored: sharding is ROADMAP.md queue 1 item 6, and ``mesh=`` is
-refused.
+are held equal side by side, in the JAX package's unit, whether or not
+the feature axis fills whole blocks: the port's zero-padded columns, and
+the codes a quantized sharded store caches, count in ``device_bytes``
+only.  ``register(..., mesh=)`` builds a pinned sharded tenant, as in
+the JAX package: held on a mesh of CPU devices, and beside two paging
+tenants against the JAX registry, whose sharded store's device write is
+stubbed as in ``tests/test_torch_sharded_store.py``.
 """
 
 import json
+from types import SimpleNamespace
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import repro.store.sharded_table as jax_sharded
 from repro.launch.admission import DeficitRoundRobin as JaxDRR
 from repro.launch.engine import CascadeExecutor as JaxExecutor
 from repro.launch.faults import FaultInjector as JaxInjector
@@ -650,6 +654,62 @@ class TestResidency:
         assert (extra == 0) == (dim % block == 0)
         tst.page_out()
         assert tst.resident_bytes() == tst.device_bytes() == 0
+
+    @pytest.mark.parametrize("precision", ["int8", "int4"])
+    def test_lru_beside_a_pinned_quantized_sharded_tenant(
+            self, precision, monkeypatch):
+        """A pinned quantized sharded tenant beside two paging tenants
+        under a budget of it plus one table and a fifth: both registries
+        evict the same tables in the same order.  The JAX registry's
+        sharded store keeps its host bookkeeping, its device write
+        stubbed (``tests/test_torch_sharded_store.py``); only the port
+        serves the sharded tenant, whose executors cache the shards'
+        codes, which its budget does not charge (the JAX unit)."""
+        monkeypatch.setattr(jax_sharded, "serving_table_sharding",
+                            lambda mesh, axis="model": None)
+        monkeypatch.setattr(jax_sharded.ShardedTableStore, "_dev_write",
+                            lambda self, row, slot: None)
+        one = DynamicTableStore(_table(64, 0), device="cpu").resident_bytes()
+        kw = dict(K=2, eps=2.0)
+        sharded = _table(64, 1)
+        jreg = JaxRegistry(byte_budget=1, lanes=LANES, warm_on_build=False)
+        treg = TableRegistry(byte_budget=1, lanes=LANES,
+                             warm_on_build=False, device="cpu")
+        s_bytes = ShardedTableStore(sharded,
+                                    mesh=Mesh(["cpu"] * 2)).resident_bytes()
+        for reg in (jreg, treg):
+            reg.byte_budget = s_bytes + int(1.2 * one)
+        jreg.register("s", sharded, JaxConfig(precision=precision, **kw),
+                      mesh=SimpleNamespace(shape={"model": 2}))
+        treg.register("s", sharded, TenantConfig(precision=precision, **kw),
+                      mesh=Mesh(["cpu"] * 2))
+        store = treg.store("s")
+        assert treg.table_bytes("s") == jreg.table_bytes("s") == s_bytes
+        log = {"jax": [], "port": []}
+        script = ["+a", "+b", "s", "a", "b", "a", "s", "a", "b", "b", "a"]
+        for op in script:
+            for reg, key in ((jreg, "jax"), (treg, "port")):
+                if op == "s":
+                    if reg is treg:      # the port builds the shards' codes
+                        reg.executors("s")
+                        assert store.device_bytes() > s_bytes
+                    continue
+                if op.startswith("+"):
+                    reg.register(op[1], _table(64, ord(op[1])),
+                                 (JaxConfig if reg is jreg
+                                  else TenantConfig)(**kw))
+                else:
+                    reg.executors(op)
+                assert reg.resident_bytes() <= reg.byte_budget
+                log[key].append((op, [reg.is_resident(n)
+                                      for n in reg.tenants()],
+                                 reg.lru_order()))
+        assert log["port"] == log["jax"]
+        assert treg.table_bytes("s") == jreg.table_bytes("s") == s_bytes
+        for key in ("evictions", "page_ins", "resident_bytes", "tables",
+                    "tables_resident"):
+            assert treg.stats()[key] == jreg.stats()[key], key
+        assert treg.stats()["evictions"] == 6
 
     def test_mesh_registers_a_pinned_sharded_tenant(self):
         """``register(..., mesh=)`` builds a `ShardedTableStore` (formerly
