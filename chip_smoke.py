@@ -227,10 +227,28 @@ Phases, one line each (any failure exits non-zero before the result):
    GREEDY and PCA builds at (1000, 4096) timed on the card against
    BoundedME's zero preprocessing, and BoundedSE against BoundedME pull
    counts, equal to the CPU's;
-13. a ``kernels`` JSON line, one entry per kernel and tier (the batched
-   cascade's launches are the serve, runtime, store, tenancy, decode and
-   sharded phases'; its ``[bf16]`` entry times the decode head), and
-   last the ``ok`` JSON line.
+13. families — the decode demo of every other family at full width in
+   bf16, each with the bandit head (eps = delta = 0.1, after a 2-token
+   warm-up on the same model) and the exact head on the same model and
+   prompts (4 prompts): qwen3-moe-30b-a3b at all 48 layers (61.1 GB, 16
+   prompt tokens, 32 greedy tokens), then 16 tokens each of mamba2-130m
+   and whisper-medium whole, and jamba-v0.1-52b, grok-1-314b,
+   internvl2-26b (``--prompt-len 272``, past its 256 patches) and
+   command-r-35b cut in depth as `FAMILY_RUNS` lists with each cut's
+   reason (the card's 80 GB, the run's time).  Per arch, launches of
+   ``fused_cascade_batched[bf16]`` must equal the decode steps, every
+   step's launch is held against the plain version as in phase 10, and
+   for qwen3-moe step 0 must be bitwise the fp32 launch on the widened
+   table.  Prints the token agreement with exact decode, prefill and
+   per-token ms of both heads, weights GB, peak memory, and the head
+   kernel's ms against its bound, the plain version and ``torch.matmul``
+   + ``torch.topk``.  Then qwen3-moe at full width with 2 layers in fp32
+   on the card and on the CPU, same weights: equal next tokens, hidden
+   states within rtol 1e-4;
+14. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+   cascade's launches are the serve, runtime, store, tenancy, decode,
+   sharded and families phases'; its ``[bf16]`` entry times the decode
+   head), and last the ``ok`` JSON line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
 near-tie, counted and printed — every differing candidate's exact float64
@@ -337,6 +355,21 @@ TENANCY_STREAMS = [("0.1", False), ("5", True)]
 TENANCY_BURST = 64
 #: the tenant whose dispatches are replayed through a dedicated runtime
 TENANCY_REPLAY = "vocab"
+
+
+#: phase 13: (arch, layers kept or None for all, prompt tokens, decode
+#: tokens, why the depth is cut)
+FAMILY_RUNS = [
+    ("qwen3-moe-30b-a3b", None, 16, 32, None),
+    ("mamba2-130m", None, 16, 16, None),
+    ("whisper-medium", None, 16, 16, None),
+    ("jamba-v0.1-52b", 8, 16, 16, "one period of 8 layers, 26.5 GB: all "
+     "32 layers are 102.9 GB, past the card's 80 GB"),
+    ("grok-1-314b", 2, 16, 16, "2 of 64 layers, 22.9 GB: all are 633 GB"),
+    ("internvl2-26b", 4, 272, 16, "4 of 48 layers, 5.4 GB: all 48 (39.8 "
+     "GB) would fit, but cost the run's time"),
+    ("command-r-35b", 2, 16, 16, "2 of 40 layers, 11.2 GB and its 4.2 GB "
+     "tile copy: all are 64.8 GB, and the run's time")]
 
 
 class SmokeFailure(Exception):
@@ -512,31 +545,45 @@ def tier_plan(table, n_valid, precision, bound, mode):
     return make_plan(n, N, **kw)
 
 
-def kernel_bound(plan, ops, kw, cells, n_pulls) -> dict:
+def kernel_bound(plan, ops, kw, pulled, n_pulls) -> dict:
     """Least time for the work of one launch: each input read once (the
-    union of pulled table cells at the tier's stored bytes, their scales
-    or the codebook, the queries and schedule operands), each output
-    written once; and the pull operations at the card's peak rate for
-    their type."""
+    union of pulled table cells, ``pulled (n_tiles, n_blocks)``, at the
+    tier's stored bytes for the block's valid columns, their scales or the
+    codebook, the queries and schedule operands), each output written
+    once; and the pull operations over the pulled blocks' valid columns
+    at the card's peak rate for their type.  A ragged last block (``N``
+    not a multiple of ``C``) counts only its ``N - b * C`` columns."""
+    from repro_torch.core.schedule import PULL_BIT
     R, C = plan.tile, plan.block
     table, Qb, slotcode, rmeta, cols = ops
     nq = Qb.shape[0] if Qb.dim() == 3 else 1
     if cols.dim() == 2 and cols.stride(0) == 0:
         cols = cols[0]             # one row, read once
-    nbytes = (cells * R * table.shape[3] * table.element_size()
+    width = torch.clamp(plan.N - C * torch.arange(plan.n_blocks,
+                                                  device=pulled.device),
+                        max=C).double() / C       # valid share per block
+    cells = int(pulled.sum())
+    valid_cells = float((pulled.sum(0).double() * width).sum())
+    # the pull steps' blocks, per query: their mean valid share
+    steps = (slotcode & PULL_BIT) != 0
+    step_cols = cols[..., steps.to(cols.device)].long()
+    pull_share = (float(width.to(cols.device)[step_cols].mean())
+                  if step_cols.numel() else 1.0)
+    nbytes = (valid_cells * R * table.shape[3] * table.element_size()
               + sum(t.numel() * t.element_size()
                     for t in (Qb, slotcode, rmeta, cols))
               + nq * K * 8)
     if plan.precision in ("int8", "int4"):
         nbytes += cells * 4 + kw["qscale"].numel() * 4
-        t_ops = 2 * n_pulls * R * C / INT8_OPS_PER_S
+        t_ops = 2 * n_pulls * R * C * pull_share / INT8_OPS_PER_S
     elif plan.precision == "pq":
         cb = kw["codebook"]
         nbytes += cb.numel() * 4
         lut_flops = 2 * nq * cb.numel()
-        t_ops = (lut_flops + n_pulls * R * table.shape[3]) / FP32_FLOPS_PER_S
+        t_ops = ((lut_flops + n_pulls * R * table.shape[3] * pull_share)
+                 / FP32_FLOPS_PER_S)
     else:
-        t_ops = 2 * n_pulls * R * C / FP32_FLOPS_PER_S
+        t_ops = 2 * n_pulls * R * C * pull_share / FP32_FLOPS_PER_S
     if "cert" in kw:
         nbytes += kw["cert"].numel() * 4 + nq * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -633,7 +680,7 @@ def phase_kernel(table, table32, n_valid) -> dict:
                 errs.append(r["max_abs_err"])
                 ties += r["near_tie_queries"]
                 if k_out == K:
-                    cells = int(pulled.sum())
+                    cells = pulled
                     rounds = got[2].tolist() if adaptive else None
                     # the same launch with per-query cols, bit for bit
                     own = (*ops[:4], ops[4].contiguous())
@@ -668,7 +715,7 @@ def phase_kernel(table, table32, n_valid) -> dict:
                 "quant_err": plan.quant_err,
                 "eps_effective": plan.eps_effective,
                 "speedup": plan.schedule.speedup, "pulls": n_pulls,
-                "union_cells": cells, **bound_info,
+                "union_cells": int(cells.sum()), **bound_info,
                 "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "max_abs_err": max(errs),
                 "near_tie_queries": ties, **split,
@@ -699,8 +746,7 @@ def phase_kernel(table, table32, n_valid) -> dict:
                         what=f"single {tag} {mode}")
             rounds1 = [int(got[2])] if adaptive else None
             n_pulls = (int(through[rounds1[0]]) if adaptive else steps)
-            bound_info = kernel_bound(plan, sops, skw, int(pulled.sum()),
-                                      n_pulls)
+            bound_info = kernel_bound(plan, sops, skw, pulled, n_pulls)
             kernel1_ms = time_cuda(lambda: fused_cascade_cuda(
                 *sops, n_valid=n_valid, **skw), 10, 2)
             res1 = {"pulls": n_pulls, "union_cells": int(pulled.sum()),
@@ -2074,12 +2120,12 @@ def hold_head_steps(what: str, calls, cfg, table) -> dict:
             "near_tie_queries": ties, "max_gap_mean_product": gap}
 
 
-def decode_args(arch: str, mips: str, tokens: int = 32):
+def decode_args(arch: str, mips: str, tokens: int = 32, prompt: int = 16):
     from repro_torch.launch import serve
     return serve.parse_args(["--arch", arch, "--mips", mips, "--eps",
                              str(EPS), "--delta", str(DELTA), "--batch",
-                             str(B), "--prompt-len", "16", "--tokens",
-                             str(tokens), "--device", DEV])
+                             str(B), "--prompt-len", str(prompt),
+                             "--tokens", str(tokens), "--device", DEV])
 
 
 def phase_decode() -> dict:
@@ -2087,10 +2133,8 @@ def phase_decode() -> dict:
     card: qwen1.5-0.5b at full width and depth in bf16 with the bandit
     head and with the exact head, tinyllama-1.1b at full width and 2
     layers, and the model on the card against the model on the CPU."""
-    from repro_torch.core.schedule import PULL_BIT
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.fused_cascade import fused_cascade_batched_cuda
-    from repro_torch.kernels.ref import fused_cascade_batched_ref
     from repro_torch.launch import serve
     from repro_torch.models.model import DenseLM, masked_logits
     from repro_torch.models.steps import prefill_step
@@ -2119,28 +2163,13 @@ def phase_decode() -> dict:
     exact = serve.run_decode_demo(decode_args("qwen1.5-0.5b", "exact"),
                                   model=model)
     agree = float((res["tokens"] == exact["tokens"]).mean())
-    # the head's launch alone, on step 0's operands, and bitwise the fp32
-    # launch on its tiled table widened to f32
-    head, hid, perm, _ = calls[0]
-    plan = head.plan
-    ops, kw = cascade_operands(plan, head.V4, hid.float(), perm)
-    kw["n_valid"] = cfg.vocab
+    # the head's launch alone, on step 0's operands, bitwise the fp32
+    # launch on its tiled table widened to f32, and against that launch
+    # in turns, the order swapped each pair
+    head = calls[0][0]
+    out["head"] = head_launch(calls, cfg, table, widened=True)
+    ops, kw = head_operands(calls, cfg)
     wide_ops = (ops[0].float(), *ops[1:])
-    got = fused_cascade_batched_cuda(*ops, **kw)
-    wide = fused_cascade_batched_cuda(*wide_ops, **kw)
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(got, wide)),
-          "decode: the bf16 launch is not bitwise the fp32 launch on the "
-          "widened table")
-    pulled = torch.zeros((plan.n_tiles, plan.n_blocks), dtype=torch.bool,
-                         device=DEV)
-    fused_cascade_batched_ref(*ops, pulled=pulled, **kw)
-    n_pulls = int(((ops[2].cpu() & PULL_BIT) != 0).sum()) * B
-    bound = kernel_bound(plan, ops, kw, int(pulled.sum()), n_pulls)
-    kernel_ms = time_cuda(lambda: fused_cascade_batched_cuda(*ops, **kw),
-                          10, 2)
-    # the bf16 launch against the fp32 launch on the widened table, in
-    # turns, the order swapped each pair
     pairs = []
     for i in range(6):
         t = {}
@@ -2148,23 +2177,14 @@ def phase_decode() -> dict:
             t[tag] = time_cuda(lambda: fused_cascade_batched_cuda(*o, **kw),
                                10, 2)
         pairs.append(t)
-    pad = torch.arange(table.shape[0], device=DEV) >= cfg.vocab
-
-    def library():
-        s = (hid @ table.T).masked_fill_(pad, -torch.inf)
-        return torch.topk(s, 1, dim=1)
-    out["head"] = {
-        "launches": launches, **bound, "kernel_ms": kernel_ms,
-        **pull_split(fused_cascade_batched_cuda, ops, kernel_ms, **kw),
-        "plain_ms": time_cuda(lambda: fused_cascade_batched_ref(*ops, **kw),
-                              3, 1),
-        "library_ms": time_cuda(library, 10, 2),
-        "rounds": len(plan.schedule.rounds), "S": ops[2].numel(),
-        "speedup": plan.schedule.speedup, "bitwise_fp32_widened": True,
-        "max_abs_err": held["max_abs_err"],
-        "bf16_ms_pairs": [p["bf16"] for p in pairs],
-        "fp32_widened_ms_pairs": [p["fp32"] for p in pairs],
-        "pairs_bf16_faster": sum(p["bf16"] < p["fp32"] for p in pairs)}
+    out["head"].update(
+        launches=launches, S=ops[2].numel(),
+        **pull_split(fused_cascade_batched_cuda, ops,
+                     out["head"]["kernel_ms"], **kw),
+        max_abs_err=held["max_abs_err"],
+        bf16_ms_pairs=[p["bf16"] for p in pairs],
+        fp32_widened_ms_pairs=[p["fp32"] for p in pairs],
+        pairs_bf16_faster=sum(p["bf16"] < p["fp32"] for p in pairs))
     say("decode head: " + json.dumps(out["head"]))
     out["qwen1.5-0.5b"] = {
         **held, "launches": launches, "token_agreement_with_exact": agree,
@@ -2178,7 +2198,7 @@ def phase_decode() -> dict:
         "mem_before_gb": base_gb,
         "peak_added_gb": torch.cuda.max_memory_allocated() / 1e9 - base_gb}
     say("decode qwen1.5-0.5b: " + json.dumps(out["qwen1.5-0.5b"]))
-    del model, warm, res, exact, calls, head, hid, ops, got, wide, pulled
+    del model, warm, res, exact, calls, head, ops, wide_ops
     torch.cuda.empty_cache()
 
     # tinyllama-1.1b at full width (GQA 32/4, untied 32,000-row
@@ -2231,6 +2251,169 @@ def phase_decode() -> dict:
                           "hidden_max_abs_err": err, "hidden_max": scale,
                           "rtol": CARD_CPU_RTOL}
     say("decode card vs cpu: " + json.dumps(out["card_vs_cpu"]))
+    return out
+
+
+def head_operands(calls, cfg):
+    """The fused cascade's operands and keywords of the first recorded
+    decode step's head launch (the hidden states zero-padded to the
+    plan's blocks, as `decode_tiled` pads them)."""
+    head, hid, perm, _ = calls[0]
+    plan = head.plan
+    Q = torch.nn.functional.pad(hid.float(),
+                                (0, plan.n_blocks * plan.block - plan.N))
+    ops, kw = cascade_operands(plan, head.V4, Q, perm)
+    kw["n_valid"] = cfg.vocab
+    return ops, kw
+
+
+def head_launch(calls, cfg, table, *, widened: bool) -> dict:
+    """The head's launch alone on step 0's operands: its ms (CUDA events)
+    against its bound, the plain version and ``torch.matmul`` +
+    ``torch.topk`` on the same bf16 table; with ``widened``, also bitwise
+    the fp32 launch on the tiled table widened to f32."""
+    from repro_torch.core.schedule import PULL_BIT
+    from repro_torch.kernels.fused_cascade import fused_cascade_batched_cuda
+    from repro_torch.kernels.ref import fused_cascade_batched_ref
+    head, hid, _, _ = calls[0]
+    plan = head.plan
+    ops, kw = head_operands(calls, cfg)
+    if widened:
+        got = fused_cascade_batched_cuda(*ops, **kw)
+        wide = fused_cascade_batched_cuda(ops[0].float(), *ops[1:], **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, wide)),
+              f"{cfg.name}: the bf16 launch is not bitwise the fp32 launch "
+              f"on the widened table")
+        del got, wide
+    pulled = torch.zeros((plan.n_tiles, plan.n_blocks), dtype=torch.bool,
+                         device=DEV)
+    fused_cascade_batched_ref(*ops, pulled=pulled, **kw)
+    n_pulls = int(((ops[2].cpu() & PULL_BIT) != 0).sum()) * hid.shape[0]
+    bound = kernel_bound(plan, ops, kw, pulled, n_pulls)
+    pad = torch.arange(table.shape[0], device=DEV) >= cfg.vocab
+
+    def library():
+        s = (hid @ table.T).masked_fill_(pad, -torch.inf)
+        return torch.topk(s, 1, dim=1)
+    return {
+        **bound, "table": list(table.shape), "n_blocks": plan.n_blocks,
+        "ragged_block": plan.N % plan.block or None,
+        "rounds": len(plan.schedule.rounds), "speedup": plan.schedule.speedup,
+        "kernel_ms": time_cuda(lambda: fused_cascade_batched_cuda(*ops, **kw),
+                               10, 2),
+        "plain_ms": time_cuda(lambda: fused_cascade_batched_ref(*ops, **kw),
+                              3, 1),
+        "library_ms": time_cuda(library, 10, 2),
+        "bitwise_fp32_widened": widened or None}
+
+
+def family_run(arch: str, layers, prompt: int, tokens: int, cut) -> dict:
+    """One arch of phase 13: the bandit and the exact decode demo on one
+    model at full width (depth ``layers``), every head launch held."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    args = decode_args(arch, "boundedme", tokens, prompt)
+    cfg = serve.decode_config(args)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = serve.run_decode_demo(decode_args(arch, "boundedme", 2, prompt),
+                                 cfg=cfg)
+    model, warm_s = warm["model"], time.perf_counter() - t0
+    del warm
+    kops.reset_launch_counts()
+    with recording_heads() as calls:
+        res = serve.run_decode_demo(args, cfg=cfg, model=model)
+    counts = kops.launch_counts()
+    launches = counts["fused_cascade_batched[bf16]"]
+    check(launches == tokens == counts["fused_cascade_batched"]
+          == len(calls),
+          f"{arch}: {launches} fused_cascade_batched[bf16] launches "
+          f"({counts['fused_cascade_batched']} in all, {len(calls)} head "
+          f"calls) for {tokens} decode steps")
+    table = model.head_table
+    check(table.dtype == torch.bfloat16 and calls[0][0].V4.dtype
+          == torch.bfloat16, f"{arch}: the head is not on the bf16 table")
+    held = hold_head_steps(arch, calls, cfg, table)
+    exact = serve.run_decode_demo(
+        decode_args(arch, "exact", tokens, prompt),
+        cfg=dataclasses.replace(cfg, mips_mode="exact"), model=model)
+    head = head_launch(calls, cfg, table,
+                       widened=arch == "qwen3-moe-30b-a3b")
+    out = {
+        **held, "launches": launches, "layers": cfg.n_layers,
+        "cut": cut, "prompt_len": prompt, "tokens": tokens,
+        "token_agreement_with_exact": float(
+            (res["tokens"] == exact["tokens"]).mean()),
+        "prefill_ms": res["prefill_ms"], "ms_per_token": res["ms_per_token"],
+        "exact_prefill_ms": exact["prefill_ms"],
+        "exact_ms_per_token": exact["ms_per_token"],
+        "build_and_warm_s": warm_s,
+        "weights_gb": sum(p.numel() * p.element_size()
+                          for p in model.parameters()) / 1e9,
+        "head_table_gb": calls[0][0].V4.numel()
+        * calls[0][0].V4.element_size() / 1e9,
+        "mem_before_gb": base_gb,
+        "peak_added_gb": torch.cuda.max_memory_allocated() / 1e9 - base_gb,
+        "head": head}
+    say(f"families {arch}: " + json.dumps(out))
+    del model, res, exact, calls, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families() -> dict:
+    """Phase 13: every other family's decode demo at full width on the
+    card (`FAMILY_RUNS`), then qwen3-moe at 2 layers in fp32 on the card
+    against the CPU."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model, masked_logits
+    from repro_torch.models.steps import prefill_step
+    t_phase = time.perf_counter()
+    out = {arch: family_run(arch, layers, prompt, tokens, cut)
+           for arch, layers, prompt, tokens, cut in FAMILY_RUNS}
+
+    # the model on the card against the model on the CPU: qwen3-moe at
+    # full width, 2 layers, fp32 (TF32 off), prefill and a decode step;
+    # the CPU copy is taken tensor by tensor (no second card copy)
+    cfg = dataclasses.replace(serve.decode_config(decode_args(
+        "qwen3-moe-30b-a3b", "exact", 1)), n_layers=2, dtype="float32")
+    card = build_model(cfg, seed=0, device=DEV)
+    host = build_model(cfg, device="meta")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()},
+                         assign=True)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, 16))
+    hidden, nxt = {}, {}
+    for name, m in (("card", card), ("cpu", host)):
+        tok = torch.from_numpy(prompt).to(m.embed.device)
+        _, caches = prefill_step(m, tok, cache_len=17)
+        h, _ = m(tok[:, -1:], caches=caches, pos=16)
+        hidden[name] = h[:, -1].cpu()
+        nxt[name] = torch.argmax(masked_logits(cfg, m.head_table, h[:, -1]),
+                                 -1).cpu()
+    err = float((hidden["card"] - hidden["cpu"]).abs().max())
+    scale = float(hidden["cpu"].abs().max())
+    check(torch.equal(nxt["card"], nxt["cpu"]),
+          f"families card vs cpu: next tokens {nxt['card'].tolist()} vs "
+          f"{nxt['cpu'].tolist()}")
+    check(torch.allclose(hidden["card"], hidden["cpu"], rtol=CARD_CPU_RTOL,
+                         atol=CARD_CPU_RTOL * scale),
+          f"families card vs cpu: hidden states differ by {err:.3g} "
+          f"(max |h| {scale:.3g})")
+    out["card_vs_cpu"] = {"arch": cfg.name, "layers": 2, "dtype": "float32",
+                          "next_tokens_equal": True,
+                          "hidden_max_abs_err": err, "hidden_max": scale,
+                          "rtol": CARD_CPU_RTOL}
+    say("families card vs cpu: " + json.dumps(out["card_vs_cpu"]))
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"families: phase in {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3099,13 +3282,14 @@ def phase_paper() -> dict:
 
 
 def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
-                   lib, decode, sharded) -> list:
+                   lib, decode, sharded, families) -> list:
     """The ``kernels`` line: one entry per kernel and tier.  The batched
     cascade's launches are those of the serve, runtime, store, tenancy,
-    decode and sharded phases (the fp32 tier on the f32 stores and the
-    sharded library call; ``[bf16]`` on the bf16 serving table and model
-    heads; S per sharded dispatch); its bf16 entry's times are the decode
-    head's, on step 0's operands.  Times of a tier are phase 3's, row mode
+    decode, sharded and families phases (the fp32 tier on the f32 stores
+    and the sharded library call; ``[bf16]`` on the bf16 serving table
+    and model heads; S per sharded dispatch); its bf16 entry's times are
+    the decode head's, on step 0's operands, and each family arch's head
+    beside them.  Times of a tier are phase 3's, row mode
     (coord beside them)."""
     none = {"launches": 0, "max_abs_err": 0.0}
     info = {t[0]: t[1:] for t in TIERS}
@@ -3119,6 +3303,7 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
                  "max_abs_err": tenancy["max_abs_err"].get(tag, 0.0)}]
         if tag == "bf16":
             runs += [decode["qwen1.5-0.5b"], decode["tinyllama-1.1b"]]
+            runs += [families[arch] for arch, *_ in FAMILY_RUNS]
         runs.append(sharded["per_tag"].get(tag, none))
         row, coord = kern[(tag, "row")], kern.get((tag, "coord"))
         timed = decode["head"] if tag == "bf16" else row
@@ -3140,6 +3325,12 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
         if tag == "bf16":
             entry.update(serve_ms=row["kernel_ms"],
                          serve_bound_ms=row["bound_ms"])
+            entry["families"] = {
+                arch: {k: families[arch]["head"][k] for k in (
+                    "table", "kernel_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}
+                | {"launches": families[arch]["launches"]}
+                for arch, *_ in FAMILY_RUNS}
         if coord:
             entry.update(coord_ms=coord["kernel_ms"],
                          coord_plain_ms=coord["plain_ms"],
@@ -3252,6 +3443,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_paper()
         torch.cuda.empty_cache()
+        families = phase_families()
         say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -3259,7 +3451,7 @@ def main() -> int:
         return 1
     print(json.dumps({"kernels": kernel_entries(
         kern, single, aux, served, runtime, stored, tenancy, lib, decode,
-        sharded)}), flush=True)
+        sharded, families)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,17 +1,29 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Only the configurations whose models or tables the port serves are
-registered: the dense family (qwen1.5-0.5b, tinyllama-1.1b, qwen2.5-3b).
+Every configuration of the JAX package is registered, in its order: the
+dense family (qwen2.5-3b, qwen1.5-0.5b, command-r-35b, tinyllama-1.1b),
+moe (qwen3-moe-30b-a3b, grok-1-314b), ssm (mamba2-130m), encdec
+(whisper-medium), vlm (internvl2-26b) and hybrid (jamba-v0.1-52b).
 """
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.command_r_35b import CONFIG as _command_r
+from repro_torch.configs.grok_1_314b import CONFIG as _grok1
+from repro_torch.configs.internvl2_26b import CONFIG as _internvl2
+from repro_torch.configs.jamba_v0_1_52b import CONFIG as _jamba
+from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
 from repro_torch.configs.qwen1_5_0_5b import CONFIG as _qwen15_05b
 from repro_torch.configs.qwen2_5_3b import CONFIG as _qwen25_3b
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as _qwen3_moe
 from repro_torch.configs.tinyllama_1_1b import CONFIG as _tinyllama
+from repro_torch.configs.whisper_medium import CONFIG as _whisper
 
 __all__ = ["ArchConfig", "REGISTRY", "get_config"]
 
-REGISTRY = {c.name: c for c in (_qwen25_3b, _qwen15_05b, _tinyllama)}
+REGISTRY = {c.name: c for c in (
+    _qwen3_moe, _grok1, _qwen25_3b, _qwen15_05b, _command_r,
+    _tinyllama, _mamba2, _whisper, _internvl2, _jamba,
+)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -3,9 +3,8 @@
 One frozen dataclass describes an architecture; the per-arch modules in
 this package instantiate it with the exact published numbers.  The
 serving loop reads the vocab table's ``d_model``, ``vocab``,
-``padded_vocab``, ``tie_embeddings`` and ``dtype``; the dense model
-(`repro_torch.models`) also ``n_layers``, ``n_heads``, ``n_kv_heads``,
-``head_dim``, ``d_ff``, ``qkv_bias``, ``norm``, ``rope_theta`` and the
+``padded_vocab``, ``tie_embeddings`` and ``dtype``; the models
+(`repro_torch.models`) every width, depth and family field and the
 ``mips_*`` head settings.  ``smoke()`` derives the reduced config used by
 CPU tests.
 """

@@ -6,11 +6,12 @@ The JAX package serves the tied embedding (or the unembedding) of
 in the model's type (bf16 at full width, f32 in smoke configs) whose rows
 past ``vocab`` are padding, masked by ``n_valid = vocab``.
 `serving_table_from_jax` carries such parameters (as numpy arrays) into
-the port, and `params_from_jax` a dense model's whole parameter set into
-a `repro_torch.models.model.DenseLM`; `make_serving_table` builds a
-table of the same shape, type and distribution, N(0, 0.02) rounded to
-the config's type, without the model zoo (torch cannot reproduce
-``jax.random``, so its values differ from the JAX package's).
+the port, and `params_from_jax` a whole model's parameter set, of any
+family, into the `repro_torch.models.model.build_model` of its config;
+`make_serving_table` builds a table of the same shape, type and
+distribution, N(0, 0.02) rounded to the config's type, without the
+model zoo (torch cannot reproduce ``jax.random``, so its values differ
+from the JAX package's).
 `quantized_from_jax` carries the JAX package's quantized table artifacts
 (int8/int4 codes and scales, pq codes and codebook) into the port, for
 ``quantized=`` of `bounded_me_decode` and `CascadeExecutor`.
@@ -20,14 +21,14 @@ the config's type, without the model zoo (torch cannot reproduce
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple
+from typing import Iterator, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.boundedme_torch import as_kept
-from repro_torch.models.model import EMBED_STD, DenseLM
+from repro_torch.models.model import EMBED_STD, LM, build_model
 from repro_torch.store import DynamicTableStore
 
 __all__ = ["tensor_from_jax", "serving_table_from_jax", "make_serving_table",
@@ -79,24 +80,48 @@ def make_serving_table(cfg: ArchConfig, seed: int = 0, device="cuda"
             cfg.vocab)
 
 
+def _unstacked(pattern: str, stack: np.ndarray
+               ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(name, tensor)`` of each slice of ``stack`` over its leading axes,
+    one per ``{}`` of ``pattern`` (``"periods.{}.moe.{}.w_up"``)."""
+    stack = tensor_from_jax(stack)
+    lead = pattern.count("{}")
+    for idx in np.ndindex(*stack.shape[:lead]):
+        yield pattern.format(*idx), stack[idx].contiguous()
+
+
+def _port_params(params_np: Mapping) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The JAX package's parameter tree under the port's names: the layer
+    stacks ``layers`` / ``enc_layers`` (one leading axis) and the hybrid
+    ``periods`` (a period axis, then the period's own stack but for
+    ``attn``) unstacked; top-level arrays as they are."""
+    for key, val in params_np.items():
+        if key in ("layers", "enc_layers"):
+            for name, stack in val.items():
+                yield from _unstacked(f"{key}.{{}}.{name}", stack)
+        elif key == "periods":
+            for group, sub in val.items():
+                inner = "" if group == "attn" else "{}."
+                for name, stack in sub.items():
+                    yield from _unstacked(
+                        f"periods.{{}}.{group}.{inner}{name}", stack)
+        else:
+            yield key, tensor_from_jax(val)
+
+
 def params_from_jax(params_np: Mapping, cfg: ArchConfig, device="cpu"
-                    ) -> DenseLM:
-    """A `DenseLM` on ``device`` holding the JAX package's dense-model
-    parameters (``init_params(cfg, key)``, each array converted to numpy,
-    ``"layers"`` a mapping of layer-stacked arrays).  Every tensor keeps
-    its type and value; layer ``i`` takes slice ``i`` of each stack.
-    Missing, extra or misshapen parameters raise."""
-    model = DenseLM(cfg, device="meta")
+                    ) -> LM:
+    """The `build_model` of ``cfg`` on ``device`` holding the JAX
+    package's parameters (``init_params(cfg, key)``, each array converted
+    to numpy, as nested mappings): layer ``i`` takes slice ``i`` of each
+    ``layers`` / ``enc_layers`` stack, and hybrid period ``i`` its slice
+    of each ``periods`` stack (then slice ``j`` of the period's
+    ``mamba``, ``moe``, ``mlp`` and ``norms`` stacks).  Every tensor keeps
+    its type and value.  Missing, extra or misshapen parameters (a stack
+    of another depth among them) raise."""
+    model = build_model(cfg, device="meta")
     want = dict(model.named_parameters())
-    got = {k: tensor_from_jax(v) for k, v in params_np.items()
-           if k != "layers"}
-    for name, stack in params_np["layers"].items():
-        stack = tensor_from_jax(stack)
-        if stack.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers[{name!r}] stacks {stack.shape[0]} "
-                             f"layers, the config has {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            got[f"layers.{i}.{name}"] = stack[i].contiguous()
+    got = dict(_port_params(params_np))
     if set(got) != set(want):
         raise ValueError(f"parameters differ: missing "
                          f"{sorted(set(want) - set(got))}, extra "

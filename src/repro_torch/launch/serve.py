@@ -2,8 +2,9 @@
 serving runtime.
 
 The default mode is the PyTorch counterpart of ``repro.launch.serve``
-without ``--loop``, the paper's feature in production position: a dense
-language model (`repro_torch.models`, weights drawn from seed 0) prefills
+without ``--loop``, the paper's feature in production position: a
+language model of any family (`repro_torch.models.model.build_model`:
+dense, moe, ssm, hybrid, encdec, vlm; weights drawn from seed 0) prefills
 a batch of seeded prompts and decodes greedily, and with ``--mips
 boundedme`` every decode step picks the next tokens by the BoundedME
 bandit over the vocab table — one fused-cascade launch per step, on the
@@ -15,7 +16,10 @@ matvec and argmax::
 
 ``--mips exact`` decodes with the f32 logits of every row;
 ``--precision int8|int4`` pulls quantized tiles (pq needs a table to
-calibrate on and serves through ``--loop``).
+calibrate on and serves through ``--loop``).  The vlm family's prompts
+start with ``n_patches`` seeded patch embeddings (``--prompt-len`` must
+cover them), the encdec family's encoder reads ``encoder_seq`` seeded
+frames.
 
 With ``--loop``, the counterpart of ``repro.launch.serve --loop
 [--runtime]``: a seeded query stream is served against the vocab table of an architecture
@@ -79,9 +83,6 @@ caller (one that repeats a device: S shards on one card or on the CPU)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --loop --runtime --dynamic --shards 4 --churn-rate 0.25
-
-The model families other than dense are refused with a message naming
-their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ from repro_torch.launch.faults import FaultInjector
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.launch.tenancy import (MultiTenantRuntime, TableRegistry,
                                         TenantConfig)
-from repro_torch.models.model import DenseLM
+from repro_torch.models.model import LM, build_model
 from repro_torch.models.steps import decode_step, mips_head, prefill_step
 from repro_torch.obs import FlightRecorder, SpanTracer
 from repro_torch.store import DynamicTableStore, ShardedTableStore
@@ -117,7 +118,7 @@ from repro_torch.store import DynamicTableStore, ShardedTableStore
 __all__ = ["arrival_trace", "simulate_stream", "make_churn", "build_loop",
            "serve_stream", "load_tenant_spec", "tenant_table",
            "build_tenants", "serve_tenants", "run_tenants", "decode_config",
-           "run_decode_demo", "main"]
+           "demo_inputs", "run_decode_demo", "main"]
 
 #: namespace tag so trace streams never alias other default_rng users
 _TRACE_ROOT = 0x7AC3
@@ -640,21 +641,41 @@ def decode_config(args) -> ArchConfig:
                                mips_precision=args.precision)
 
 
+def demo_inputs(cfg: ArchConfig, B: int, P: int, device
+                ) -> Tuple[torch.Tensor, dict]:
+    """The decode demo's prefill inputs, drawn from ``default_rng(0)`` in
+    the JAX package's demo order: ``B`` prompts of ``P`` tokens, then the
+    vlm family's ``patch_embeds (B, n_patches, d)`` and the encdec
+    family's ``enc_frames (B, encoder_seq, d)`` in f32 -> ``(prompt,
+    prefill keywords)`` on ``device``."""
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P)))
+    kw = {}
+    if cfg.family == "vlm":
+        kw["patch_embeds"] = rng.normal(size=(B, cfg.n_patches, cfg.d_model))
+    if cfg.family == "encdec":
+        kw["enc_frames"] = rng.normal(size=(B, cfg.encoder_seq, cfg.d_model))
+    return prompt.to(device), {
+        k: torch.from_numpy(v.astype(np.float32)).to(device)
+        for k, v in kw.items()}
+
+
 def run_decode_demo(args, *, cfg: Optional[ArchConfig] = None,
-                    model: Optional[DenseLM] = None,
+                    model: Optional[LM] = None,
                     perm_of: Optional[Callable[[int, int], object]] = None
                     ) -> dict:
     """The default mode: batched prefill, then greedy decode.
 
-    ``--batch`` prompts of ``--prompt-len`` tokens drawn from
-    ``default_rng(0)`` (as in the JAX package's demo) fill a cache of
-    ``prompt_len + tokens``; the first decode step feeds each prompt's
+    ``--batch`` prompts of ``--prompt-len`` tokens and the family's other
+    prefill inputs (`demo_inputs`, as in the JAX package's demo) fill a
+    cache of ``prompt_len + tokens``; the first decode step feeds each prompt's
     last token again at position ``prompt_len``, as the JAX demo does,
     and each step feeds the token the last one chose.  Decode step ``i``
     of a boundedme head draws its block permutation ``seeded_perm(0, i,
     n_blocks)``, or ``perm_of(i, n_blocks)`` when given (tests pass the
     JAX package's).  ``cfg`` (default `decode_config`) and ``model``
-    (default a `DenseLM` from seed 0 on ``--device``) may be passed in.
+    (default `build_model` of ``cfg`` from seed 0 on ``--device``) may be
+    passed in.
 
     Prints the head's plan and kernel path, the timings and the first
     sequence, and returns ``{"tokens": (B, tokens) int32 array,
@@ -664,7 +685,7 @@ def run_decode_demo(args, *, cfg: Optional[ArchConfig] = None,
     if cfg is None:
         cfg = decode_config(args)
     if model is None:
-        model = DenseLM(cfg, seed=0, device=dev)
+        model = build_model(cfg, seed=0, device=dev)
     if cfg.mips_mode == "boundedme":
         # the whole bandit of a decode step is one fused-cascade launch
         # over the head's tiled table, built here once; surface the static
@@ -684,11 +705,10 @@ def run_decode_demo(args, *, cfg: Optional[ArchConfig] = None,
         n_blocks = plan.n_blocks
     sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
             else (lambda: None))
-    rng = np.random.default_rng(0)
     B, P = args.batch, args.prompt_len
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P))).to(dev)
+    prompt, kw = demo_inputs(cfg, B, P, dev)
     t0 = time.perf_counter()
-    _, caches = prefill_step(model, prompt, cache_len=P + args.tokens)
+    _, caches = prefill_step(model, prompt, cache_len=P + args.tokens, **kw)
     sync()
     t_prefill = time.perf_counter() - t0
     tok = prompt[:, -1:]
@@ -717,19 +737,9 @@ def run_decode_demo(args, *, cfg: Optional[ArchConfig] = None,
             "cfg": cfg, "model": model}
 
 
-#: the JAX package's archs of families that wait for their port
-_LATER_ARCHS = {"qwen3-moe-30b-a3b": "moe", "grok-1-314b": "moe",
-                "mamba2-130m": "ssm", "jamba-v0.1-52b": "hybrid",
-                "whisper-medium": "encdec", "internvl2-26b": "vlm",
-                "command-r-35b": "dense"}
-
 def _validate_args(ap: argparse.ArgumentParser, args) -> None:
-    """Refuse what this slice does not serve, and bad values, up front."""
+    """Refuse what the port does not serve, and bad values, up front."""
     if args.arch not in REGISTRY:
-        if args.arch in _LATER_ARCHS:
-            ap.error(f"--arch {args.arch} ({_LATER_ARCHS[args.arch]} "
-                     f"family) is not ported yet: ROADMAP.md queue 1 item 7 "
-                     f"(the model zoo; the port has {sorted(REGISTRY)})")
         ap.error(f"unknown --arch {args.arch!r}; have {sorted(REGISTRY)}")
     if not args.loop:
         if args.precision == "pq":
@@ -747,6 +757,14 @@ def _validate_args(ap: argparse.ArgumentParser, args) -> None:
         if args.prompt_len < 1 or args.tokens < 1:
             ap.error(f"--prompt-len and --tokens must be >= 1, got "
                      f"{args.prompt_len} and {args.tokens}")
+        cfg = get_config(args.arch)
+        if args.smoke:
+            cfg = cfg.smoke()
+        if cfg.family == "vlm" and args.prompt_len < cfg.n_patches:
+            ap.error(f"--prompt-len {args.prompt_len} is shorter than the "
+                     f"{cfg.n_patches} patch embeddings (n_patches) that "
+                     f"{cfg.name} puts before the text: use --prompt-len "
+                     f">= {cfg.n_patches}")
     if args.tenants is not None:
         if not args.loop:
             ap.error("--tenants requires --loop: the multi-tenant "

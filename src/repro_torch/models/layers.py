@@ -1,18 +1,22 @@
-"""Dense model building blocks: RMS norm, RoPE, GQA attention, SwiGLU MLP.
+"""Model building blocks: norms, RoPE, GQA and cross attention, MLP, MoE,
+Mamba2 SSD.
 
-The PyTorch counterpart of the dense parts of ``repro.models.layers``:
-plain tensor code, with parameters as a mapping of name -> tensor under
-the JAX package's names (``wq``, ``bq``, ``w_gate``, ``ln1_w``, ...) and
-the JAX package's layouts (``wq (d, H * D)``, activations ``(B, S, H,
-D)``), so both packages run on the same weights.  The JAX package has no
-Pallas kernel here; its einsums become ``torch.einsum`` / ``matmul``.
+The PyTorch counterpart of ``repro.models.layers``: plain tensor code,
+with parameters as a mapping of name -> tensor under the JAX package's
+names (``wq``, ``bq``, ``w_gate``, ``ln1_w``, ``router``, ``A_log``, ...)
+and the JAX package's layouts (``wq (d, H * D)``, experts ``(E, d, f)``,
+activations ``(B, S, H, D)``), so both packages run on the same weights.
+The JAX package has no Pallas kernel here; its einsums become
+``torch.einsum`` / ``matmul``.
 
 Types follow the JAX package's: a product of two bf16 operands is bf16
 unless the JAX code asks for ``preferred_element_type=float32`` (the
 attention scores and the PV product), which here is an f32 product of
-the operands widened exactly; norms and softmax run in f32.
-``layer_norm``, GELU, MoE and Mamba wait for their families (ROADMAP.md
-queue 1 item 7).
+the operands widened exactly; a product of bf16 and f32 operands (the
+MoE router) is f32 of the bf16 operand widened exactly, as JAX promotes;
+norms, softmax and the SSD scan run in f32.  The MoE layer is the JAX
+package's mesh-free dispatch (``_moe_gspmd``); its expert-parallel form
+(``_moe_ep_shardmap``) waits for model sharding.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
-__all__ = ["rms_norm", "norm", "rope", "attention", "mlp"]
+__all__ = ["rms_norm", "layer_norm", "norm", "rope", "attention", "mlp",
+           "moe_layer", "mamba2_layer"]
 
 Params = Mapping[str, torch.Tensor]
 
@@ -43,12 +48,23 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return (x * w).to(dt)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """f32 layer norm (biased variance, eps 1e-6 as in the JAX package,
+    not torch's 1e-5) with the f32 weight and bias, cast back."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * w + b).to(dt)
+
+
 def norm(x: torch.Tensor, p: Params, cfg: ArchConfig, name: str
          ) -> torch.Tensor:
-    """The config's norm under parameter ``{name}_w``; RMS only here."""
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r} waits for its family "
-                                  f"(ROADMAP.md queue 1 item 7)")
+    """The config's norm under parameters ``{name}_w`` (and ``{name}_b``
+    for ``ln``)."""
+    if cfg.norm == "ln":
+        return layer_norm(x, p[f"{name}_w"], p[f"{name}_b"])
     return rms_norm(x, p[f"{name}_w"])
 
 
@@ -156,9 +172,10 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
-              positions: torch.Tensor, causal: bool = True,
+              positions: Optional[torch.Tensor], causal: bool = True,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               cache_len: Optional[int] = None, pos: Optional[int] = None,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               prefix: str = "", rope_on: bool = True, chunk: int = 512
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """GQA attention for train, prefill and decode.
@@ -169,10 +186,17 @@ def attention(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
       keys and values at ``[0, S)``;
     * decode:  ``cache`` and ``pos`` -> ``(y, cache)``, the step's keys
       and values written into the cache in place at ``[pos, pos + S)``
-      (the JAX package returns an updated copy).
+      (the JAX package returns an updated copy);
+    * cross-attention: ``kv_override=(k, v)`` ``(B, S_e, H, D)`` from the
+      encoder -> ``(y, None)``: queries ``x @ {prefix}wq`` with no bias
+      and no RoPE, non-causal over every key.
     """
     B, S, _ = x.shape
     H, D = cfg.n_heads, cfg.head_dim
+    if kv_override is not None:
+        q = (x @ p[f"{prefix}wq"]).reshape(B, S, H, D)
+        o = _sdpa_chunked(q, *kv_override, causal=False, chunk=chunk)
+        return (o.reshape(B, S, H * D) @ p[f"{prefix}wo"]).to(x.dtype), None
     q, k, v = _qkv(x, p, cfg, prefix)
     if rope_on:
         q = rope(q, positions, cfg.rope_theta)
@@ -197,16 +221,193 @@ def attention(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
     return y.to(x.dtype), new_cache
 
 
+def _silu(g: torch.Tensor) -> torch.Tensor:
+    """silu written out as XLA expands ``jax.nn.silu`` on the CPU: ``g * 1
+    / (1 + exp(-g))``.  In bf16 each of those ops rounds, where a fused
+    silu or sigmoid rounds once and differs in about a third of the
+    elements."""
+    return g * (1 / (1 + torch.exp(-g)))
+
+
+def _gelu(h: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the erf form), written out as the JAX package computes it: ``h *
+    (0.5 * (1 + tanh(c * (h + 0.044715 * h^3))))`` with the constants in
+    ``h``'s type and each op rounding to it, as for `_silu`."""
+    c, k = (torch.tensor(v, dtype=h.dtype, device=h.device)
+            for v in (math.sqrt(2 / math.pi), 0.044715))
+    return h * (0.5 * (1.0 + torch.tanh(c * (h + k * (h * (h * h))))))
+
+
 def mlp(x: torch.Tensor, p: Params, cfg: ArchConfig, prefix: str = ""
         ) -> torch.Tensor:
-    """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``, with silu
-    written out as XLA expands ``jax.nn.silu`` on the CPU: ``g * 1 / (1 +
-    exp(-g))``.  In bf16 each of those ops rounds, where a fused silu or
-    sigmoid rounds once and differs in about a third of the elements."""
-    if cfg.norm != "rms":
-        raise NotImplementedError("the GELU MLP of 'ln' archs waits for its "
-                                  "family (ROADMAP.md queue 1 item 7)")
+    """SwiGLU (rms archs): ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``;
+    GELU (ln archs, whisper-style): ``gelu(x @ w_up + b_up) @ w_down +
+    b_down``."""
+    if cfg.norm == "ln":
+        h = _gelu(x @ p[f"{prefix}w_up"] + p[f"{prefix}b_up"])
+        return (h @ p[f"{prefix}w_down"] + p[f"{prefix}b_down"]).to(x.dtype)
     g = x @ p[f"{prefix}w_gate"]
     u = x @ p[f"{prefix}w_up"]
-    h = g * (1 / (1 + torch.exp(-g))) * u
+    h = _silu(g) * u
     return (h @ p[f"{prefix}w_down"]).to(x.dtype)
+
+
+def moe_capacity(cfg: ArchConfig, S: int) -> int:
+    """Expert slots per batch row: ``min(max(8, ceil(S * k * cf / E)), S
+    * k)``, in the JAX package's float arithmetic."""
+    E, k = cfg.n_experts, cfg.experts_per_token
+    cap = max(8, int(-(-S * k * cfg.capacity_factor // E)))
+    return min(cap, S * k)
+
+
+def moe_layer(x: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
+    """Top-k routed MoE with per-batch-row capacity dispatch
+    (``_moe_gspmd``).
+
+    The router product is f32 (``x`` widened exactly), top-k takes the
+    lower expert first on ties (a stable descending sort, as
+    ``jax.lax.top_k``), gates are renormalized over the k.  Each row's
+    ``S * k`` assignments are sorted stably by expert; an assignment's
+    rank within its expert past ``cap`` is dropped (its slot is the
+    discarded row ``E * cap``).  The expert FFN (SwiGLU) runs over all
+    ``E * cap`` slots.  Each token's output sums its k gated
+    contributions in the model's type in ascending expert id, the order
+    the JAX package's scatter-add applies them, one add at a time (no
+    atomics, so the card's sums are those of the CPU).
+    """
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    cap = moe_capacity(cfg, S)
+    probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+    gates, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eidx = gates[..., :k], eidx[..., :k]                # (B, S, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = eidx.reshape(B, S * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    rank = (torch.arange(S * k, device=x.device)
+            - torch.searchsorted(sorted_e, sorted_e, side="left"))
+    token = order // k
+    dest = torch.where(rank < cap, sorted_e * cap + rank, E * cap)
+    rows = torch.arange(B, device=x.device)[:, None]
+    buf = x.new_zeros((B, E * cap + 1, d))
+    buf[rows, dest] = x[rows, token]
+    buf = buf[:, :E * cap].reshape(B, E, cap, d)
+
+    g = torch.einsum("becd,edf->becf", buf, p["w_gate"])
+    u = torch.einsum("becd,edf->becf", buf, p["w_up"])
+    out = torch.einsum("becf,efd->becd", _silu(g) * u,
+                       p["w_down"]).to(x.dtype)
+
+    # each assignment's slot, in (token, j) order, then each token's k
+    # slots in ascending expert id
+    slot = torch.empty_like(dest).scatter_(1, order, dest).reshape(B, S, k)
+    by_expert = torch.argsort(eidx, dim=-1, stable=True)
+    slot = torch.gather(slot, 2, by_expert)
+    w = torch.gather(gates, 2, by_expert).to(out.dtype)
+    flat = torch.cat([out.reshape(B, E * cap, d),
+                      out.new_zeros((B, 1, d))], dim=1)
+    vals = flat[rows[:, :, None], slot] * w[..., None]       # (B, S, k, d)
+    y = vals[:, :, 0]
+    for j in range(1, k):
+        y = y + vals[:, :, j]
+    return y
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` returns
+    ``x`` itself above 20, within an ulp of this)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _ssd_chunk_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan (Dao & Gu 2024), one scalar decay per head.
+
+    ``xh (B, S, H, P)``, ``dt (B, S, H)``, ``A (H,)`` negative, ``Bm`` /
+    ``Cm (B, S, Sdim)`` -> ``(y (B, S, H, P)`` in ``xh``'s type, the
+    final f32 state ``(B, H, Sdim, P))``.  A ragged tail is zero-padded
+    (``dt = 0`` and ``x = 0`` leave the state untouched); within a chunk
+    the decay mask is ``-inf`` before ``exp``.
+    """
+    Bsz, S0, H, P = xh.shape
+    Sdim = Bm.shape[-1]
+    pad = -S0 % chunk
+    if pad:
+        xh, dt, Bm, Cm = (torch.nn.functional.pad(
+            t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (xh, dt, Bm, Cm))
+    nc = (S0 + pad) // chunk
+    la = (dt * A).to(torch.float32)                           # <= 0
+    xs = (xh * dt[..., None]).to(torch.float32)
+
+    def chunks(t):
+        return t.reshape((Bsz, nc, chunk) + t.shape[2:])
+
+    la_c, xs_c = chunks(la), chunks(xs)
+    B_c, C_c = chunks(Bm.to(torch.float32)), chunks(Cm.to(torch.float32))
+    tmask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                  device=xh.device))[None, :, :, None]
+    h = torch.zeros((Bsz, H, Sdim, P), dtype=torch.float32, device=xh.device)
+    ys = []
+    for c in range(nc):
+        la_i, xs_i, B_i, C_i = la_c[:, c], xs_c[:, c], B_c[:, c], C_c[:, c]
+        cum = torch.cumsum(la_i, dim=1)                       # (B, c, H)
+        gsb = torch.einsum("bts,bcs->btc", C_i, B_i)
+        decay = cum[:, :, None, :] - cum[:, None, :, :]       # (B, t, s, H)
+        decay = torch.where(tmask, decay, torch.full_like(decay, -torch.inf))
+        w = gsb[..., None] * torch.exp(decay)
+        y_intra = torch.einsum("btsh,bshp->bthp", w, xs_i)
+        y_inter = torch.einsum("bts,bhsp,bth->bthp", C_i, h, torch.exp(cum))
+        tail = torch.exp(cum[:, -1:, :] - cum)
+        dh = torch.einsum("bcs,bchp,bch->bhsp", B_i, xs_i, tail)
+        h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + dh
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)[:, :S0]
+    return y.to(xh.dtype), h
+
+
+def mamba2_layer(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
+                 cache: Optional[Dict[str, torch.Tensor]] = None,
+                 mode: str = "train"
+                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Mamba2 SSD mixer.
+
+    * ``mode='train'``: the chunked scan, no state returned;
+    * ``'prefill'``: the chunked scan, and its final state ``{"h": (B, H,
+      Sdim, P)}`` f32;
+    * ``'decode'``: the per-token recurrence from ``cache["h"]`` (zeros
+      without one) -> the new state.
+    """
+    B, S, _ = x.shape
+    di, H, P, Sd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    f32 = torch.float32
+    z = x @ p["wz"]
+    xh = (x @ p["wx"]).reshape(B, S, H, P)
+    Bm, Cm = x @ p["wB"], x @ p["wC"]
+    dt = _softplus((x @ p["wdt"]).to(f32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"].to(f32))
+    new_cache = None
+    if mode in ("train", "prefill"):
+        y, h_fin = _ssd_chunk_scan(xh, dt, A, Bm, Cm, min(cfg.ssm_chunk, S))
+        if mode == "prefill":
+            new_cache = {"h": h_fin}
+    else:
+        h = (cache["h"] if cache is not None and "h" in cache
+             else torch.zeros((B, H, Sd, P), dtype=f32, device=x.device))
+        ys = []
+        for t in range(S):
+            x_t, dt_t = xh[:, t].to(f32), dt[:, t]
+            B_t, C_t = Bm[:, t].to(f32), Cm[:, t].to(f32)
+            decay = torch.exp(dt_t * A)                        # (B, H)
+            dx = torch.einsum("bn,bhp,bh->bhnp", B_t, x_t, dt_t)
+            h = h * decay[..., None, None] + dx
+            ys.append(torch.einsum("bn,bhnp->bhp", C_t, h))
+        y = torch.stack(ys, dim=1).to(x.dtype)
+        new_cache = {"h": h}
+    y = y + xh * p["D"][None, None, :, None].to(x.dtype)
+    y = y.reshape(B, S, di)
+    y = rms_norm(y * _silu(z.to(f32)).to(y.dtype), p["norm_w"])
+    return (y @ p["out_proj"]).to(x.dtype), new_cache

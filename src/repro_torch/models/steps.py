@@ -1,4 +1,4 @@
-"""Prefill and greedy decode steps of the dense model.
+"""Prefill and greedy decode steps of the models of every family.
 
 The PyTorch counterpart of ``repro.models.steps`` (``prefill_step``,
 ``make_mips_plan``, ``decode_step``).  `decode_step` is where the paper
@@ -17,8 +17,11 @@ everywhere in the port.  With ``mesh`` the head is vocab-sharded: the
 table split into row shards over the mesh's devices once per parameter
 set (`sharded_mips_head`), and each step one launch per shard and the
 exact cross-shard merge, as the JAX package's step runs
-``sharded_bounded_me_decode`` under a bound mesh.  ``loss_fn`` and
-``train_step`` wait for training (ROADMAP.md queue 1 item 7).
+``sharded_bounded_me_decode`` under a bound mesh.  The heads read only
+the final hidden state, so every family's caches (attention K/V, SSM
+state, hybrid periods, encdec cross K/V) pass through them unchanged.
+``loss_fn`` and ``train_step`` wait for training (ROADMAP.md queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -36,16 +39,20 @@ from repro_torch.distributed.sharding import (make_shard_plan,
                                               quantize_shards,
                                               sharded_decode_tiled)
 from repro_torch.distributed.specs import serving_table_sharding
-from repro_torch.models.model import Caches, DenseLM, masked_logits
+from repro_torch.models.model import LM, Caches, masked_logits
 
 __all__ = ["prefill_step", "make_mips_plan", "MipsHead", "mips_head",
            "ShardedMipsHead", "sharded_mips_head", "decode_step"]
 
 
-def prefill_step(model: DenseLM, tokens: torch.Tensor, cache_len: int
+def prefill_step(model: LM, tokens: torch.Tensor, cache_len: int,
+                 patch_embeds: Optional[torch.Tensor] = None,
+                 enc_frames: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Caches]:
-    """Process the prompt: ``(last-position hidden (B, d), caches)``."""
-    h, caches = model(tokens, cache_len=cache_len)
+    """Process the prompt: ``(last-position hidden (B, d), caches)``;
+    vlm takes ``patch_embeds``, encdec ``enc_frames``."""
+    h, caches = model(tokens, cache_len=cache_len,
+                      patch_embeds=patch_embeds, enc_frames=enc_frames)
     return h[:, -1], caches
 
 
@@ -83,7 +90,7 @@ class MipsHead:
                             quantized=self.quantized)
 
 
-def mips_head(model: DenseLM, cfg: ArchConfig) -> MipsHead:
+def mips_head(model: LM, cfg: ArchConfig) -> MipsHead:
     """The model's bandit head under ``cfg``'s plan, built at the first
     call and kept until the plan or the table (its storage or an
     in-place write) changes."""
@@ -128,7 +135,7 @@ class ShardedMipsHead:
         return out[0], out[1]
 
 
-def sharded_mips_head(model: DenseLM, cfg: ArchConfig,
+def sharded_mips_head(model: LM, cfg: ArchConfig,
                       mesh) -> ShardedMipsHead:
     """The model's vocab-sharded head under ``cfg`` over ``mesh`` — the
     JAX package's sharded step settings: K = 1, ``value_range`` 4.0,
@@ -157,7 +164,7 @@ def sharded_mips_head(model: DenseLM, cfg: ArchConfig,
     return model._sharded_head
 
 
-def decode_step(model: DenseLM, cfg: ArchConfig, caches: Caches,
+def decode_step(model: LM, cfg: ArchConfig, caches: Caches,
                 tokens: torch.Tensor, pos: int, perm=None, mesh=None
                 ) -> Tuple[torch.Tensor, Caches]:
     """One greedy decode step: ``(next_token (B,) int32, caches)``.

@@ -238,9 +238,15 @@ def test_dense_lm_init_shapes_scales_and_refusals():
     assert abs(float(a.embed.float().std()) - 0.02) < 2e-3
     wq = a.layers[0].wq.float()
     assert abs(float(wq.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
-    assert sorted(REGISTRY) == sorted(ARCHS)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        DenseLM(dataclasses.replace(cfg, family="moe"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        TL.norm(torch.zeros(2, 8), {}, dataclasses.replace(cfg, norm="ln"),
-                "ln1")
+    # the other families are ported: every arch is registered, the moe
+    # family builds on the dense class with the MoE FFN (f32 router),
+    # and the ln norm is a layer norm with its bias
+    assert set(ARCHS) < set(REGISTRY) and len(REGISTRY) == 10
+    moe = DenseLM(dataclasses.replace(cfg, family="moe", n_experts=4,
+                                      experts_per_token=2))
+    assert moe.layers[0].router.dtype == torch.float32
+    assert moe.layers[0].w_gate.shape == (4, cfg.d_model, cfg.d_ff)
+    x = torch.arange(16, dtype=torch.float32).reshape(2, 8)
+    ln = TL.norm(x, {"ln1_w": torch.ones(8), "ln1_b": torch.full((8,), 2.)},
+                 dataclasses.replace(cfg, norm="ln"), "ln1")
+    assert torch.allclose(ln.mean(-1), torch.full((2,), 2.0))

@@ -287,10 +287,9 @@ def test_serve_cli_serves_shards(argv, capsys):
 
 
 def test_serve_cli_refuses_decode_demo(capsys):
-    """The decode demo is ported; what it does not serve is refused with
-    its reason or ROADMAP.md item: pq (no table to calibrate on, as in
-    the JAX package's CLI), families other than dense, and loop-only
-    modes."""
+    """The decode demo is ported for every family; what it does not serve
+    is refused with its reason: pq (no table to calibrate on, as in the
+    JAX package's CLI), loop-only modes, and an unknown arch."""
     for argv, fragment in (
             (["--precision", "pq"], "requires --loop"),
             (["--runtime"], "requires --loop"),
@@ -300,9 +299,11 @@ def test_serve_cli_refuses_decode_demo(capsys):
         assert fragment in capsys.readouterr().err, argv
     for arch in ("mamba2-130m", "qwen3-moe-30b-a3b", "whisper-medium",
                  "command-r-35b"):
-        with pytest.raises(SystemExit):
-            serve.parse_args(["--arch", arch, "--mips", "boundedme"])
-        assert "queue 1 item 7" in capsys.readouterr().err, arch
+        args = serve.parse_args(["--arch", arch, "--mips", "boundedme"])
+        assert serve.decode_config(args).mips_mode == "boundedme", arch
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--arch", "llama-7b"])
+    assert "unknown --arch" in capsys.readouterr().err
     args = serve.parse_args(["--arch", "tinyllama-1.1b", "--smoke"])
     assert not args.loop and args.mips == "exact" and args.tokens == 32
     # the decode demo takes --shards and serves unsharded, as the JAX
