@@ -245,10 +245,34 @@ Phases, one line each (any failure exits non-zero before the result):
    + ``torch.topk``.  Then qwen3-moe at full width with 2 layers in fp32
    on the card and on the CPU, same weights: equal next tokens, hidden
    states within rtol 1e-4;
-14. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+14. train — the ``repro_torch.launch.train`` trainer in process
+   (`repro_torch.launch.train.train`): (a) tinyllama-1.1b at full width
+   and all 22 layers in bf16 with remat, seeded weights, at the CLI's
+   defaults (batch 8, seq 128, lr 1e-3) for 16 steps of `LMStream`; the
+   losses must be finite and fall from step 0 to step 15; prints ms per
+   step (median of steps 2-15; the host clock around each step, ending
+   in a synchronisation), tokens a second, the matmul TFLOP/s, the
+   losses, weights and moments GB and the peak card GB; (b) the trained
+   model served by the decode demo as in phase 10 (4 prompts of 16
+   tokens, 32 greedy tokens, bandit head at eps = delta = 0.1 after a
+   2-token warm-up, and the exact head): launches of
+   ``fused_cascade_batched[bf16]`` must equal the decode steps, every
+   launch is held against the plain version, the served scores exact,
+   step 0 bitwise the fp32 launch on the widened table, and no decode
+   step may build an autograd graph, though the trained parameters
+   require grad; (c) at full width and 2 layers, under
+   ``torch.use_deterministic_algorithms(True)`` and
+   ``CUBLAS_WORKSPACE_CONFIG`` (set here, then restored), 8 steps at
+   once against 4 steps, a checkpoint in a temporary directory (removed
+   after), a restart at the stream's step 4 and 4 more steps: losses,
+   parameters and moments bitwise; each checkpoint's GB and write and
+   read seconds printed; (d) the smoke configs of tinyllama-1.1b and
+   qwen3-moe-30b-a3b in f32, 3 `train_step`s on the card against the
+   CPU from the same weights (`train_card_vs_cpu` states the rule);
+15. a ``kernels`` JSON line, one entry per kernel and tier (the batched
    cascade's launches are the serve, runtime, store, tenancy, decode,
-   sharded and families phases'; its ``[bf16]`` entry times the decode
-   head), and last the ``ok`` JSON line.
+   sharded, families and train phases'; its ``[bf16]`` entry times the
+   decode head), and last the ``ok`` JSON line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
 near-tie, counted and printed — every differing candidate's exact float64
@@ -2090,15 +2114,20 @@ def recording_heads():
 
 
 def hold_head_steps(what: str, calls, cfg, table) -> dict:
-    """Each recorded decode step's head launch against the plain version
-    on the same hidden states, table and perm (ids equal or a near-tie,
-    scores to rtol 1e-5); its served score the float64 exact product of
-    the served row (rtol 1e-4); and the gap of the served row to the
-    exact best row, in mean-product units (the eps scale)."""
+    """Each recorded decode step's hidden states outside any autograd
+    graph; its head launch against the plain version on the same hidden
+    states, table and perm (ids equal or a near-tie, scores to rtol
+    1e-5); its served score the float64 exact product of the served row
+    (rtol 1e-4); and the gap of the served row to the exact best row, in
+    mean-product units (the eps scale)."""
     from repro_torch.models.model import masked_logits
     errs, ties, gap = [], 0, 0.0
     N = cfg.d_model
+    table = table.detach()             # a trained table requires grad
     for step, (head, hid, perm, out) in enumerate(calls):
+        check(not hid.requires_grad and head.V4.grad_fn is None
+              and out[1].grad_fn is None,
+              f"decode {what} step {step}: serving built an autograd graph")
         with plain_route():
             ref = head(hid, perm)
         torch.cuda.synchronize()
@@ -3281,16 +3310,294 @@ def phase_paper() -> dict:
     return out
 
 
+#: phase 14: the trainer at its CLI defaults (batch 8, seq 128, lr 1e-3)
+TRAIN_ARCH, TRAIN_STEPS = "tinyllama-1.1b", 16
+#: phase 14's resume: full width, 2 layers, 8 steps halted at 4
+RESUME_LAYERS, RESUME_STEPS, RESUME_HALT = 2, 8, 4
+#: phase 14's card against the CPU: the smoke configs in f32, 3 steps
+TRAIN_CARD_CPU = (("tinyllama-1.1b", "qwen3-moe-30b-a3b"), 3, 1e-3)
+
+
+def train_args(*extra: str):
+    from repro_torch.launch import train as T
+    return T.parse_args(["--arch", TRAIN_ARCH, "--device", DEV,
+                         "--log-every", "4", *extra])
+
+
+@contextlib.contextmanager
+def timed_checkpoints():
+    """Record each checkpoint the trainer writes or reads: ``(what,
+    seconds, GB on disk)`` (the host clock around the call)."""
+    import os
+    from repro_torch.launch import train as T
+    calls, real = [], (T.save_checkpoint, T.restore_checkpoint)
+
+    def saving(ckpt_dir, step, tree, **kw):
+        t0 = time.perf_counter()
+        path = real[0](ckpt_dir, step, tree, **kw)
+        calls.append(("write", time.perf_counter() - t0, os.path.getsize(
+            os.path.join(path, "shard_0.npz")) / 1e9))
+        return path
+
+    def reading(ckpt_dir, tree_like, step=None):
+        t0 = time.perf_counter()
+        out = real[1](ckpt_dir, tree_like, step)
+        calls.append(("read", time.perf_counter() - t0, os.path.getsize(
+            os.path.join(ckpt_dir, f"step_{out[1]:08d}", "shard_0.npz"))
+            / 1e9))
+        return out
+    T.save_checkpoint, T.restore_checkpoint = saving, reading
+    try:
+        yield calls
+    finally:
+        T.save_checkpoint, T.restore_checkpoint = real
+
+
+def train_full() -> dict:
+    """Phase 14 (a): tinyllama-1.1b at full width and depth in bf16
+    through the trainer at the CLI's defaults for `TRAIN_STEPS` steps."""
+    from repro_torch.launch import train as T
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    args = train_args("--steps", str(TRAIN_STEPS))
+    t0 = time.perf_counter()
+    res = T.train(args)
+    run_s = time.perf_counter() - t0
+    cfg, model, hist = res["cfg"], res["model"], res["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train: losses {losses}")
+    check(losses[-1] < losses[0],
+          f"train: the loss did not fall ({losses[0]:.4f} -> "
+          f"{losses[-1]:.4f})")
+    check(cfg.n_layers == 22 and cfg.dtype == "bfloat16" and cfg.remat,
+          f"train: {cfg.n_layers} layers in {cfg.dtype}, remat {cfg.remat}")
+    n_params = sum(p.numel() for p in model.parameters())
+    # matmul FLOPs of a step: 6 per weight of every matmul and token
+    # (forward, both backward products); the embedding is a lookup, and
+    # remat's second forward is not counted
+    tokens = args.batch * args.seq
+    mm = sum(p.numel() for n, p in model.named_parameters()
+             if p.dim() >= 2 and n != "embed")
+    step_ms = statistics.median(res["step_s"][2:]) * 1e3
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+        "remat": cfg.remat, "batch": args.batch, "seq": args.seq,
+        "steps": len(hist), "params": n_params,
+        "weights_gb": sum(p.numel() * p.element_size()
+                          for p in model.parameters()) / 1e9,
+        "moments_gb": sum(t.numel() * t.element_size()
+                          for t in (*res["opt"].mu.values(),
+                                    *res["opt"].nu.values())) / 1e9,
+        "losses": losses, "loss_fell_by": losses[0] - losses[-1],
+        "grad_norm_first_last": [hist[0]["grad_norm"],
+                                 hist[-1]["grad_norm"]],
+        "step0_ms": res["step_s"][0] * 1e3, "step1_ms": res["step_s"][1] * 1e3,
+        "ms_per_step": step_ms,
+        "ms_per_step_spread": [min(res["step_s"][2:]) * 1e3,
+                               max(res["step_s"][2:]) * 1e3],
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "matmul_tflop_per_step": 6 * mm * tokens / 1e12,
+        "matmul_tflops": 6 * mm * tokens / step_ms / 1e9,
+        "run_s": run_s, "mem_before_gb": base_gb,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    say("train tinyllama-1.1b: " + json.dumps(out))
+    return res, out
+
+
+def train_serve(res) -> dict:
+    """Phase 14 (b): the trained model in the decode demo, the bandit
+    head (every launch held) and the exact head."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    model = res["model"]
+    check(all(p.requires_grad for p in model.parameters()),
+          "train serve: the trained parameters do not require grad")
+    serve.run_decode_demo(decode_args(TRAIN_ARCH, "boundedme", 2),
+                          model=model)
+    args = decode_args(TRAIN_ARCH, "boundedme")
+    kops.reset_launch_counts()
+    with recording_heads() as calls:
+        out_b = serve.run_decode_demo(args, model=model)
+    counts = kops.launch_counts()
+    launches = counts["fused_cascade_batched[bf16]"]
+    check(launches == args.tokens == counts["fused_cascade_batched"]
+          == len(calls),
+          f"train serve: {launches} fused_cascade_batched[bf16] launches "
+          f"({counts['fused_cascade_batched']} in all, {len(calls)} head "
+          f"calls) for {args.tokens} decode steps")
+    cfg, table = out_b["cfg"], model.head_table
+    check(cfg.n_layers == 22 and table is model.unembed,
+          "train serve: not the trained 22-layer model's unembedding")
+    held = hold_head_steps("trained tinyllama-1.1b", calls, cfg, table)
+    exact = serve.run_decode_demo(decode_args(TRAIN_ARCH, "exact"),
+                                  model=model)
+    out = {**held, "launches": launches, "layers": cfg.n_layers,
+           "token_agreement_with_exact": float(
+               (out_b["tokens"] == exact["tokens"]).mean()),
+           "prefill_ms": out_b["prefill_ms"],
+           "ms_per_token": out_b["ms_per_token"],
+           "exact_ms_per_token": exact["ms_per_token"],
+           "head": head_launch(calls, cfg, table, widened=True)}
+    say("train serve: " + json.dumps(out))
+    return out
+
+
+def train_resume() -> dict:
+    """Phase 14 (c): at full width and `RESUME_LAYERS` layers, the
+    trainer run whole for `RESUME_STEPS` steps against a run halted at
+    `RESUME_HALT`, checkpointed and restarted, under deterministic
+    algorithms: parameters and moments bitwise."""
+    import os
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=RESUME_LAYERS)
+    steps = ["--steps", str(RESUME_STEPS)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpt = ["--ckpt-dir", tmp, "--ckpt-every", str(RESUME_HALT)]
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        whole = T.train(train_args(*steps), cfg=cfg)
+        whole_s = time.perf_counter() - t0
+        with timed_checkpoints() as io:
+            t0 = time.perf_counter()
+            part = T.train(train_args(*steps, *ckpt), cfg=cfg,
+                           halt_at=RESUME_HALT)
+            del part
+            torch.cuda.empty_cache()
+            rest = T.train(train_args(*steps, *ckpt), cfg=cfg)
+            split_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(rest["start"] == RESUME_HALT,
+          f"train resume: restarted at {rest['start']}")
+    check([h["loss"] for h in rest["history"]]
+          == [h["loss"] for h in whole["history"][RESUME_HALT:]],
+          "train resume: losses after the restart differ")
+    wp = dict(whole["model"].named_parameters())
+    diff = [n for n, p in rest["model"].named_parameters()
+            if not torch.equal(p, wp[n])]
+    diff += [f"{f}/{n}" for f in ("mu", "nu") for n, t in getattr(
+        rest["opt"], f).items() if not torch.equal(t, getattr(
+            whole["opt"], f)[n])]
+    check(not diff, f"train resume: not bitwise: {diff[:5]}")
+    check([c[0] for c in io] == ["write", "read", "write"],
+          f"train resume: checkpoint calls {[c[0] for c in io]}")
+    out = {"layers": RESUME_LAYERS, "steps": RESUME_STEPS,
+           "halted_at": RESUME_HALT, "bitwise": True,
+           "params_and_moments": len(wp) * 3,
+           "checkpoints": [{"op": op, "s": s, "gb": gb,
+                            "gb_per_s": gb / s} for op, s, gb in io],
+           "whole_s": whole_s, "halted_and_resumed_s": split_s}
+    say("train resume: " + json.dumps(out))
+    del whole, rest, wp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_card_vs_cpu() -> dict:
+    """Phase 14 (d): `train_step` on the card against the CPU at the smoke
+    size in f32, from the same weights and batches: losses to rtol 1e-5,
+    gradient norms to rtol 1e-4; all but 0.1 % of the parameters to rtol
+    1e-4 with atol lr / 100 (a hundredth of one update), and every one
+    within 2 lr a step: an AdamW update keeps about the sign of a
+    gradient whose size is near ``eps`` or near the two devices'
+    difference (``tests/test_torch_train_cuda.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.models.model import build_model
+    from repro_torch.models.steps import train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_opt
+    archs, n_steps, lr = TRAIN_CARD_CPU
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch).smoke()
+        host = build_model(cfg, seed=3)
+        card = copy.deepcopy(host).to(DEV)
+        opt_cfg = AdamWConfig(lr=lr, warmup_steps=1, total_steps=10)
+        stream = LMStream(cfg.vocab, batch=4, seq=32, seed=0)
+        opts = {"cpu": init_opt(dict(host.named_parameters())),
+                "card": init_opt(dict(card.named_parameters()))}
+        rec = {"loss_rel_err": 0.0, "grad_norm_rel_err": 0.0}
+        for step in range(n_steps):
+            ms = {}
+            for name, m in (("cpu", host), ("card", card)):
+                b = {k: torch.from_numpy(v).to(m.embed.device)
+                     for k, v in stream.batch_at(step).items()}
+                _, opts[name], ms[name] = train_step(m, opts[name], b, cfg,
+                                                     opt_cfg)
+            for k in ("loss", "grad_norm"):
+                a, c = float(ms["card"][k]), float(ms["cpu"][k])
+                rec[f"{k}_rel_err"] = max(rec[f"{k}_rel_err"],
+                                          abs(a - c) / abs(c))
+        check(rec["loss_rel_err"] <= 1e-5 and rec["grad_norm_rel_err"]
+              <= CARD_CPU_RTOL, f"train card vs cpu {arch}: {rec}")
+        off = past_rtol = n = 0
+        worst = 0.0
+        for (k, a), (_, c) in zip(card.named_parameters(),
+                                  host.named_parameters()):
+            d = (a.detach().cpu() - c.detach()).abs()
+            ref = CARD_CPU_RTOL * c.detach().abs()
+            worst = max(worst, float(d.max()))
+            past_rtol += int((d > ref).sum())
+            off += int((d > ref + 1e-2 * lr).sum())
+            n += d.numel()
+        check(worst <= 2 * lr * n_steps and off <= 1e-3 * n,
+              f"train card vs cpu {arch}: {off} of {n} parameters past "
+              f"rtol {CARD_CPU_RTOL} and atol lr / 100, largest gap "
+              f"{worst:.3g}")
+        out[arch] = {**rec, "steps": n_steps, "params": n,
+                     "params_past_rtol_and_atol": off,
+                     "params_past_rtol_alone": past_rtol,
+                     "param_max_abs_err": worst, "rtol": CARD_CPU_RTOL,
+                     "atol": 1e-2 * lr}
+        say(f"train card vs cpu {arch}: " + json.dumps(out[arch]))
+        del host, card, opts
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train() -> dict:
+    """Phase 14: the trainer on the card — tinyllama-1.1b at full width and
+    depth, then served with the bandit head; the resume; the card
+    against the CPU."""
+    t_phase = time.perf_counter()
+    res, full = train_full()
+    res.pop("opt")                    # serving needs only the model
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = train_serve(res)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"full": full, "serve": served, "resume": train_resume(),
+           "card_vs_cpu": train_card_vs_cpu()}
+    say(f"train: phase in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
-                   lib, decode, sharded, families) -> list:
+                   lib, decode, sharded, families, trained) -> list:
     """The ``kernels`` line: one entry per kernel and tier.  The batched
     cascade's launches are those of the serve, runtime, store, tenancy,
-    decode, sharded and families phases (the fp32 tier on the f32 stores
-    and the sharded library call; ``[bf16]`` on the bf16 serving table
-    and model heads; S per sharded dispatch); its bf16 entry's times are
-    the decode head's, on step 0's operands, and each family arch's head
-    beside them.  Times of a tier are phase 3's, row mode
-    (coord beside them)."""
+    decode, sharded, families and train phases (the fp32 tier on the f32
+    stores and the sharded library call; ``[bf16]`` on the bf16 serving
+    table and model heads; S per sharded dispatch); its bf16 entry's
+    times are the decode head's, on step 0's operands, and each family
+    arch's head and the trained model's beside them.  Times of a tier are
+    phase 3's, row mode (coord beside them)."""
     none = {"launches": 0, "max_abs_err": 0.0}
     info = {t[0]: t[1:] for t in TIERS}
     info["bf16"] = info["fp32"]
@@ -3304,6 +3611,7 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
         if tag == "bf16":
             runs += [decode["qwen1.5-0.5b"], decode["tinyllama-1.1b"]]
             runs += [families[arch] for arch, *_ in FAMILY_RUNS]
+            runs.append(trained["serve"])
         runs.append(sharded["per_tag"].get(tag, none))
         row, coord = kern[(tag, "row")], kern.get((tag, "coord"))
         timed = decode["head"] if tag == "bf16" else row
@@ -3331,6 +3639,11 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
                     "bound_by", "library_ms")}
                 | {"launches": families[arch]["launches"]}
                 for arch, *_ in FAMILY_RUNS}
+            head = trained["serve"]["head"]
+            entry["trained"] = {
+                k: head[k] for k in ("table", "kernel_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")
+            } | {"launches": trained["serve"]["launches"]}
         if coord:
             entry.update(coord_ms=coord["kernel_ms"],
                          coord_plain_ms=coord["plain_ms"],
@@ -3444,6 +3757,7 @@ def main() -> int:
         phase_paper()
         torch.cuda.empty_cache()
         families = phase_families()
+        trained = phase_train()
         say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -3451,7 +3765,7 @@ def main() -> int:
         return 1
     print(json.dumps({"kernels": kernel_entries(
         kern, single, aux, served, runtime, stored, tenancy, lib, decode,
-        sharded, families)}), flush=True)
+        sharded, families, trained)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

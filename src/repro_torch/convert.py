@@ -17,11 +17,17 @@ from the JAX package's).
 ``quantized=`` of `bounded_me_decode` and `CascadeExecutor`.
 `store_from_jax` carries a JAX package store's page image
 (``DynamicTableStore.page_state()``) into a port store.
+`opt_state_from_jax` carries the JAX package's optimizer state into the
+port's `repro_torch.optim.adamw.OptState`, with the moment and error
+trees unstacked as `params_from_jax` unstacks the parameters; and
+`to_jax_tree` carries the port's named tensors (a model's parameters,
+its gradients, a moment) back into the JAX package's nested stacks, for
+comparison.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Mapping, Sequence, Tuple
+from typing import Dict, Iterator, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,10 +35,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.boundedme_torch import as_kept
 from repro_torch.models.model import EMBED_STD, LM, build_model
+from repro_torch.optim.adamw import OptState
 from repro_torch.store import DynamicTableStore
 
 __all__ = ["tensor_from_jax", "serving_table_from_jax", "make_serving_table",
-           "params_from_jax", "quantized_from_jax", "store_from_jax"]
+           "params_from_jax", "quantized_from_jax", "store_from_jax",
+           "opt_state_from_jax", "to_jax_tree"]
 
 #: (table artifact dtype, aux artifact dtype) of each quantized tier
 _ARTIFACT_DTYPES = {"int8": (np.int8, np.float32),
@@ -80,33 +88,72 @@ def make_serving_table(cfg: ArchConfig, seed: int = 0, device="cuda"
             cfg.vocab)
 
 
-def _unstacked(pattern: str, stack: np.ndarray
-               ) -> Iterator[Tuple[str, torch.Tensor]]:
-    """``(name, tensor)`` of each slice of ``stack`` over its leading axes,
-    one per ``{}`` of ``pattern`` (``"periods.{}.moe.{}.w_up"``)."""
-    stack = tensor_from_jax(stack)
-    lead = pattern.count("{}")
-    for idx in np.ndindex(*stack.shape[:lead]):
-        yield pattern.format(*idx), stack[idx].contiguous()
-
-
-def _port_params(params_np: Mapping) -> Iterator[Tuple[str, torch.Tensor]]:
-    """The JAX package's parameter tree under the port's names: the layer
-    stacks ``layers`` / ``enc_layers`` (one leading axis) and the hybrid
-    ``periods`` (a period axis, then the period's own stack but for
-    ``attn``) unstacked; top-level arrays as they are."""
-    for key, val in params_np.items():
+def _stacks(tree: Mapping) -> Iterator[Tuple[Tuple[str, ...], str,
+                                             np.ndarray]]:
+    """``(path, pattern, leaf)`` of each leaf of a JAX parameter-shaped
+    tree: its keys, and the port's name with one ``{}`` per stack axis —
+    the layer stacks ``layers`` / ``enc_layers`` one
+    (``"layers.{}.wq"``), the hybrid ``periods`` a period axis, then the
+    period's own stack but for ``attn`` (``"periods.{}.moe.{}.w_up"``);
+    top-level arrays none."""
+    for key, val in tree.items():
         if key in ("layers", "enc_layers"):
             for name, stack in val.items():
-                yield from _unstacked(f"{key}.{{}}.{name}", stack)
+                yield (key, name), f"{key}.{{}}.{name}", stack
         elif key == "periods":
             for group, sub in val.items():
                 inner = "" if group == "attn" else "{}."
                 for name, stack in sub.items():
-                    yield from _unstacked(
-                        f"periods.{{}}.{group}.{inner}{name}", stack)
+                    yield ((key, group, name),
+                           f"periods.{{}}.{group}.{inner}{name}", stack)
         else:
-            yield key, tensor_from_jax(val)
+            yield (key,), key, val
+
+
+def _port_params(params_np: Mapping) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The JAX package's parameter tree under the port's names, each stack
+    sliced over its stack axes (`_stacks`)."""
+    for _, pattern, leaf in _stacks(params_np):
+        stack = tensor_from_jax(leaf)
+        lead = pattern.count("{}")
+        for idx in np.ndindex(*stack.shape[:lead]):
+            yield pattern.format(*idx), stack[idx].contiguous()
+
+
+def to_jax_tree(tensors: Mapping[str, torch.Tensor], like: Mapping
+                ) -> Dict:
+    """The port's named tensors (``layers.3.wq`` ...) as the nested numpy
+    tree of ``like`` (a JAX parameter-shaped tree: `_stacks`), each stack
+    rebuilt from its slices; bfloat16 widened to float32."""
+    out: Dict = {}
+    for path, pattern, leaf in _stacks(like):
+        lead = pattern.count("{}")
+        shape = np.shape(leaf)
+        slices = [tensors[pattern.format(*idx)].detach().cpu()
+                  for idx in np.ndindex(*shape[:lead])]
+        arr = torch.stack(slices).reshape(shape)
+        if arr.dtype == torch.bfloat16:
+            arr = arr.to(torch.float32)
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr.numpy()
+    return out
+
+
+def opt_state_from_jax(state_np, device="cpu") -> OptState:
+    """The port's `OptState` on ``device`` from the JAX package's
+    ``OptState`` (``step``, ``mu``, ``nu``, ``err``; arrays converted to
+    numpy): each moment and error tree unstacked under the port's names
+    as `params_from_jax` unstacks the parameters, in its own type (f32
+    or bf16 moments)."""
+    def tree(t):
+        return None if t is None else {
+            name: v.to(device) for name, v in _port_params(t)}
+    return OptState(step=torch.tensor(int(np.asarray(state_np.step)),
+                                      dtype=torch.int32, device=device),
+                    mu=tree(state_np.mu), nu=tree(state_np.nu),
+                    err=tree(state_np.err))
 
 
 def params_from_jax(params_np: Mapping, cfg: ArchConfig, device="cpu"

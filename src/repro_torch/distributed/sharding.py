@@ -5,8 +5,8 @@ The PyTorch counterpart of the serving half of
 ``repro.distributed.sharding``: `make_shard_plan`,
 `sharded_bounded_me_decode` and `dispatch_lane_stats`.  The training
 half (``logical_mesh``, ``shard``, ``spec_of``, ``named_sharding``,
-``shard_map_compat``) waits for training and model sharding (ROADMAP.md
-queue 1 item 7).
+``shard_map_compat``) waits for multi-card training and model sharding
+(ROADMAP.md queue 1 item 7).
 
 **One controller over a list of devices.**  The JAX package runs each
 shard's body under ``shard_map`` from one Python process and gathers the

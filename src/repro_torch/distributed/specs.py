@@ -5,8 +5,8 @@ The PyTorch counterpart of ``serving_table_sharding`` in
 ``NamedSharding`` and ``device_put`` moves the table, the port places
 the table itself: padded to ``shards * n_local`` rows, split into row
 shards, and each shard laid out tile-major once on its device.  The
-parameter, batch and cache specs wait for training (ROADMAP.md queue 1
-item 7).
+parameter, batch and cache specs wait for multi-card training
+(ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations

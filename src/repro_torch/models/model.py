@@ -22,8 +22,15 @@ by slice:
   and ``layers.{i}`` (`DecoderBlock`, with the ``c``-prefixed cross
   attention).
 
-The layer scan is a Python loop; remat does not apply.  Caches are a
-list with one dict per layer (per period for hybrid), allocated at
+The layer scan is a Python loop.  The train mode (no caches, no
+``cache_len``, no ``pos``) is differentiable, and with ``cfg.remat``
+each layer (each hybrid period, each encoder layer) runs under
+``torch.utils.checkpoint`` when gradients are on, its activations
+recomputed in the backward pass as ``jax.checkpoint`` does; prefill and
+decode run under ``torch.no_grad()``, so serving builds no autograd
+graph.  Parameters are built with ``requires_grad=False``; the trainer
+(`repro_torch.models.steps.train_step`) turns gradients on.  Caches are
+a list with one dict per layer (per period for hybrid), allocated at
 prefill: ``{"k", "v"} (B, cache_len, KV, D)`` written in place by each
 decode step; ssm ``{"h": (B, H, Sdim, P)}`` f32; hybrid ``{"h":
 (n_mamba, B, H, Sdim, P), "k", "v"}``; encdec adds the cross keys and
@@ -38,18 +45,21 @@ values; on the meta device, shapes only.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 
 __all__ = ["DenseBlock", "MambaBlock", "HybridPeriod", "EncoderBlock",
            "DecoderBlock", "LM", "DenseLM", "MambaLM", "HybridLM",
-           "EncDecLM", "build_model", "Caches", "masked_logits"]
+           "EncDecLM", "build_model", "Caches", "masked_logits",
+           "logits_from_hidden"]
 
 #: per layer (per period for hybrid) ``{"k", "v", ...}``
 Caches = List[Dict[str, torch.Tensor]]
@@ -314,6 +324,14 @@ def _mode(cache_len: Optional[int], pos: Optional[int]) -> str:
             else "prefill" if cache_len is not None else "decode")
 
 
+def _run(block: nn.Module, remat: bool, *args):
+    """``block(*args)``; with ``remat`` under activation checkpointing
+    (the block's activations recomputed in the backward pass)."""
+    if remat:
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
 class LM(nn.Module):
     """A language model of ``cfg``'s widths and depth: the embedding, the
     final norm and the head table; subclasses add their family's
@@ -351,7 +369,11 @@ class LM(nn.Module):
         embedding, or the unembedding."""
         return self.embed if self.cfg.tie_embeddings else self.unembed
 
-    @torch.no_grad()
+    def _remat(self) -> bool:
+        """Whether the layers run under activation checkpointing: with
+        ``cfg.remat`` when gradients are on (the train mode only)."""
+        return self.cfg.remat and torch.is_grad_enabled()
+
     def forward(self, tokens: torch.Tensor, *,
                 caches: Optional[Caches] = None,
                 cache_len: Optional[int] = None, pos: Optional[int] = None,
@@ -360,16 +382,26 @@ class LM(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[Caches]]:
         """Final hidden states ``(B, S, d)`` and the caches.
 
-        * train:   ``caches=None, cache_len=None, pos=None``;
+        * train:   ``caches=None, cache_len=None, pos=None``,
+          differentiable;
         * prefill: ``cache_len=S_max`` -> new caches;
         * decode:  ``caches`` and the position ``pos`` of the step's first
           token -> the caches (attention caches written in place).
+
+        Prefill and decode run under ``torch.no_grad()``.
 
         vlm: ``patch_embeds (B, n, d)`` replace the first ``n`` token
         embeddings at train and prefill (``n <= S``).  encdec:
         ``enc_frames (B, encoder_seq, d)`` feed the encoder at train and
         prefill; decode reads the cross keys and values of the caches.
         """
+        train = caches is None and cache_len is None and pos is None
+        with contextlib.nullcontext() if train else torch.no_grad():
+            return self._forward(tokens, caches, cache_len, pos,
+                                 patch_embeds, enc_frames)
+
+    def _forward(self, tokens, caches, cache_len, pos, patch_embeds,
+                 enc_frames):
         cfg = self.cfg
         B, S = tokens.shape
         x = self.embed[tokens].to(self.embed.dtype)
@@ -400,10 +432,11 @@ class DenseLM(LM):
     def _backbone(self, x, positions, caches, cache_len, pos, enc_frames):
         new_caches = [] if (cache_len is not None or caches is not None) \
             else None
+        remat = self._remat()
         for i, block in enumerate(self.layers):
-            x, kv = block(x, self.cfg, positions,
-                          None if caches is None else caches[i],
-                          cache_len, pos)
+            x, kv = _run(block, remat, x, self.cfg, positions,
+                         None if caches is None else caches[i], cache_len,
+                         pos)
             if new_caches is not None:
                 new_caches.append(kv)
         return x, new_caches
@@ -422,9 +455,10 @@ class MambaLM(LM):
     def _backbone(self, x, positions, caches, cache_len, pos, enc_frames):
         mode = _mode(cache_len, pos)
         new_caches = None if mode == "train" else []
+        remat = self._remat()
         for i, block in enumerate(self.layers):
-            x, c = block(x, self.cfg, None if caches is None else caches[i],
-                         mode)
+            x, c = _run(block, remat, x, self.cfg,
+                        None if caches is None else caches[i], mode)
             if new_caches is not None:
                 new_caches.append(c)
         return x, new_caches
@@ -443,10 +477,11 @@ class HybridLM(LM):
     def _backbone(self, x, positions, caches, cache_len, pos, enc_frames):
         mode = _mode(cache_len, pos)
         new_caches = []
+        remat = self._remat()
         for i, period in enumerate(self.periods):
-            x, c = period(x, self.cfg, positions,
-                          None if caches is None else caches[i], cache_len,
-                          pos, mode)
+            x, c = _run(period, remat, x, self.cfg, positions,
+                        None if caches is None else caches[i], cache_len,
+                        pos, mode)
             new_caches.append(c)
         return x, (None if mode == "train" else new_caches)
 
@@ -473,8 +508,9 @@ class EncDecLM(LM):
         e = enc_frames.to(dtype) + self.enc_pos[None]
         B, S_e, _ = e.shape
         epos = torch.arange(S_e, device=e.device)[None].expand(B, S_e)
+        remat = self._remat()
         for block in self.enc_layers:
-            e = block(e, self.cfg, epos)
+            e = _run(block, remat, e, self.cfg, epos)
         return [block.cross_kv(e, self.cfg) for block in self.layers]
 
     def _backbone(self, x, positions, caches, cache_len, pos, enc_frames):
@@ -486,10 +522,11 @@ class EncDecLM(LM):
         else:
             cross = [(c["ck"], c["cv"]) for c in caches]
         new_caches = []
+        remat = self._remat()
         for i, block in enumerate(self.layers):
-            x, kv = block(x, self.cfg, positions,
-                          None if caches is None else caches[i], cache_len,
-                          pos, cross[i])
+            x, kv = _run(block, remat, x, self.cfg, positions,
+                         None if caches is None else caches[i], cache_len,
+                         pos, cross[i])
             if kv is not None:
                 new_caches.append({**kv, "ck": cross[i][0],
                                    "cv": cross[i][1]})
@@ -526,4 +563,20 @@ def masked_logits(cfg: ArchConfig, table: torch.Tensor,
         mask = torch.arange(cfg.padded_vocab, device=logits.device) \
             < cfg.vocab
         logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    return logits
+
+
+def logits_from_hidden(model: LM, cfg: ArchConfig, hidden: torch.Tensor
+                       ) -> torch.Tensor:
+    """``(B, S, d) -> (B, S, padded_vocab)`` f32 logits of the model's head
+    table, rows past ``cfg.vocab`` at -1e30: the training head, and
+    differentiable.  The product is f32 of the operands widened exactly
+    (the JAX package's einsum with ``preferred_element_type=float32``);
+    `masked_logits` is the serving head."""
+    table = model.head_table
+    logits = hidden.to(torch.float32) @ table.to(torch.float32).T
+    if cfg.padded_vocab != cfg.vocab:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
     return logits

@@ -1,7 +1,11 @@
-"""Prefill and greedy decode steps of the models of every family.
+"""Train, prefill and greedy decode steps of the models of every family.
 
-The PyTorch counterpart of ``repro.models.steps`` (``prefill_step``,
-``make_mips_plan``, ``decode_step``).  `decode_step` is where the paper
+The PyTorch counterpart of ``repro.models.steps`` (``loss_fn``,
+``train_step``, ``prefill_step``, ``make_mips_plan``, ``decode_step``).
+`train_step` is one backward pass through `loss_fn` by
+``torch.autograd``, the optional bf16 gradient compression, and one
+AdamW update written into the model's parameters in place
+(`repro_torch.optim.adamw`).  `decode_step` is where the paper
 lands in the serving stack: with ``cfg.mips_mode='boundedme'`` the
 greedy next-token argmax over the vocab table runs as the BoundedME
 bandit — one launch of the fused-cascade kernel for the whole batch
@@ -20,14 +24,12 @@ exact cross-shard merge, as the JAX package's step runs
 ``sharded_bounded_me_decode`` under a bound mesh.  The heads read only
 the final hidden state, so every family's caches (attention K/V, SSM
 state, hybrid periods, encdec cross K/V) pass through them unchanged.
-``loss_fn`` and ``train_step`` wait for training (ROADMAP.md queue 1
-item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,10 +41,66 @@ from repro_torch.distributed.sharding import (make_shard_plan,
                                               quantize_shards,
                                               sharded_decode_tiled)
 from repro_torch.distributed.specs import serving_table_sharding
-from repro_torch.models.model import LM, Caches, masked_logits
+from repro_torch.models.model import (LM, Caches, logits_from_hidden,
+                                      masked_logits)
+from repro_torch.optim.adamw import (AdamWConfig, OptState, apply_updates,
+                                     compress_grads)
 
-__all__ = ["prefill_step", "make_mips_plan", "MipsHead", "mips_head",
-           "ShardedMipsHead", "sharded_mips_head", "decode_step"]
+__all__ = ["loss_fn", "train_step", "prefill_step", "make_mips_plan",
+           "MipsHead", "mips_head", "ShardedMipsHead", "sharded_mips_head",
+           "decode_step"]
+
+
+def loss_fn(model: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, dict]:
+    """Mean next-token NLL over the batch: ``(loss, {"loss", "acc"})``.
+
+    ``batch`` holds ``tokens`` and ``labels`` ``(B, S)`` and, for vlm and
+    encdec, ``patch_embeds`` / ``enc_frames``.  The NLL is ``logsumexp``
+    of the f32 logits (`logits_from_hidden`) less the label's logit;
+    ``acc`` counts the labels that are the first index of their row's
+    maximum."""
+    h, _ = model(batch["tokens"], patch_embeds=batch.get("patch_embeds"),
+                 enc_frames=batch.get("enc_frames"))
+    logits = logits_from_hidden(model, cfg, h)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    loss = torch.mean(logz - gold)
+    acc = torch.mean((torch.argmax(logits, dim=-1) == labels)
+                     .to(torch.float32))
+    return loss, {"loss": loss, "acc": acc}
+
+
+def train_step(model: LM, opt_state: OptState,
+               batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+               opt_cfg: AdamWConfig, compress: bool = False
+               ) -> Tuple[LM, OptState, dict]:
+    """One AdamW step: ``(model, opt_state, {"loss", "acc", "grad_norm",
+    "lr"})``, the metrics f32 0-d tensors.
+
+    The gradients of every parameter (zeros for one the batch does not
+    reach) are compressed to bf16 with error feedback when ``compress``
+    and the state has an error buffer, then applied; the model's
+    parameters and the moments are updated in place.  Turns the
+    parameters' gradients on."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        if not p.requires_grad:
+            p.requires_grad_(True)
+    loss, metrics = loss_fn(model, cfg, batch)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    grads = {name: torch.zeros_like(p) if g is None else g
+             for (name, p), g in zip(params.items(), grads)}
+    err = opt_state.err
+    if compress and err is not None:
+        grads, err = compress_grads(grads, err, enabled=True)
+    _, opt_state, opt_metrics = apply_updates(params, grads, opt_state,
+                                              opt_cfg)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics.update(opt_metrics)
+    return model, opt_state._replace(err=err), metrics
 
 
 def prefill_step(model: LM, tokens: torch.Tensor, cache_len: int,
@@ -90,6 +148,7 @@ class MipsHead:
                             quantized=self.quantized)
 
 
+@torch.no_grad()
 def mips_head(model: LM, cfg: ArchConfig) -> MipsHead:
     """The model's bandit head under ``cfg``'s plan, built at the first
     call and kept until the plan or the table (its storage or an
@@ -135,6 +194,7 @@ class ShardedMipsHead:
         return out[0], out[1]
 
 
+@torch.no_grad()
 def sharded_mips_head(model: LM, cfg: ArchConfig,
                       mesh) -> ShardedMipsHead:
     """The model's vocab-sharded head under ``cfg`` over ``mesh`` — the
@@ -164,6 +224,7 @@ def sharded_mips_head(model: LM, cfg: ArchConfig,
     return model._sharded_head
 
 
+@torch.no_grad()
 def decode_step(model: LM, cfg: ArchConfig, caches: Caches,
                 tokens: torch.Tensor, pos: int, perm=None, mesh=None
                 ) -> Tuple[torch.Tensor, Caches]:
@@ -176,6 +237,8 @@ def decode_step(model: LM, cfg: ArchConfig, caches: Caches,
     with exact final scores and the padding rows masked in the cascade;
     with ``mesh`` (more than one shard) the vocab-sharded head
     (`sharded_mips_head`), its next tokens back on the model's device.
+    The step, and the heads' tables built from the model's, are outside
+    autograd, whether or not the parameters require grad.
     """
     h, caches = model(tokens, caches=caches, pos=pos)
     hid = h[:, -1]
