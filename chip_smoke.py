@@ -269,10 +269,33 @@ Phases, one line each (any failure exits non-zero before the result):
    read seconds printed; (d) the smoke configs of tinyllama-1.1b and
    qwen3-moe-30b-a3b in f32, 3 `train_step`s on the card against the
    CPU from the same weights (`train_card_vs_cpu` states the rule);
-15. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+15. train sharded — multi-card training with the ranks of each mesh
+   simulated on the one card (``LocalTensorMode``, `repro_torch.launch.
+   mesh.simulated_mesh`; every rank's local tensors on the card), through
+   ``train(args, mesh=...)``: (a) tinyllama-1.1b at full width and 2
+   layers in f32, 3 steps on each of (2, 1), (1, 2) and (2, 2) from
+   phase 14's seeded weights and batches, against the single-device step
+   on the card by `train_card_vs_cpu`'s rule; (b) all 22 layers in bf16
+   with remat on (2, 2), the first 4 steps of phase 14 (a)'s run: losses
+   beside phase 14's, per-rank parameter and moment GB, peak card GB,
+   each step's collectives (`repro_torch.launch.comm_analysis`) and its
+   ms (four ranks serialised on one card, not a throughput); (e) that
+   model, gathered, in phase 10's decode demo for 8 tokens with the
+   bandit head, the launch counts set to 0 just before and read just
+   after: ``fused_cascade_batched[bf16]`` launches equal to the decode
+   steps, each held against the plain version; (d) (a)'s config on (2, 2)
+   halted at step 2 with a checkpoint and resumed on (2, 2) under
+   deterministic algorithms, bitwise, and on (1, 2) and one device (the
+   checkpoint re-sharded), within (a)'s rule; (c) qwen3-moe-30b-a3b at
+   full width in f32 on (1, 4), the expert-parallel MoE, depth cut as
+   `SHARDED_MOE` says, 2 steps on the card against the same sharded steps
+   on the CPU; (f) the dry run (`repro_torch.launch.dryrun.run_cell`) of
+   tinyllama-1.1b train_4k single, qwen3-moe-30b-a3b train_4k single and
+   grok-1-314b decode_32k multi, each ``ok``, with each device's GB;
+16. a ``kernels`` JSON line, one entry per kernel and tier (the batched
    cascade's launches are the serve, runtime, store, tenancy, decode,
-   sharded, families and train phases'; its ``[bf16]`` entry times the
-   decode head), and last the ``ok`` JSON line.
+   sharded, families, train and train sharded phases'; its ``[bf16]``
+   entry times the decode head), and last the ``ok`` JSON line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
 near-tie, counted and printed — every differing candidate's exact float64
@@ -3524,7 +3547,7 @@ def train_card_vs_cpu() -> dict:
     out = {}
     for arch in archs:
         cfg = get_config(arch).smoke()
-        host = build_model(cfg, seed=3)
+        host = build_model(cfg, seed=3, device="cpu")
         card = copy.deepcopy(host).to(DEV)
         opt_cfg = AdamWConfig(lr=lr, warmup_steps=1, total_steps=10)
         stream = LMStream(cfg.vocab, batch=4, seq=32, seed=0)
@@ -3588,8 +3611,434 @@ def phase_train() -> dict:
     return out
 
 
+#: phase 15: the meshes of (a), their ranks simulated on the one card
+SHARDED_MESHES = ((2, 1), (1, 2), (2, 2))
+#: phase 15 (a): tinyllama-1.1b at full width and 2 layers in f32
+SHARDED_LAYERS, SHARDED_STEPS = 2, 3
+#: phase 15 (b): all 22 layers in bf16 with remat on (2, 2), the first
+#: steps of phase 14 (a)'s schedule (its 16 steps, halted)
+SHARDED_FULL_STEPS = 4
+#: phase 15 (c): qwen3-moe-30b-a3b at full width in f32 on a (1, 4) mesh
+#: (128 experts over 'model' = 4: the expert-parallel path), 2 steps of
+#: batch 4 x 128 tokens; depth cut to 1 of 48 layers: the same sharded
+#: steps run on the CPU of the card's host, whose simulated ranks took
+#: 119 s for 2 steps at 2 layers (AdamW over 1.84 G f32 parameters and
+#: their moments in host memory); and at 2 layers a token whose 8th and
+#: 9th of 128 router probabilities tie within the two devices' last-bit
+#: difference after a step takes another expert on one of them (step 1's
+#: loss 1.0e-5 and gradient norm 1.6e-4 apart), past the dense rule
+SHARDED_MOE = ("qwen3-moe-30b-a3b", 1, (1, 4), 2)
+#: phase 15 (d): 4 steps halted at 2 and resumed (the checkpoint every 2)
+ELASTIC_STEPS, ELASTIC_HALT = 4, 2
+#: phase 15 (e): decode steps of the sharded-trained model's head
+SHARDED_SERVE_TOKENS = 8
+#: phase 15 (f): the dry run's cells
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
+                ("qwen3-moe-30b-a3b", "train_4k", "single"),
+                ("grok-1-314b", "decode_32k", "multi"))
+
+
+def gathered(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor as one plain tensor on its device, the simulated ranks'
+    copies reconciled (they must agree)."""
+    if isinstance(t, torch.distributed.tensor.DTensor):
+        t = t.full_tensor()
+    if hasattr(t, "reconcile"):
+        t = t.reconcile()
+    return t.detach()
+
+
+def trained_state(res) -> tuple:
+    """``({name: parameter}, {mu/name, nu/name: moment}, losses)`` of a
+    trainer run, gathered."""
+    params = {n: gathered(p) for n, p in res["model"].named_parameters()}
+    moments = {f"{k}/{n}": gathered(t) for k in ("mu", "nu")
+               for n, t in getattr(res["opt"], k).items()}
+    return params, moments, [h["loss"] for h in res["history"]]
+
+
+def hold_params(got: dict, want: dict, lr: float, steps: int,
+                what: str) -> dict:
+    """`train_card_vs_cpu`'s rule over two parameter sets: all but 0.1 %
+    within rtol 1e-4 and atol lr / 100, every one within 2 lr a step."""
+    off = past_rtol = n = 0
+    worst = 0.0
+    for name, w in want.items():
+        d = (got[name].float().cpu() - w.float().cpu()).abs()
+        ref = CARD_CPU_RTOL * w.float().cpu().abs()
+        worst = max(worst, float(d.max()))
+        past_rtol += int((d > ref).sum())
+        off += int((d > ref + 1e-2 * lr).sum())
+        n += d.numel()
+    check(worst <= 2 * lr * steps and off <= 1e-3 * n,
+          f"{what}: {off} of {n} parameters past rtol {CARD_CPU_RTOL} and "
+          f"atol lr / 100, largest gap {worst:.3g}")
+    return {"params": n, "params_past_rtol_and_atol": off,
+            "params_past_rtol_alone": past_rtol, "param_max_abs_err": worst}
+
+
+def hold_losses(got, want, what: str, rtol: float = 1e-5) -> float:
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    check(len(got) == len(want) and err <= rtol,
+          f"{what}: losses {got} vs {want}")
+    return err
+
+
+@contextlib.contextmanager
+def counted_steps():
+    """Each `train_step` the trainer takes under a `TraceCounter`: its
+    collectives (`collective_bytes`), one entry a step."""
+    from repro_torch.launch import train as T
+    from repro_torch.launch.comm_analysis import TraceCounter, \
+        collective_bytes
+    steps, real = [], T.train_step
+
+    def counted(*a, **k):
+        with TraceCounter() as tc:
+            out = real(*a, **k)
+        steps.append(collective_bytes(tc.collectives))
+        return out
+    T.train_step = counted
+    try:
+        yield steps
+    finally:
+        T.train_step = real
+
+
+def sharded_card_vs_single() -> dict:
+    """Phase 15 (a): `SHARDED_STEPS` trainer steps of tinyllama-1.1b at
+    full width and `SHARDED_LAYERS` layers in f32 on each mesh of
+    `SHARDED_MESHES` (ranks simulated on the card), against the single
+    device step on the card from the same seeded weights and batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import simulated_mesh
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=SHARDED_LAYERS, dtype="float32")
+    args = train_args("--steps", str(SHARDED_STEPS))
+    single = T.train(args, cfg=cfg)
+    want = {n: p.detach() for n, p in single["model"].named_parameters()}
+    wl = [h["loss"] for h in single["history"]]
+    wg = [h["grad_norm"] for h in single["history"]]
+    out = {"layers": SHARDED_LAYERS, "steps": SHARDED_STEPS,
+           "dtype": "float32", "single_losses": wl}
+    del single
+    for shape in SHARDED_MESHES:
+        t0 = time.perf_counter()
+        with simulated_mesh(shape, device=DEV) as mesh:
+            res = T.train(args, cfg=cfg, mesh=mesh)
+            got, _, losses = trained_state(res)
+        gn = [h["grad_norm"] for h in res["history"]]
+        what = f"train sharded {shape}"
+        rec = {"losses": losses,
+               "loss_rel_err": hold_losses(losses, wl, what),
+               "grad_norm_rel_err": max(abs(a - b) / b
+                                        for a, b in zip(gn, wg)),
+               "ms_per_step_serialised": [s * 1e3 for s in res["step_s"]],
+               "run_s": time.perf_counter() - t0}
+        check(rec["grad_norm_rel_err"] <= CARD_CPU_RTOL,
+              f"{what}: grad norms {gn} vs {wg}")
+        rec.update(hold_params(got, want, args.lr, SHARDED_STEPS, what))
+        out[str(shape)] = rec
+        say(f"{what}: " + json.dumps(rec))
+        del res, got
+        torch.cuda.empty_cache()
+    return out
+
+
+#: phase 15 (b): how far its bf16 losses may stray from phase 14 (a)'s
+#: (the model's partial sums reduce across ranks in bf16, where one card
+#: accumulates a product in f32 and rounds once)
+SHARDED_BF16_LOSS_RTOL = 2e-2
+
+
+def sharded_full(phase14_losses) -> tuple:
+    """Phase 15 (b): tinyllama-1.1b at full width and depth in bf16 with
+    remat on a (2, 2) mesh simulated on the card, the first
+    `SHARDED_FULL_STEPS` steps of phase 14 (a)'s run (its weights,
+    batches and schedule: the trainer at ``--steps 16``, halted).
+    Returns the trained model gathered into plain tensors (for (e)), its
+    config and the record."""
+    from repro_torch.distributed.specs import local_bytes
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import simulated_mesh
+    args = train_args("--steps", str(TRAIN_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_steps() as steps, simulated_mesh((2, 2), device=DEV) \
+            as mesh:
+        res = T.train(args, mesh=mesh, halt_at=SHARDED_FULL_STEPS)
+        cfg, model = res["cfg"], res["model"]
+        hist, step_s = res["history"], res["step_s"]
+        rec = {"param_gb_per_rank": local_bytes(model.parameters()) / 1e9,
+               "moment_gb_per_rank": local_bytes(
+                   [*res["opt"].mu.values(), *res["opt"].nu.values()])
+               / 1e9}
+        del res
+        gc.collect()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with torch.no_grad():
+            for mod in model.modules():
+                for n, p in list(mod.named_parameters(recurse=False)):
+                    setattr(mod, n, torch.nn.Parameter(
+                        gathered(p), requires_grad=True))
+    losses = [h["loss"] for h in hist]
+    check(cfg.n_layers == 22 and cfg.dtype == "bfloat16" and cfg.remat
+          and len(losses) == SHARDED_FULL_STEPS
+          and all(np.isfinite(losses)),
+          f"train sharded full: {cfg.n_layers} layers in {cfg.dtype}, "
+          f"losses {losses}")
+    ref = phase14_losses[:SHARDED_FULL_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    check(max(rel) <= SHARDED_BF16_LOSS_RTOL,
+          f"train sharded full: losses {losses} vs phase 14's {ref}")
+    rec.update({
+        "mesh": [2, 2], "layers": cfg.n_layers, "dtype": cfg.dtype,
+        "remat": cfg.remat, "batch": args.batch, "seq": args.seq,
+        "losses": losses, "phase14_losses": ref, "loss_rel_err": rel,
+        "peak_card_gb": peak,
+        "collectives_per_step": steps,
+        "ms_per_step_four_ranks_serialised_on_one_card_not_a_throughput":
+            [s * 1e3 for s in step_s],
+        "run_s": time.perf_counter() - t0})
+    say("train sharded full: " + json.dumps(rec))
+    return model, cfg, rec
+
+
+def sharded_serve(model, cfg) -> dict:
+    """Phase 15 (e): the model trained in (b), gathered, in the decode
+    demo (4 prompts of 16 tokens, `SHARDED_SERVE_TOKENS` greedy tokens,
+    the bandit head after a 2-token warm-up): the launch counts are set
+    to 0 just before and read just after; ``fused_cascade_batched
+    [bf16]`` launches must equal the decode steps, each held against the
+    plain version."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    serve.run_decode_demo(decode_args(TRAIN_ARCH, "boundedme", 2),
+                          model=model)
+    args = decode_args(TRAIN_ARCH, "boundedme", SHARDED_SERVE_TOKENS)
+    kops.reset_launch_counts()
+    with recording_heads() as calls:
+        out_b = serve.run_decode_demo(args, model=model)
+    counts = kops.launch_counts()
+    launches = counts["fused_cascade_batched[bf16]"]
+    check(launches == args.tokens == counts["fused_cascade_batched"]
+          == len(calls),
+          f"train sharded serve: {launches} fused_cascade_batched[bf16] "
+          f"launches ({counts['fused_cascade_batched']} in all, "
+          f"{len(calls)} head calls) for {args.tokens} decode steps")
+    table = model.head_table
+    check(out_b["cfg"].n_layers == cfg.n_layers and table is model.unembed,
+          "train sharded serve: not the trained model's unembedding")
+    held = hold_head_steps("sharded-trained tinyllama-1.1b", calls,
+                           out_b["cfg"], table)
+    out = {**held, "launches": launches, "tokens": args.tokens,
+           "ms_per_token": out_b["ms_per_token"],
+           "head": head_launch(calls, out_b["cfg"], table, widened=True)}
+    say("train sharded serve: " + json.dumps(out))
+    return out
+
+
+def sharded_moe_card_vs_cpu() -> dict:
+    """Phase 15 (c): qwen3-moe-30b-a3b at full width in f32 on a (1, 4)
+    mesh, the expert-parallel MoE (`SHARDED_MOE`: the depth cut and its
+    reason), the same sharded steps on the card and on the CPU from the
+    same weights: losses to rtol 1e-5, gradient norms to rtol 1e-4,
+    parameters by `train_card_vs_cpu`'s rule."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.distributed.sharding import logical_mesh
+    from repro_torch.distributed.specs import (batch_pspecs, param_pspecs,
+                                               place_params, place_tree)
+    from repro_torch.launch.mesh import simulated_mesh
+    from repro_torch.models import layers as TL
+    from repro_torch.models.model import build_model
+    from repro_torch.models.steps import train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_opt
+    arch, layers, shape, n_steps = SHARDED_MOE
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              dtype="float32")
+    host = build_model(cfg, seed=3, device="cpu")
+    card = copy.deepcopy(host).to(DEV)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    stream = LMStream(cfg.vocab, batch=4, seq=128, seed=0)
+    ep, real = [], TL._moe_ep
+    TL._moe_ep = lambda *a: ep.append(1) or real(*a)
+    runs = {}
+    try:
+        for name, model, dev in (("card", card, DEV), ("cpu", host, "cpu")):
+            ep.clear()
+            t0 = time.perf_counter()
+            with simulated_mesh(shape, device=dev) as mesh, \
+                    logical_mesh(mesh):
+                place_params(model, param_pspecs(
+                    cfg, dict(model.named_parameters()), mesh), mesh)
+                opt = init_opt(dict(model.named_parameters()))
+                losses, norms = [], []
+                for step in range(n_steps):
+                    b = {k: torch.from_numpy(v).to(dev)
+                         for k, v in stream.batch_at(step).items()}
+                    b = place_tree(b, batch_pspecs(mesh, 4, b), mesh)
+                    _, opt, m = train_step(model, opt, b, cfg, opt_cfg)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                del opt
+                params = {n: gathered(p).cpu()
+                          for n, p in model.named_parameters()}
+            check(len(ep) >= layers * n_steps,
+                  f"train sharded moe {name}: {len(ep)} expert-parallel "
+                  f"MoE calls")
+            runs[name] = (params, losses, norms,
+                          time.perf_counter() - t0, len(ep))
+            del model
+            if name == "card":
+                del card
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        TL._moe_ep = real
+    (pc, lc, nc, sc, ec), (pp, lp, npu, sp, _) = runs["card"], runs["cpu"]
+    what = f"train sharded moe {shape}"
+    rec = {"arch": arch, "layers": layers, "mesh": list(shape),
+           "steps": n_steps, "dtype": "float32", "ep_calls": ec,
+           "losses_card": lc, "losses_cpu": lp,
+           "loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(lc, lp)],
+           "grad_norm_rel_err": [abs(a - b) / b for a, b in zip(nc, npu)],
+           "card_s": sc, "cpu_s": sp}
+    say(f"{what}: " + json.dumps(rec))
+    hold_losses(lc, lp, what)
+    check(max(rec["grad_norm_rel_err"]) <= CARD_CPU_RTOL,
+          f"{what}: grad norms {nc} vs {npu}")
+    rec.update(hold_params(pc, pp, opt_cfg.lr, n_steps, what))
+    say(f"{what}: " + json.dumps(rec))
+    del runs, pc, pp
+    gc.collect()
+    return rec
+
+
+def sharded_elastic() -> dict:
+    """Phase 15 (d): (a)'s config on a (2, 2) mesh for `ELASTIC_STEPS`
+    steps, and halted at `ELASTIC_HALT` with a checkpoint (a temporary
+    directory, removed after), under deterministic algorithms: restored
+    onto (2, 2) the resume is bitwise (losses, parameters, moments);
+    restored onto (1, 2) and one device (re-sharded from the file) and
+    continued, within (a)'s rule."""
+    import os
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import simulated_mesh
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=SHARDED_LAYERS, dtype="float32")
+    steps = ["--steps", str(ELASTIC_STEPS)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+
+    def ckpt(name):
+        return ["--ckpt-dir", os.path.join(tmp, name), "--ckpt-every",
+                str(ELASTIC_HALT)]
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    out = {"layers": SHARDED_LAYERS, "steps": ELASTIC_STEPS,
+           "halted_at": ELASTIC_HALT, "saved_on": [2, 2]}
+    try:
+        with simulated_mesh((2, 2), device=DEV) as mesh:
+            whole = trained_state(T.train(train_args(*steps), cfg=cfg,
+                                          mesh=mesh))
+            T.train(train_args(*steps, *ckpt("a")), cfg=cfg, mesh=mesh,
+                    halt_at=ELASTIC_HALT)
+            for other in ("b", "c"):
+                shutil.copytree(os.path.join(tmp, "a"),
+                                os.path.join(tmp, other))
+            res = T.train(train_args(*steps, *ckpt("a")), cfg=cfg,
+                          mesh=mesh)
+            check(res["start"] == ELASTIC_HALT,
+                  f"train elastic: resumed at {res['start']}")
+            rest = trained_state(res)
+            del res
+        check(rest[2] == whole[2][ELASTIC_HALT:],
+              f"train elastic: losses {rest[2]} vs {whole[2]}")
+        diff = [n for i in (0, 1) for n in whole[i]
+                if not torch.equal(rest[i][n], whole[i][n])]
+        check(not diff, f"train elastic: the (2, 2) resume is not bitwise: "
+                        f"{diff[:5]}")
+        out["resume_2x2_bitwise"] = True
+        out["tensors_bitwise"] = len(whole[0]) + len(whole[1])
+        with simulated_mesh((1, 2), device=DEV) as mesh:
+            on12 = trained_state(T.train(train_args(*steps, *ckpt("b")),
+                                         cfg=cfg, mesh=mesh))
+        on11 = trained_state(T.train(train_args(*steps, *ckpt("c")),
+                                     cfg=cfg))
+        lr = train_args().lr
+        for got, label in ((on12, "(1, 2)"), (on11, "(1, 1)")):
+            what = f"train elastic onto {label}"
+            out[label] = {"losses": got[2],
+                          "loss_rel_err": hold_losses(
+                              got[2], whole[2][ELASTIC_HALT:], what),
+                          **hold_params(got[0], whole[0], lr,
+                                        ELASTIC_STEPS - ELASTIC_HALT, what)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("train elastic: " + json.dumps(out))
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_dryrun() -> dict:
+    """Phase 15 (f): the dry run (`repro_torch.launch.dryrun.run_cell`,
+    a fake group of 256 or 512 ranks and fake tensors, on the host) of
+    `DRYRUN_CELLS`; each must come back ``ok``; prints each device's GB."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun as D
+    out = {}
+    for arch, shape, mesh_name in DRYRUN_CELLS:
+        rec = D.run_cell(get_config(arch), get_shape(shape), mesh_name,
+                         save=False)
+        tag = f"{arch} x {shape} x {mesh_name}"
+        check(rec["ok"], f"dry run {tag}: {rec.get('error')}")
+        c = rec["collectives"]
+        out[tag] = {
+            "n_devices": rec["n_devices"], "fsdp": rec["fsdp"],
+            "flops_per_device": rec["flops"],
+            **{f"{k}_gb_per_device": rec[f"{k}_bytes"] / 1e9
+               for k in ("param", "moment", "batch", "cache")},
+            "argument_gb_per_device": rec["argument_size_in_bytes"] / 1e9,
+            "collective_gb_per_device": c["total_bytes"] / 1e9,
+            "collective_counts": {k[:-6]: v for k, v in c.items()
+                                  if k.endswith("_count") and v},
+            "trace_s": rec["lower_s"]}
+        say(f"dry run {tag}: " + json.dumps(out[tag]))
+    return out
+
+
+def phase_train_sharded(phase14_losses) -> dict:
+    """Phase 15: multi-card training with the ranks of each mesh simulated
+    on the one card (``LocalTensorMode``), then the dry run."""
+    t_phase = time.perf_counter()
+    out = {"card_vs_single": sharded_card_vs_single()}
+    model, cfg, out["full"] = sharded_full(phase14_losses)
+    out["serve"] = sharded_serve(model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["elastic"] = sharded_elastic()
+    out["moe"] = sharded_moe_card_vs_cpu()
+    torch.cuda.empty_cache()
+    out["dryrun"] = sharded_dryrun()
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"train sharded: phase in {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
-                   lib, decode, sharded, families, trained) -> list:
+                   lib, decode, sharded, families, trained,
+                   trained_sharded) -> list:
     """The ``kernels`` line: one entry per kernel and tier.  The batched
     cascade's launches are those of the serve, runtime, store, tenancy,
     decode, sharded, families and train phases (the fp32 tier on the f32
@@ -3612,6 +4061,7 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
             runs += [decode["qwen1.5-0.5b"], decode["tinyllama-1.1b"]]
             runs += [families[arch] for arch, *_ in FAMILY_RUNS]
             runs.append(trained["serve"])
+            runs.append(trained_sharded["serve"])
         runs.append(sharded["per_tag"].get(tag, none))
         row, coord = kern[(tag, "row")], kern.get((tag, "coord"))
         timed = decode["head"] if tag == "bf16" else row
@@ -3644,6 +4094,11 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
                 k: head[k] for k in ("table", "kernel_ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")
             } | {"launches": trained["serve"]["launches"]}
+            head = trained_sharded["serve"]["head"]
+            entry["trained_sharded"] = {
+                k: head[k] for k in ("table", "kernel_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")
+            } | {"launches": trained_sharded["serve"]["launches"]}
         if coord:
             entry.update(coord_ms=coord["kernel_ms"],
                          coord_plain_ms=coord["plain_ms"],
@@ -3758,6 +4213,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         families = phase_families()
         trained = phase_train()
+        trained_sharded = phase_train_sharded(trained["full"]["losses"])
         say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -3765,7 +4221,7 @@ def main() -> int:
         return 1
     print(json.dumps({"kernels": kernel_entries(
         kern, single, aux, served, runtime, stored, tenancy, lib, decode,
-        sharded, families, trained)}), flush=True)
+        sharded, families, trained, trained_sharded)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

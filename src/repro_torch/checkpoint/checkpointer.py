@@ -11,6 +11,15 @@ saves as ``params/layers.0.wq``, ``opt/step``, ``opt/mu/layers.0.wq``;
 a None subtree (no error buffer) holds nothing.  Arrays are saved
 device-agnostic, bf16 widened to f32 (npz has no bf16; the widening is
 exact) and narrowed back on restore, and no mesh layout is recorded.
+
+Elastic re-meshing, as in the JAX package's design: a DTensor leaf is
+saved whole (``full_tensor()``, a gather over its mesh), so every rank
+calls `save_checkpoint` and only rank 0 of the process group writes
+the npz and the manifest, the others waiting at a barrier; a restore
+places each array by the leaf of ``tree_like`` it fills, so a tree of
+DTensors on another mesh (a (2, 2) save restored on (1, 2) or (1, 1))
+gets the same values re-sharded, each rank cutting its shards from the
+file itself.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from typing import Any, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import is_dtensor
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "list_steps"]
@@ -46,8 +57,26 @@ def _leaves(tree: Any, prefix: str = ""
         yield prefix[:-1], tree
 
 
+def _rank() -> int:
+    """This process's rank (0 without a process group)."""
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _as_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
+    if hasattr(t, "reconcile"):   # ranks simulated in one process agree
+        t = t.reconcile()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.cpu().numpy()
@@ -56,14 +85,24 @@ def _as_numpy(t: torch.Tensor) -> np.ndarray:
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
                     keep_last: int = 3) -> str:
     """Write ``tree`` as step ``step`` atomically; keep the last
-    ``keep_last`` steps (all with 0).  Returns the step's directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``keep_last`` steps (all with 0).  Returns the step's directory.
+    Under a process group every rank calls it (DTensor leaves gather),
+    rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    flat = {k: _as_numpy(v) for k, v in _leaves(tree)}
+    if _rank() == 0:
+        _write(ckpt_dir, final, step, flat, keep_last)
+    _barrier()
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, flat: dict,
+           keep_last: int) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = {k: _as_numpy(v) for k, v in _leaves(tree)}
     np.savez(os.path.join(tmp, "shard_0.npz"), **flat)
     meta = {"step": step, "time": time.time(), "n_arrays": len(flat),
             "bytes": int(sum(v.nbytes for v in flat.values()))}
@@ -73,7 +112,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
         shutil.rmtree(final)
     os.rename(tmp, final)                      # atomic commit
     _update_manifest(ckpt_dir, keep_last)
-    return final
 
 
 def _update_manifest(ckpt_dir: str, keep_last: int) -> None:
@@ -105,7 +143,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def _rebuild(tree: Any, prefix: str, data) -> Any:
     """``tree``'s structure with each leaf read from ``data`` at its key,
-    in the leaf's type and on its device."""
+    in the leaf's type and on its device (a DTensor leaf: on its mesh, in
+    its placements)."""
     if tree is None:
         return None
     if isinstance(tree, tuple) and hasattr(tree, "_asdict"):
@@ -119,6 +158,12 @@ def _rebuild(tree: Any, prefix: str, data) -> Any:
     if arr.shape != tuple(tree.shape):
         raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs "
                          f"model {tuple(tree.shape)}")
+    if is_dtensor(tree):
+        from torch.distributed.tensor import distribute_tensor
+        full = torch.from_numpy(arr).to(device=tree.to_local().device,
+                                        dtype=tree.dtype)
+        return distribute_tensor(full, tree.device_mesh, tree.placements,
+                                 src_data_rank=None)
     return torch.from_numpy(arr).to(device=tree.device, dtype=tree.dtype)
 
 
@@ -126,8 +171,9 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any,
                        step: Optional[int] = None) -> Tuple[Any, int]:
     """``(tree, step)``: step ``step`` (default the latest) read into the
     structure of ``tree_like``, each tensor in the type and on the device
-    of ``tree_like``'s.  Raises FileNotFoundError without a checkpoint,
-    KeyError on a missing key, ValueError on a shape mismatch."""
+    (or mesh and placements) of ``tree_like``'s.  Raises
+    FileNotFoundError without a checkpoint, KeyError on a missing key,
+    ValueError on a shape mismatch."""
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:

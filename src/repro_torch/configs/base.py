@@ -6,18 +6,37 @@ serving loop reads the vocab table's ``d_model``, ``vocab``,
 ``padded_vocab``, ``tie_embeddings`` and ``dtype``; the models
 (`repro_torch.models`) every width, depth and family field and the
 ``mips_*`` head settings.  ``smoke()`` derives the reduced config used by
-CPU tests.
+CPU tests; `RunShape` and `SHAPES` are the dry run's input shapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
-__all__ = ["ArchConfig", "pad_to"]
+__all__ = ["ArchConfig", "RunShape", "SHAPES", "pad_to"]
 
 
 def pad_to(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class RunShape:
+    """One input-shape cell of the dry run (assigned per arch)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: Tuple[RunShape, ...] = (
+    RunShape("train_4k", 4096, 256, "train"),
+    RunShape("prefill_32k", 32768, 32, "prefill"),
+    RunShape("decode_32k", 32768, 128, "decode"),
+    RunShape("long_500k", 524288, 1, "decode"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +102,50 @@ class ArchConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    def n_params(self) -> int:
+        """Rough parameter count (embedding + layers), as the JAX package
+        counts it (the dry run's FSDP and bf16-moment thresholds)."""
+        d, L = self.d_model, self.n_layers
+        emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        per = 0
+        attn = d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim \
+            + self.n_heads * self.head_dim * d
+        if self.family in ("dense", "vlm", "encdec"):
+            per = attn + 3 * d * self.d_ff
+        elif self.family == "moe":
+            per = attn + self.n_experts * 3 * d * self.d_ff \
+                + d * self.n_experts
+        elif self.family == "ssm":
+            di, H, S = self.d_inner, self.ssm_heads, self.ssm_state
+            per = d * (2 * di + 2 * S + H) + di * d + di
+        elif self.family == "hybrid":
+            n_attn = L // self.attn_period
+            n_mamba = L - n_attn
+            di, S = self.d_inner, self.ssm_state
+            mamba = d * (2 * di + 2 * S + self.ssm_heads) + di * d
+            moe = self.n_experts * 3 * d * self.d_ff + d * self.n_experts
+            dense_ffn = 3 * d * self.d_ff
+            # MoE on every other layer, dense MLP on the rest
+            per = (attn * n_attn + mamba * n_mamba) / L \
+                + (moe + dense_ffn) / 2
+        total = emb + int(per) * L
+        if self.family == "encdec":
+            total += self.encoder_layers * int(attn + 3 * d * self.d_ff)
+            total += L * int(attn)  # cross-attention in the decoder
+        return int(total)
+
+    def active_params(self) -> int:
+        """Active (per-token) params: MoE uses experts_per_token of
+        n_experts."""
+        if self.n_experts and self.experts_per_token:
+            d, L = self.d_model, self.n_layers
+            dead = (self.n_experts - self.experts_per_token) * 3 * d \
+                * self.d_ff
+            if self.family == "hybrid":
+                return self.n_params() - int(L // 2 * dead)
+            return self.n_params() - L * dead
+        return self.n_params()
 
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU smoke tests."""

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.boundedme_torch import as_kept
+from repro_torch.core.boundedme_torch import as_kept, resolve_device
 from repro_torch.models.model import EMBED_STD, LM, build_model
 from repro_torch.optim.adamw import OptState
 from repro_torch.store import DynamicTableStore
@@ -141,12 +141,14 @@ def to_jax_tree(tensors: Mapping[str, torch.Tensor], like: Mapping
     return out
 
 
-def opt_state_from_jax(state_np, device="cpu") -> OptState:
+def opt_state_from_jax(state_np, device="cuda") -> OptState:
     """The port's `OptState` on ``device`` from the JAX package's
     ``OptState`` (``step``, ``mu``, ``nu``, ``err``; arrays converted to
     numpy): each moment and error tree unstacked under the port's names
     as `params_from_jax` unstacks the parameters, in its own type (f32
-    or bf16 moments)."""
+    or bf16 moments): the card by default, the CPU when asked."""
+    device = resolve_device(device)
+
     def tree(t):
         return None if t is None else {
             name: v.to(device) for name, v in _port_params(t)}
@@ -156,7 +158,7 @@ def opt_state_from_jax(state_np, device="cpu") -> OptState:
                     err=tree(state_np.err))
 
 
-def params_from_jax(params_np: Mapping, cfg: ArchConfig, device="cpu"
+def params_from_jax(params_np: Mapping, cfg: ArchConfig, device="cuda"
                     ) -> LM:
     """The `build_model` of ``cfg`` on ``device`` holding the JAX
     package's parameters (``init_params(cfg, key)``, each array converted
@@ -179,7 +181,7 @@ def params_from_jax(params_np: Mapping, cfg: ArchConfig, device="cpu"
                              f"model has {want[name].dtype} "
                              f"{tuple(want[name].shape)}")
     model.load_state_dict(got, assign=True)
-    return model.to(device)
+    return model.to(resolve_device(device))
 
 
 def quantized_from_jax(artifacts_np: Sequence[np.ndarray], precision: str

@@ -1,4 +1,5 @@
-"""Multi-device serving of the port (``repro.distributed``): the serving
-mesh, the sharded decode and its table placement, and the per-dispatch
-lane accounting.  Model-parameter sharding waits for multi-card
-training (ROADMAP.md queue 1 item 7)."""
+"""Multi-device serving and training of the port (``repro.distributed``):
+the serving mesh, the sharded decode and its table placement, the
+per-dispatch lane accounting (serving), and the logical axes, partition
+specs and DTensor placements of the training meshes (`sharding`,
+`specs`)."""

@@ -1,12 +1,31 @@
 """The serving mesh, the sharded decode engine and per-dispatch lane
 accounting of the port.
 
-The PyTorch counterpart of the serving half of
-``repro.distributed.sharding``: `make_shard_plan`,
-`sharded_bounded_me_decode` and `dispatch_lane_stats`.  The training
-half (``logical_mesh``, ``shard``, ``spec_of``, ``named_sharding``,
-``shard_map_compat``) waits for multi-card training and model sharding
-(ROADMAP.md queue 1 item 7).
+The PyTorch counterpart of ``repro.distributed.sharding``: its serving
+half (`make_shard_plan`, `sharded_bounded_me_decode`,
+`dispatch_lane_stats`) over the serving `Mesh`, and its training half
+(`LOGICAL_RULES`, `logical_mesh`, `current_mesh`, `spec_of`, `shard`,
+`named_sharding`, `shard_map_compat`) over a training mesh, a
+``torch.distributed.device_mesh.DeviceMesh`` with the JAX mesh's axis
+names (`repro_torch.launch.mesh.make_local_mesh`,
+``make_production_mesh``).
+
+**Training: logical axes over a DeviceMesh.**  Model code annotates
+activations with logical axes (``shard(x, "batch", "seq", "heads",
+None)``); `logical_mesh` binds a mesh and the logical -> mesh-axis
+rules, and without one every annotation is the identity, so the same
+code runs on one device and on a (2, 16, 16) mesh.  A JAX
+``PartitionSpec`` is a `PartitionSpec` here too (one entry per tensor
+dimension: None, a mesh-axis name, or a tuple of names, a 1-tuple
+normalized to its name as JAX does), and `placements` turns one into
+DTensor placements: mesh dimension i is ``Shard(d)`` where tensor
+dimension d's entry names it, else ``Replicate()``.  A dimension split
+over two mesh axes (``"batch"`` on ``("pod", "data")``) is split
+row-major, the first axis outermost, as JAX splits it; DTensor's
+default order over mesh dimensions is that one when the names come in
+the mesh's order, and another order raises.  ``with_sharding_constraint``
+becomes ``DTensor.redistribute`` (`shard`), ``shard_map`` becomes
+``local_map`` with explicit collectives inside (`shard_map_compat`).
 
 **One controller over a list of devices.**  The JAX package runs each
 shard's body under ``shard_map`` from one Python process and gathers the
@@ -34,7 +53,8 @@ descending sort, where ``torch.topk`` promises no order for ties.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional, Sequence
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,10 +65,16 @@ from repro_torch.core.boundedme_torch import (BlockedPlan, _check_perm,
                                               quantize_table, resolve_device)
 from repro_torch.core.schedule import pulls_through_round
 
-__all__ = ["Mesh", "device_guard", "make_shard_plan", "shard_valid_counts",
+__all__ = ["LOGICAL_RULES", "PartitionSpec", "P", "AbstractMesh",
+           "axis_sizes", "logical_mesh", "current_mesh", "rebinder",
+           "spec_of",
+           "placements", "shard", "named_sharding", "shard_map_compat",
+           "dtensor_context", "outside_simulated_ranks", "is_dtensor",
+           "Mesh",
+           "device_guard", "make_shard_plan", "shard_valid_counts",
            "quantize_shards", "stage_batch", "merge_topk",
-           "sharded_decode_tiled",
-           "sharded_bounded_me_decode", "dispatch_lane_stats"]
+           "sharded_decode_tiled", "sharded_bounded_me_decode",
+           "dispatch_lane_stats"]
 
 
 class Mesh:
@@ -396,3 +422,293 @@ def sharded_bounded_me_decode(table, Q, perm, *, mesh: Mesh, K: int = 1,
         final_exact=final_exact, quantized=quantize_shards(shards, plan),
         adaptive=adaptive,
         return_candidates=return_candidates)
+
+
+# ---------------------------------------------------------------------------
+# Training: logical axes, specs and placements over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+AxisBinding = Union[str, Tuple[str, ...], None]
+
+#: the default logical axis -> mesh axis binding of the production meshes
+LOGICAL_RULES: Dict[str, AxisBinding] = {
+    "batch": ("pod", "data"),   # 'pod' dropped on single-pod meshes
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": None,           # GQA kv counts rarely divide the model axis
+    "ff": "model",
+    "experts": "model",
+    "expert_cap": None,
+    "kvseq": "model",           # sequence-sharded KV cache at decode
+    "seq": None,
+    "embed": None,
+    "state": None,
+    "dinner": "model",          # mamba inner dim (bound per config)
+}
+
+
+class PartitionSpec(tuple):
+    """A JAX ``PartitionSpec``: one entry per tensor dimension, None
+    (replicated), a mesh-axis name, or a tuple of names (the dimension
+    split over those axes, the first outermost).  A 1-tuple is its name
+    and an empty tuple None, as JAX normalizes them."""
+
+    def __new__(cls, *parts):
+        norm = []
+        for p in parts:
+            if isinstance(p, (tuple, list)):
+                p = tuple(p)
+                p = p[0] if len(p) == 1 else (p or None)
+            norm.append(p)
+        return super().__new__(cls, norm)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+class AbstractMesh:
+    """Axis names and sizes without devices or ranks (JAX's
+    ``AbstractMesh``): what `repro_torch.distributed.specs` needs to
+    decide a spec.  ``shape`` is ``{name: size}``, as a JAX mesh's."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"{len(shape)} sizes for axes {axis_names}")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` (its ``mesh_dim_names``),
+    an `AbstractMesh` or the serving `Mesh`."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, (int(s) for s in mesh.shape)))
+    return dict(mesh.shape)
+
+
+class _Ctx(threading.local):
+    mesh = None
+    rules: Dict[str, AxisBinding] = {}
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def logical_mesh(mesh, rules: Optional[Dict[str, AxisBinding]] = None):
+    """Bind a mesh and the logical rules (`LOGICAL_RULES` updated by
+    ``rules``) for `shard`, `spec_of` and the model code, in this thread.
+    Bindings to axes the mesh lacks are dropped ('pod' on one pod)."""
+    names = tuple(axis_sizes(mesh))
+
+    def keep(b: AxisBinding) -> AxisBinding:
+        if b is None:
+            return None
+        if isinstance(b, str):
+            return b if b in names else None
+        kept = tuple(a for a in b if a in names)
+        return kept or None
+
+    merged = dict(LOGICAL_RULES)
+    merged.update(rules or {})
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = mesh, {k: keep(v) for k, v in merged.items()}
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+def current_mesh():
+    """The mesh bound by the innermost `logical_mesh`, or None."""
+    return _CTX.mesh
+
+
+def rebinder():
+    """A factory of contexts that bind this thread's mesh and rules again
+    (`contextlib.nullcontext` without a mesh): for work that runs later
+    in another thread, such as activation checkpointing's recompute in
+    the autograd engine's device thread."""
+    mesh, rules = _CTX.mesh, dict(_CTX.rules)
+    if mesh is None:
+        return contextlib.nullcontext
+    return lambda: logical_mesh(mesh, rules)
+
+
+def spec_of(*logical_axes: Optional[str]) -> PartitionSpec:
+    """The logical axes as a `PartitionSpec` under the bound rules.  A
+    mesh axis appears at most once: where two logical axes bind it
+    ('experts' and 'ff' on 'model'), the first keeps it and the later
+    ones are replicated over it."""
+    used: set = set()
+    out = []
+    for a in logical_axes:
+        b = _CTX.rules.get(a) if a else None
+        if b is None:
+            out.append(None)
+            continue
+        bt = tuple(x for x in ((b,) if isinstance(b, str) else b)
+                   if x not in used)
+        used.update(bt)
+        out.append(bt or None)
+    return PartitionSpec(*out)
+
+
+def placements(mesh, spec: Sequence) -> tuple:
+    """DTensor placements of ``spec`` on a ``DeviceMesh``: mesh dimension
+    i is ``Shard(d)`` where entry d names its axis, else ``Replicate()``.
+    Raises on an axis the mesh lacks, on one named twice, and on a tuple
+    entry whose axes are not in the mesh's order (DTensor splits a
+    dimension over several mesh dimensions in the mesh's order, JAX in
+    the tuple's: the two agree only then)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    where: Dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"{spec} names axis {a!r}; the mesh has "
+                                 f"{names}")
+            if a in where:
+                raise ValueError(f"{spec} uses mesh axis {a!r} twice")
+            where[a] = d
+        order = [names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(f"{spec} splits dimension {d} over {axes}, "
+                             f"not in the mesh's order {names}")
+    return tuple(Shard(where[n]) if n in where else Replicate()
+                 for n in names)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (False where torch has no
+    ``torch.distributed``)."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+class _Constrain(torch.autograd.Function):
+    """A sharding constraint and its transpose: the value redistributed to
+    ``pl``, and its gradient too (JAX transposes
+    ``with_sharding_constraint`` to the same constraint on the
+    cotangent; DTensor alone would carry a partial-sum gradient on)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.mesh, ctx.pl = mesh, pl
+        return x.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.pl), None, None
+
+
+def shard(x, *logical_axes: Optional[str]):
+    """``with_sharding_constraint``: ``x`` redistributed to the logical
+    axes' placements when a mesh is bound and ``x`` is a DTensor (its
+    gradient too), the identity otherwise.  Raises when the axes do not
+    match ``x``'s rank, as the JAX package does whenever a mesh is
+    bound.  A dimension its mesh axes do not divide (``long_500k``'s one
+    decode token over 'data') stays whole where GSPMD would pad it: an
+    uneven DTensor split has no rule in most ops."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x
+    if len(logical_axes) != x.ndim:
+        raise ValueError(f"{len(logical_axes)} axes for rank-{x.ndim} array")
+    if not is_dtensor(x):
+        return x
+    sizes = axis_sizes(mesh)
+    spec = [None if e is not None and x.shape[d] % int(np.prod(
+        [sizes[a] for a in ((e,) if isinstance(e, str) else e)])) else e
+        for d, e in enumerate(spec_of(*logical_axes))]
+    pl = placements(mesh, spec)
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        return x.redistribute(mesh, pl)
+    return _Constrain.apply(x, mesh, pl)
+
+
+def named_sharding(*logical_axes: Optional[str]):
+    """``(mesh, placements)`` of the logical axes on the bound mesh (the
+    JAX ``NamedSharding``); raises without `logical_mesh`."""
+    if _CTX.mesh is None:
+        raise RuntimeError("no mesh bound: use logical_mesh")
+    return _CTX.mesh, placements(_CTX.mesh, spec_of(*logical_axes))
+
+
+def shard_map_compat(f, *, mesh, in_specs, out_specs):
+    """``shard_map`` as ``local_map``: ``f`` runs on each rank's local
+    tensors.  A spec is a `PartitionSpec` or, where a result is a partial
+    sum (a JAX ``psum`` left to the caller, so that autograd carries it),
+    a sequence of DTensor placements; ``out_specs`` is one spec or a
+    tuple of them, as ``f`` returns one tensor or a tuple."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def to_pl(spec):        # a list: local_map reads a tuple as several
+        if spec is None:
+            return None
+        if isinstance(spec, PartitionSpec):
+            return list(placements(mesh, spec))
+        return list(spec)
+
+    one = isinstance(out_specs, PartitionSpec) or not any(
+        isinstance(s, (tuple, list)) for s in out_specs)
+    outs = (to_pl(out_specs) if one
+            else tuple(to_pl(s) for s in out_specs))
+    ins = tuple(to_pl(s) for s in in_specs)
+    # an input replicated over a mesh dimension that another input is
+    # split over gets a different gradient on each rank of it: a partial
+    # sum (JAX's shard_map sums the cotangent of an unmapped input)
+    from torch.distributed.tensor import Partial, Replicate
+    split = {i for pl in ins if pl for i, p in enumerate(pl)
+             if p.is_shard()}
+    grads = tuple(None if pl is None else [
+        Partial() if i in split and isinstance(p, Replicate) else p
+        for i, p in enumerate(pl)] for pl in ins)
+    return local_map(f, out_placements=outs, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)
+
+
+@contextlib.contextmanager
+def dtensor_context(*tensors):
+    """Where any of ``tensors`` is a DTensor, the context in which plain
+    tensors meet DTensors as replicated ones (``implicit_replication``:
+    positions, masks, the schedule's scalars, as JAX broadcasts an
+    unsharded constant); else a no-op.  Nested uses keep it on until the
+    outermost one exits (``implicit_replication`` itself switches it off
+    at any exit, under a backward pass still to come)."""
+    if not any(is_dtensor(t) for t in tensors):
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+    disp = DTensor._op_dispatcher
+    prev = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = prev
+
+
+def outside_simulated_ranks():
+    """The context in which ops run once, on plain tensors, even where the
+    ranks of a mesh are simulated (``LocalTensorMode`` switched off):
+    for constants that a process caches and every rank shares."""
+    if not torch.distributed.is_available():
+        return contextlib.nullcontext()
+    from torch.distributed._local_tensor import (
+        maybe_disable_local_tensor_mode)
+    return maybe_disable_local_tensor_mode()

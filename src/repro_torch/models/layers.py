@@ -14,9 +14,29 @@ unless the JAX code asks for ``preferred_element_type=float32`` (the
 attention scores and the PV product), which here is an f32 product of
 the operands widened exactly; a product of bf16 and f32 operands (the
 MoE router) is f32 of the bf16 operand widened exactly, as JAX promotes;
-norms, softmax and the SSD scan run in f32.  The MoE layer is the JAX
-package's mesh-free dispatch (``_moe_gspmd``); its expert-parallel form
-(``_moe_ep_shardmap``) waits for model sharding.
+norms, softmax and the SSD scan run in f32.
+
+Sharding is expressed through logical-axis annotations
+(`repro_torch.distributed.sharding.shard`) at the JAX package's places;
+they are the identity without a bound mesh or on plain tensors, so the
+same code runs on one device and on DTensors over a training mesh.  Ops
+without a DTensor sharding rule run under ``local_map`` on the shard the
+JAX package would hold: the MoE's routing, dispatch and combine (its
+argsort, searchsorted and scatters) and the SSD scan.  The MoE layer is
+the JAX package's expert-parallel form (`_moe_ep`, ``_moe_ep_shardmap``)
+under a mesh whose 'model' axis divides the experts, and its per-row
+dispatch (``_moe_gspmd``) otherwise, each rank taking its slice of the
+FFN width (the JAX annotations of the dispatch buffer and the expert
+outputs fold into that ``local_map``; the partial sum is reduced once,
+after the combine, where GSPMD reduces the expert outputs).
+
+Where the port gathers what the JAX package keeps split (another
+program, the same function): the decode cache's sequence ('kvseq') and
+the query positions' keys at ``long_500k`` (each rank attends over every
+key, `_sdpa_sharded`); a dimension its mesh axes do not divide (`shard`
+leaves it whole); and, under FSDP, the expert weights and the vocab
+table over 'data' inside their ``local_map`` (as ``shard_map`` gathers
+an input over an axis its spec does not name).
 """
 
 from __future__ import annotations
@@ -28,6 +48,12 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import PartitionSpec as SpecP
+from repro_torch.distributed.sharding import (axis_sizes, current_mesh,
+                                              is_dtensor,
+                                              outside_simulated_ranks,
+                                              placements, shard,
+                                              shard_map_compat, spec_of)
 
 __all__ = ["rms_norm", "layer_norm", "norm", "rope", "attention", "mlp",
            "moe_layer", "mamba2_layer"]
@@ -68,15 +94,30 @@ def norm(x: torch.Tensor, p: Params, cfg: ArchConfig, name: str
     return rms_norm(x, p[f"{name}_w"])
 
 
-@functools.lru_cache(maxsize=16)
 def _freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
     """``exp(-log(theta) * arange(half) / half)`` in f32, as the JAX
     package writes it (not ``theta ** (-2i / d)``, which rounds
     otherwise); computed on the host so every device gets the same, and
-    copied to a device once (a copy from the host waits for the card)."""
+    copied to a device once (a copy from the host waits for the card).
+    Under a fake mode (the dry run) it is made anew, never cached."""
+    from torch._guards import detect_fake_mode
+    if detect_fake_mode() is not None:
+        return _host_freqs(half, theta).to(device)
+    return _cached_freqs(half, theta, device)
+
+
+def _host_freqs(half: int, theta: float) -> torch.Tensor:
     ar = torch.arange(half, dtype=torch.float32)
-    f = torch.exp(-math.log(theta) * ar / torch.tensor(float(half)))
-    return f.to(device)
+    return torch.exp(-math.log(theta) * ar / torch.tensor(float(half)))
+
+
+@functools.lru_cache(maxsize=16)
+def _cached_freqs(half: int, theta: float, device: torch.device
+                  ) -> torch.Tensor:
+    """`_freqs` kept per device: a plain tensor even where ranks are
+    simulated, so the cache holds no simulated ranks' tensor."""
+    with outside_simulated_ranks():
+        return _host_freqs(half, theta).to(device)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -102,8 +143,14 @@ def _qkv(x: torch.Tensor, p: Params, cfg: ArchConfig, prefix: str = ""
     if cfg.qkv_bias:
         q, k, v = (q + p[f"{prefix}bq"], k + p[f"{prefix}bk"],
                    v + p[f"{prefix}bv"])
-    return (q.reshape(B, S, H, D), k.reshape(B, S, KV, D),
-            v.reshape(B, S, KV, D))
+    # the heads' placement before the split too: DTensor cannot split a
+    # dimension sharded otherwise (FSDP's 'data' may leave k on 'model')
+    q = shard(q, "batch", "seq", "heads").reshape(B, S, H, D)
+    k, v = (shard(t, "batch", "seq", "kv_heads").reshape(B, S, KV, D)
+            for t in (k, v))
+    return (shard(q, "batch", "seq", "heads", None),
+            shard(k, "batch", "seq", "kv_heads", None),
+            shard(v, "batch", "seq", "kv_heads", None))
 
 
 def _scores(qg: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -130,6 +177,8 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal mask ``kpos <= qpos + q_offset`` also masks a cache's empty
     tail in decode.
     """
+    if is_dtensor(q):
+        return _sdpa_sharded(q, k, v, causal, q_offset, chunk)
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -150,7 +199,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Sq <= chunk or Sq % chunk:
         return one_chunk(q, 0)
     n_chunks = Sq // chunk
-    if causal and q_offset == 0 and Sq == Sk:
+    if causal and isinstance(q_offset, int) and q_offset == 0 and Sq == Sk:
         diag = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                      device=q.device))
         outs = []
@@ -169,6 +218,48 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack([one_chunk(qs[:, i], i * chunk)
                         for i in range(n_chunks)], dim=1
                        ).reshape(B, Sq, H, D)
+
+
+def _sdpa_sharded(q, k, v, causal: bool, q_offset: int, chunk: int):
+    """`_sdpa_chunked` on DTensors, under ``local_map``: each rank attends
+    with its own batch rows, query heads and (at ``long_500k``) query
+    positions, over every key.  Einsums over (batch, heads) split over
+    two mesh axes have no sharding rule that holds under the dry run's
+    fake tensors, hence the local form.  Where the query heads are split
+    and the kv heads are not (their count rarely divides 'model'), each
+    rank takes the kv head of each of its query heads (``h // G``; the
+    head itself where there are as many), and attends with one kv head
+    per query head.  The keys and values are
+    gathered along a split sequence (the decode cache on 'kvseq'),
+    where the JAX package keeps them split."""
+    from torch.distributed.tensor import (Replicate, Shard,
+                                          distribute_tensor)
+    H = q.shape[2]
+    G = H // k.shape[2]
+    mesh = q.device_mesh
+    q_pl = [p if p.is_shard() and p.dim in (0, 1, 2) else Replicate()
+            for p in q.placements]
+    kv_pl = [p if p.is_shard(0) else Replicate() for p in q_pl]
+
+    def ids(n, dim):          # each rank's indices along q's dim ``dim``
+        return distribute_tensor(
+            torch.arange(n, device=q.device), mesh,
+            [Shard(0) if p.is_shard(dim) else Replicate() for p in q_pl],
+            src_data_rank=None)
+
+    heads, qpos = ids(H, 2), ids(q.shape[1], 1)
+
+    def local(q_l, k_l, v_l, h_l, s_l):
+        if q_l.shape[2] < H:                  # this rank's query heads
+            k_l, v_l = k_l[:, :, h_l // G], v_l[:, :, h_l // G]
+        off = s_l[0] + q_offset if q_l.shape[1] < qpos.shape[0] \
+            else q_offset
+        return _sdpa_chunked(q_l, k_l, v_l, causal, off, chunk)
+
+    return shard_map_compat(
+        local, mesh=mesh,
+        in_specs=(q_pl, kv_pl, kv_pl, heads.placements, qpos.placements),
+        out_specs=q_pl)(q, k, v, heads, qpos)
 
 
 def attention(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
@@ -196,7 +287,9 @@ def attention(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
     if kv_override is not None:
         q = (x @ p[f"{prefix}wq"]).reshape(B, S, H, D)
         o = _sdpa_chunked(q, *kv_override, causal=False, chunk=chunk)
-        return (o.reshape(B, S, H * D) @ p[f"{prefix}wo"]).to(x.dtype), None
+        y = shard(o.reshape(B, S, H * D) @ p[f"{prefix}wo"], "batch", "seq",
+                  None)
+        return y.to(x.dtype), None
     q, k, v = _qkv(x, p, cfg, prefix)
     if rope_on:
         q = rope(q, positions, cfg.rope_theta)
@@ -205,20 +298,55 @@ def attention(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
     if cache is None and cache_len is None:               # train
         o = _sdpa_chunked(q, k, v, causal=causal, chunk=chunk)
     elif cache_len is not None:                           # prefill
-        kf = k.new_zeros((B, cache_len) + k.shape[2:])
-        vf = v.new_zeros((B, cache_len) + v.shape[2:])
-        kf[:, :S], vf[:, :S] = k, v
+        pad = (0, 0, 0, 0, 0, cache_len - S)
+        kf = shard(torch.nn.functional.pad(k, pad), "batch", "kvseq",
+                   "kv_heads", None)
+        vf = shard(torch.nn.functional.pad(v, pad), "batch", "kvseq",
+                   "kv_heads", None)
         new_cache = {"k": kf, "v": vf}
         o = _sdpa_chunked(q, k, v, causal=causal, chunk=chunk)
     else:                                                 # decode
         pos = int(pos)
-        cache["k"][:, pos:pos + S] = k
-        cache["v"][:, pos:pos + S] = v
-        new_cache = cache
-        o = _sdpa_chunked(q, cache["k"], cache["v"], causal=True,
+        if is_dtensor(cache["k"]):
+            new_cache = {n: shard(_cache_write(cache[n], t, pos), "batch",
+                                  "kvseq", "kv_heads", None)
+                         for n, t in (("k", k), ("v", v))}
+        else:
+            cache["k"][:, pos:pos + S] = k
+            cache["v"][:, pos:pos + S] = v
+            new_cache = cache
+        o = _sdpa_chunked(q, new_cache["k"], new_cache["v"], causal=True,
                           q_offset=pos, chunk=chunk)
     y = o.reshape(B, S, H * D) @ p[f"{prefix}wo"]
-    return y.to(x.dtype), new_cache
+    return shard(y, "batch", "seq", None).to(x.dtype), new_cache
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int
+                 ) -> torch.Tensor:
+    """``cache (B, S_max, KV, D)`` with ``new (B, S, KV, D)`` at ``[pos,
+    pos + S)``, as a new DTensor (the JAX ``dynamic_update_slice``), each
+    rank writing the rows of its own sequence shard: the cache's sequence
+    may be split over 'kvseq', where a slice assignment has no sharding
+    rule."""
+    from torch.distributed.tensor import (Replicate, Shard,
+                                          distribute_tensor)
+    S = new.shape[1]
+    pl = cache.placements
+    seq = distribute_tensor(
+        torch.arange(cache.shape[1], device=cache.device), cache.device_mesh,
+        [Shard(0) if p.is_shard(1) else Replicate() for p in pl],
+        src_data_rank=None)
+
+    def write(c, n, s):
+        hit = (s >= pos) & (s < pos + S)
+        src = n[:, torch.clamp(s - pos, 0, S - 1)]
+        return torch.where(hit[None, :, None, None], src, c)
+
+    return shard_map_compat(
+        write, mesh=cache.device_mesh,
+        in_specs=(pl, [Replicate() if p.is_shard(1) else p for p in pl],
+                  seq.placements),
+        out_specs=pl)(cache, new, seq)
 
 
 def _silu(g: torch.Tensor) -> torch.Tensor:
@@ -243,77 +371,173 @@ def mlp(x: torch.Tensor, p: Params, cfg: ArchConfig, prefix: str = ""
         ) -> torch.Tensor:
     """SwiGLU (rms archs): ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``;
     GELU (ln archs, whisper-style): ``gelu(x @ w_up + b_up) @ w_down +
-    b_down``."""
+    b_down``.  The output's annotation is the port's (as the cross
+    attention's): the JAX compiler reduces the 'ff'-split product before
+    the residual add, where DTensor would carry a partial sum into the
+    residual stream and then gather the head's table to meet it."""
     if cfg.norm == "ln":
-        h = _gelu(x @ p[f"{prefix}w_up"] + p[f"{prefix}b_up"])
-        return (h @ p[f"{prefix}w_down"] + p[f"{prefix}b_down"]).to(x.dtype)
+        h = shard(_gelu(x @ p[f"{prefix}w_up"] + p[f"{prefix}b_up"]),
+                  "batch", "seq", "ff")
+        y = shard(h @ p[f"{prefix}w_down"], "batch", "seq", None)
+        return (y + p[f"{prefix}b_down"]).to(x.dtype)
     g = x @ p[f"{prefix}w_gate"]
     u = x @ p[f"{prefix}w_up"]
-    h = _silu(g) * u
-    return (h @ p[f"{prefix}w_down"]).to(x.dtype)
+    h = shard(_silu(g) * u, "batch", "seq", "ff")
+    return shard(h @ p[f"{prefix}w_down"], "batch", "seq", None).to(x.dtype)
 
 
 def moe_capacity(cfg: ArchConfig, S: int) -> int:
-    """Expert slots per batch row: ``min(max(8, ceil(S * k * cf / E)), S
-    * k)``, in the JAX package's float arithmetic."""
+    """Expert slots per row of ``S`` tokens: ``min(max(8, ceil(S * k * cf
+    / E)), S * k)``, in the JAX package's float arithmetic."""
     E, k = cfg.n_experts, cfg.experts_per_token
     cap = max(8, int(-(-S * k * cfg.capacity_factor // E)))
     return min(cap, S * k)
 
 
-def moe_layer(x: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
-    """Top-k routed MoE with per-batch-row capacity dispatch
-    (``_moe_gspmd``).
+def _moe_rows(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+              wu: torch.Tensor, wd: torch.Tensor, cfg: ArchConfig,
+              cap: int, e_lo: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """The routed FFN of ``x (R, T, d)``, each of the R rows dispatched on
+    its own with ``cap`` slots per expert, over the ``E_loc = wg.shape[0]``
+    experts ``[e_lo, e_lo + E_loc)`` (all of them when ``e_lo`` is None);
+    assignments to other experts are dropped, as those past ``cap``.
 
     The router product is f32 (``x`` widened exactly), top-k takes the
     lower expert first on ties (a stable descending sort, as
     ``jax.lax.top_k``), gates are renormalized over the k.  Each row's
-    ``S * k`` assignments are sorted stably by expert; an assignment's
-    rank within its expert past ``cap`` is dropped (its slot is the
-    discarded row ``E * cap``).  The expert FFN (SwiGLU) runs over all
-    ``E * cap`` slots.  Each token's output sums its k gated
+    ``T * k`` assignments are sorted stably by (local) expert; an
+    assignment's rank within its expert past ``cap`` is dropped (its slot
+    is the discarded row ``E_loc * cap``).  The expert FFN (SwiGLU) runs
+    over all ``E_loc * cap`` slots.  Each token's output sums its k gated
     contributions in the model's type in ascending expert id, the order
     the JAX package's scatter-add applies them, one add at a time (no
-    atomics, so the card's sums are those of the CPU).
+    atomics, so the card's sums are those of the CPU); a dropped one adds
+    a zero.
     """
-    B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.experts_per_token
-    cap = moe_capacity(cfg, S)
-    probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+    R, T, d = x.shape
+    k = cfg.experts_per_token
+    E_loc = wg.shape[0]
+    probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)
     gates, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, eidx = gates[..., :k], eidx[..., :k]                # (B, S, k)
+    gates, eidx = gates[..., :k], eidx[..., :k]                # (R, T, k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    flat_e = eidx.reshape(B, S * k)
+    flat_e = eidx.reshape(R, T * k)
+    if e_lo is not None:                      # the shard's own experts
+        off = flat_e - e_lo
+        flat_e = torch.where((off >= 0) & (off < E_loc), off, E_loc)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     sorted_e = torch.gather(flat_e, 1, order)
-    rank = (torch.arange(S * k, device=x.device)
+    rank = (torch.arange(T * k, device=x.device)
             - torch.searchsorted(sorted_e, sorted_e, side="left"))
     token = order // k
-    dest = torch.where(rank < cap, sorted_e * cap + rank, E * cap)
-    rows = torch.arange(B, device=x.device)[:, None]
-    buf = x.new_zeros((B, E * cap + 1, d))
+    dest = torch.where((rank < cap) & (sorted_e < E_loc),
+                       sorted_e * cap + rank, E_loc * cap)
+    rows = torch.arange(R, device=x.device)[:, None]
+    buf = x.new_zeros((R, E_loc * cap + 1, d))
     buf[rows, dest] = x[rows, token]
-    buf = buf[:, :E * cap].reshape(B, E, cap, d)
+    buf = buf[:, :E_loc * cap].reshape(R, E_loc, cap, d)
 
-    g = torch.einsum("becd,edf->becf", buf, p["w_gate"])
-    u = torch.einsum("becd,edf->becf", buf, p["w_up"])
-    out = torch.einsum("becf,efd->becd", _silu(g) * u,
-                       p["w_down"]).to(x.dtype)
+    g = torch.einsum("becd,edf->becf", buf, wg)
+    u = torch.einsum("becd,edf->becf", buf, wu)
+    out = torch.einsum("becf,efd->becd", _silu(g) * u, wd).to(x.dtype)
 
     # each assignment's slot, in (token, j) order, then each token's k
     # slots in ascending expert id
-    slot = torch.empty_like(dest).scatter_(1, order, dest).reshape(B, S, k)
+    slot = torch.empty_like(dest).scatter_(1, order, dest).reshape(R, T, k)
     by_expert = torch.argsort(eidx, dim=-1, stable=True)
     slot = torch.gather(slot, 2, by_expert)
     w = torch.gather(gates, 2, by_expert).to(out.dtype)
-    flat = torch.cat([out.reshape(B, E * cap, d),
-                      out.new_zeros((B, 1, d))], dim=1)
-    vals = flat[rows[:, :, None], slot] * w[..., None]       # (B, S, k, d)
+    flat = torch.cat([out.reshape(R, E_loc * cap, d),
+                      out.new_zeros((R, 1, d))], dim=1)
+    vals = flat[rows[:, :, None], slot] * w[..., None]       # (R, T, k, d)
     y = vals[:, :, 0]
     for j in range(1, k):
         y = y + vals[:, :, j]
     return y
+
+
+def moe_layer(x: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
+    """Top-k routed MoE: the expert-parallel form (`_moe_ep`) under a
+    bound mesh whose 'model' axis (of more than one rank) divides the
+    experts, else the per-batch-row dispatch (``_moe_gspmd``, capacity
+    `moe_capacity` of each row's S tokens; `_moe_rows`), under
+    ``local_map`` on DTensors."""
+    mesh = current_mesh()
+    if mesh is not None and is_dtensor(x):
+        msize = axis_sizes(mesh).get("model", 1)
+        if msize > 1 and cfg.n_experts % msize == 0:
+            return _moe_ep(x, p, cfg, mesh)
+        return _moe_gspmd_sharded(x, p, cfg, mesh)
+    return _moe_rows(x, p["router"], p["w_gate"], p["w_up"], p["w_down"],
+                     cfg, moe_capacity(cfg, x.shape[1]))
+
+
+def _model_partial(mesh, x_pl) -> list:
+    """``x``'s placements with 'model' a partial sum: a local result each
+    model rank holds a part of."""
+    from torch.distributed.tensor import Partial
+    return [Partial() if name == "model" else pl
+            for name, pl in zip(mesh.mesh_dim_names, x_pl)]
+
+
+def _moe_gspmd_sharded(x: torch.Tensor, p: Params, cfg: ArchConfig, mesh
+                       ) -> torch.Tensor:
+    """``_moe_gspmd`` on DTensors: each rank dispatches its batch rows
+    (the JAX package's vmapped per-row dispatch is collective-free) and
+    runs the expert FFN over its slice of the FFN width (the expert
+    weights' ``ff`` on 'model' when the experts do not divide it), a
+    partial sum over 'model' reduced by the closing annotation."""
+    x_pl = placements(mesh, spec_of("batch", "seq", None))
+    f = shard_map_compat(
+        lambda x_l, r, wg, wu, wd: _moe_rows(
+            x_l, r, wg, wu, wd, cfg, moe_capacity(cfg, x_l.shape[1])),
+        mesh=mesh,
+        in_specs=(x_pl, placements(mesh, (None, None)),
+                  placements(mesh, (None, None, "model")),
+                  placements(mesh, (None, None, "model")),
+                  placements(mesh, (None, "model", None))),
+        out_specs=_model_partial(mesh, x_pl))
+    y = f(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    return shard(y, "batch", "seq", None)
+
+
+def _moe_ep(x: torch.Tensor, p: Params, cfg: ArchConfig, mesh
+            ) -> torch.Tensor:
+    """The JAX package's ``_moe_ep_shardmap``: every model rank routes all
+    of its batch shard's ``T = B_l * S_l`` tokens (capacity over those T,
+    not per batch row), keeps only the assignments to its ``E / m`` local
+    experts, and the partial outputs are merged with one sum all-reduce
+    over 'model' per layer (in the model's type)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    E, k = cfg.n_experts, cfg.experts_per_token
+    msize = axis_sizes(mesh)["model"]
+    E_loc = E // msize
+    x_pl = placements(mesh, spec_of("batch", "seq", None))
+    rank = distribute_tensor(torch.arange(msize, device=x.device), mesh,
+                             placements(mesh, ("model",)),
+                             src_data_rank=None)
+
+    def local(x_l, router, wg, wu, wd, m):
+        B_l, S_l, d = x_l.shape
+        T = B_l * S_l
+        cap = min(max(8, int(-(-T * k * cfg.capacity_factor // E))), T * k)
+        y = _moe_rows(x_l.reshape(1, T, d), router, wg, wu, wd, cfg, cap,
+                      e_lo=m * E_loc)
+        return y.reshape(B_l, S_l, d)
+
+    f = shard_map_compat(
+        local, mesh=mesh,
+        in_specs=(x_pl, placements(mesh, (None, None)),
+                  placements(mesh, ("model", None, None)),
+                  placements(mesh, ("model", None, None)),
+                  placements(mesh, ("model", None, None)), rank.placements),
+        out_specs=_model_partial(mesh, x_pl))
+    y = f(x, p["router"], p["w_gate"], p["w_up"], p["w_down"], rank)
+    return y.redistribute(mesh, [Replicate() if name == "model" else pl
+                                 for name, pl in zip(mesh.mesh_dim_names,
+                                                     y.placements)])
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -384,14 +608,27 @@ def mamba2_layer(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
     B, S, _ = x.shape
     di, H, P, Sd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     f32 = torch.float32
-    z = x @ p["wz"]
-    xh = (x @ p["wx"]).reshape(B, S, H, P)
+    # z and y carry the 'dinner' split too (the port's annotations): left
+    # to DTensor, their gradients may come split along the sequence
+    z = shard(x @ p["wz"], "batch", "seq", "dinner")
+    xh = shard(x @ p["wx"], "batch", "seq", "dinner").reshape(B, S, H, P)
     Bm, Cm = x @ p["wB"], x @ p["wC"]
     dt = _softplus((x @ p["wdt"]).to(f32) + p["dt_bias"])
     A = -torch.exp(p["A_log"].to(f32))
     new_cache = None
     if mode in ("train", "prefill"):
-        y, h_fin = _ssd_chunk_scan(xh, dt, A, Bm, Cm, min(cfg.ssm_chunk, S))
+        scan = _ssd_chunk_scan
+        mesh = current_mesh()
+        if mesh is not None and is_dtensor(xh):
+            # no sharding rule for the scan: each rank scans its batch
+            # rows and its heads (the 'dinner' split of the inner dim)
+            b, s, h, _ = spec_of("batch", "seq", "dinner", None)
+            scan = shard_map_compat(
+                _ssd_chunk_scan, mesh=mesh,
+                in_specs=(SpecP(b, s, h, None), SpecP(b, s, h), SpecP(h),
+                          SpecP(b, s, None), SpecP(b, s, None), None),
+                out_specs=(SpecP(b, s, h, None), SpecP(b, h, None, None)))
+        y, h_fin = scan(xh, dt, A, Bm, Cm, min(cfg.ssm_chunk, S))
         if mode == "prefill":
             new_cache = {"h": h_fin}
     else:
@@ -408,6 +645,7 @@ def mamba2_layer(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
         y = torch.stack(ys, dim=1).to(x.dtype)
         new_cache = {"h": h}
     y = y + xh * p["D"][None, None, :, None].to(x.dtype)
-    y = y.reshape(B, S, di)
+    y = shard(y.reshape(B, S, di), "batch", "seq", "dinner")
     y = rms_norm(y * _silu(z.to(f32)).to(y.dtype), p["norm_w"])
-    return (y @ p["out_proj"]).to(x.dtype), new_cache
+    return shard(y @ p["out_proj"], "batch", "seq", None).to(x.dtype), \
+        new_cache

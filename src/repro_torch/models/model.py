@@ -54,12 +54,16 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.boundedme_torch import resolve_device
+from repro_torch.distributed.sharding import (dtensor_context, is_dtensor,
+                                              rebinder, shard,
+                                              shard_map_compat)
 from repro_torch.models import layers as L
 
 __all__ = ["DenseBlock", "MambaBlock", "HybridPeriod", "EncoderBlock",
            "DecoderBlock", "LM", "DenseLM", "MambaLM", "HybridLM",
-           "EncDecLM", "build_model", "Caches", "masked_logits",
-           "logits_from_hidden"]
+           "EncDecLM", "build_model", "Caches",
+           "masked_logits", "logits_from_hidden"]
 
 #: per layer (per period for hybrid) ``{"k", "v", ...}``
 Caches = List[Dict[str, torch.Tensor]]
@@ -326,9 +330,14 @@ def _mode(cache_len: Optional[int], pos: Optional[int]) -> str:
 
 def _run(block: nn.Module, remat: bool, *args):
     """``block(*args)``; with ``remat`` under activation checkpointing
-    (the block's activations recomputed in the backward pass)."""
+    (the block's activations recomputed in the backward pass, under the
+    forward's logical mesh: on the card the recompute runs in the
+    autograd engine's thread)."""
     if remat:
-        return checkpoint(block, *args, use_reentrant=False)
+        again = rebinder()
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              again()))
     return block(*args)
 
 
@@ -339,14 +348,14 @@ class LM(nn.Module):
 
     FAMILIES: Tuple[str, ...] = ()
 
-    def __init__(self, cfg: ArchConfig, seed: int = 0, device="cpu"):
+    def __init__(self, cfg: ArchConfig, seed: int = 0, device="cuda"):
         super().__init__()
         if cfg.family not in self.FAMILIES:
             raise ValueError(f"{type(self).__name__} builds the "
                              f"{'/'.join(self.FAMILIES)} families, not "
                              f"{cfg.family!r}: use build_model")
         self.cfg = cfg
-        dr = _Draw(cfg, seed, device)
+        dr = _Draw(cfg, seed, _model_device(device))
         d, Vp = cfg.d_model, cfg.padded_vocab
         self.embed = nn.Parameter(dr.embedding((Vp, d)),
                                   requires_grad=False)
@@ -396,7 +405,8 @@ class LM(nn.Module):
         prefill; decode reads the cross keys and values of the caches.
         """
         train = caches is None and cache_len is None and pos is None
-        with contextlib.nullcontext() if train else torch.no_grad():
+        with contextlib.nullcontext() if train else torch.no_grad(), \
+                dtensor_context(self.embed):
             return self._forward(tokens, caches, cache_len, pos,
                                  patch_embeds, enc_frames)
 
@@ -404,13 +414,17 @@ class LM(nn.Module):
                  enc_frames):
         cfg = self.cfg
         B, S = tokens.shape
-        x = self.embed[tokens].to(self.embed.dtype)
+        if is_dtensor(self.embed):
+            x = _vocab_lookup(self.embed, tokens)
+        else:
+            x = self.embed[tokens].to(self.embed.dtype)
         if cfg.family == "vlm" and patch_embeds is not None and pos is None:
             n = patch_embeds.shape[1]
             if n > S:
                 raise ValueError(f"{n} patch embeddings do not fit a "
                                  f"sequence of {S} tokens")
             x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
+        x = shard(x, "batch", "seq", None)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         if pos is not None:
             positions = positions + int(pos)
@@ -418,6 +432,37 @@ class LM(nn.Module):
                                        enc_frames)
         fin = dict(self.named_parameters(recurse=False))
         return L.norm(x, fin, cfg, "final"), new_caches
+
+
+def _vocab_lookup(table, tokens):
+    """``table[tokens]`` of a DTensor table whose rows may be split over
+    mesh axes (the vocab on 'model'), without gathering it: each rank
+    looks up the tokens of its own rows (zeros for the others), a partial
+    sum over those axes that the caller's annotation reduces.  The table
+    is gathered over any other axis (FSDP's 'data')."""
+    from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                          distribute_tensor)
+    mesh = table.device_mesh
+    vdims = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    ids = distribute_tensor(
+        torch.arange(table.shape[0], device=tokens.device), mesh,
+        [Shard(0) if i in vdims else Replicate() for i in range(mesh.ndim)],
+        src_data_rank=None)
+    tok_pl = [Replicate() if i in vdims else p
+              for i, p in enumerate(tokens.placements)]
+
+    def local(tab, tok, vid):
+        idx = tok - vid[0]
+        own = (idx >= 0) & (idx < tab.shape[0])
+        x = tab[torch.clamp(idx, 0, tab.shape[0] - 1)]
+        return torch.where(own[..., None], x, torch.zeros_like(x))
+
+    return shard_map_compat(
+        local, mesh=mesh,
+        in_specs=([Shard(0) if i in vdims else Replicate()
+                   for i in range(mesh.ndim)], tok_pl, ids.placements),
+        out_specs=[Partial() if i in vdims else p
+                   for i, p in enumerate(tok_pl)])(table, tokens, ids)
 
 
 class DenseLM(LM):
@@ -505,7 +550,8 @@ class EncDecLM(LM):
     def encode(self, enc_frames: torch.Tensor, dtype: torch.dtype
                ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Each decoder layer's cross keys and values of ``enc_frames``."""
-        e = enc_frames.to(dtype) + self.enc_pos[None]
+        e = shard(enc_frames.to(dtype) + self.enc_pos[None], "batch", "seq",
+                  None)
         B, S_e, _ = e.shape
         epos = torch.arange(S_e, device=e.device)[None].expand(B, S_e)
         remat = self._remat()
@@ -538,9 +584,18 @@ _FAMILY_CLASSES = {family: cls for cls in (DenseLM, MambaLM, HybridLM,
                    for family in cls.FAMILIES}
 
 
-def build_model(cfg: ArchConfig, seed: int = 0, device="cpu") -> LM:
+def _model_device(device) -> torch.device:
+    """The device a model is built on: ``"meta"`` (shapes only, no device
+    touched) or an entry point's device (`resolve_device`: the card
+    unless the caller asks for the CPU; raises without CUDA)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
+def build_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
     """The model of ``cfg``'s family, its weights drawn from ``seed`` on
-    ``device`` (shapes only on ``"meta"``)."""
+    ``device``: the card by default, the CPU when asked, shapes only on
+    ``"meta"``."""
     if cfg.family not in _FAMILY_CLASSES:
         raise ValueError(f"unknown family {cfg.family!r}")
     return _FAMILY_CLASSES[cfg.family](cfg, seed=seed, device=device)
@@ -556,9 +611,13 @@ def masked_logits(cfg: ArchConfig, table: torch.Tensor,
     ``preferred_element_type=float32`` — taken over row blocks of the
     table, so no f32 copy of a bf16 table is kept."""
     h = hidden.to(torch.float32)
-    logits = torch.cat([h @ table[i:i + _LOGIT_ROWS].to(torch.float32).T
-                        for i in range(0, table.shape[0], _LOGIT_ROWS)],
-                       dim=-1)
+    if is_dtensor(table):         # each rank holds its rows already
+        logits = shard(h @ table.to(torch.float32).T,
+                       *("batch", "seq")[:h.dim() - 1], "vocab")
+    else:
+        logits = torch.cat([h @ table[i:i + _LOGIT_ROWS].to(torch.float32).T
+                            for i in range(0, table.shape[0], _LOGIT_ROWS)],
+                           dim=-1)
     if cfg.padded_vocab != cfg.vocab:
         mask = torch.arange(cfg.padded_vocab, device=logits.device) \
             < cfg.vocab
@@ -574,7 +633,8 @@ def logits_from_hidden(model: LM, cfg: ArchConfig, hidden: torch.Tensor
     (the JAX package's einsum with ``preferred_element_type=float32``);
     `masked_logits` is the serving head."""
     table = model.head_table
-    logits = hidden.to(torch.float32) @ table.to(torch.float32).T
+    logits = shard(hidden.to(torch.float32) @ table.to(torch.float32).T,
+                   "batch", "seq", "vocab")
     if cfg.padded_vocab != cfg.vocab:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
             >= cfg.vocab

@@ -37,8 +37,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.boundedme_torch import (BlockedPlan, decode_tiled,
                                               draw_perms, make_plan,
                                               quantize_table, tile_table)
-from repro_torch.distributed.sharding import (make_shard_plan,
+from repro_torch.distributed.sharding import (dtensor_context, is_dtensor,
+                                              make_shard_plan,
                                               quantize_shards,
+                                              shard_map_compat,
                                               sharded_decode_tiled)
 from repro_torch.distributed.specs import serving_table_sharding
 from repro_torch.models.model import (LM, Caches, logits_from_hidden,
@@ -62,14 +64,96 @@ def loss_fn(model: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     maximum."""
     h, _ = model(batch["tokens"], patch_embeds=batch.get("patch_embeds"),
                  enc_frames=batch.get("enc_frames"))
-    logits = logits_from_hidden(model, cfg, h)
-    labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    loss = torch.mean(logz - gold)
-    acc = torch.mean((torch.argmax(logits, dim=-1) == labels)
-                     .to(torch.float32))
+    with dtensor_context(h):
+        logits = logits_from_hidden(model, cfg, h)
+        labels = batch["labels"].long()
+        if is_dtensor(logits):
+            logz, gold, hit = _sharded_nll(logits, labels)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+            hit = torch.argmax(logits, dim=-1) == labels
+        loss = torch.mean(logz - gold)
+        acc = torch.mean(hit.to(torch.float32))
     return loss, {"loss": loss, "acc": acc}
+
+
+def _vocab_split(logits):
+    """``(mesh dims splitting the vocab, each rank's vocab ids, the
+    placements of per-rank parts along a new last dim)`` of DTensor
+    logits whose last dim may be split over mesh axes."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    last = logits.dim() - 1
+    pl = logits.placements
+    vdims = [i for i, p in enumerate(pl) if p.is_shard(last)]
+    ids = distribute_tensor(
+        torch.arange(logits.shape[-1], device=logits.device),
+        logits.device_mesh,
+        [Shard(0) if i in vdims else Replicate() for i in range(len(pl))],
+        src_data_rank=None)
+    parts = [Shard(last) if i in vdims else p for i, p in enumerate(pl)]
+    return vdims, ids, parts
+
+
+def _first_of_parts(mx, arg, vdims):
+    """The global first argmax from each rank's ``(max, first argmax)``
+    parts: the first rank (in vocab order) holding the global maximum."""
+    from torch.distributed.tensor import Replicate
+    mesh = mx.device_mesh
+    mx, arg = (t.redistribute(mesh, [Replicate() if i in vdims else p
+                                     for i, p in enumerate(t.placements)])
+               for t in (mx, arg))
+    first = torch.argmax((mx == mx.amax(-1, keepdim=True)).to(torch.int32),
+                         dim=-1, keepdim=True)
+    return torch.gather(arg, -1, first)[..., 0]
+
+
+def _sharded_argmax(logits):
+    """``argmax(logits, -1)`` (the first index of the maximum) of DTensor
+    logits whose vocab may be split, the vocab never gathered."""
+    vdims, ids, parts = _vocab_split(logits)
+
+    def local(lg, vid):
+        mx, arg = torch.max(lg, dim=-1)
+        return mx[..., None], (arg + vid[0])[..., None]
+
+    mx, arg = shard_map_compat(
+        local, mesh=logits.device_mesh,
+        in_specs=(logits.placements, ids.placements),
+        out_specs=(parts, parts))(logits, ids)
+    return _first_of_parts(mx, arg, vdims)
+
+
+def _sharded_nll(logits, labels):
+    """``(logsumexp, the label's logit, label is the first argmax)`` of
+    DTensor logits whose vocab may be split over mesh axes, the vocab
+    never gathered: each rank takes the logsumexp, the label's logit (0
+    where the label is not its own) and the first maximum of its slice,
+    and the per-rank parts combine across the vocab ranks (a logsumexp
+    and a sum, and the first rank holding the global maximum, as
+    ``argmax`` takes the first index)."""
+    from torch.distributed.tensor import Partial, Replicate
+    pl = logits.placements
+    vdims, ids, parts = _vocab_split(logits)
+    lab_pl = [Replicate() if i in vdims else p for i, p in enumerate(pl)]
+    sum_pl = [Partial() if i in vdims else p for i, p in enumerate(pl)]
+
+    def local(lg, lab, vid):
+        idx = lab - vid[0]
+        own = (idx >= 0) & (idx < lg.shape[-1])
+        g = torch.gather(lg, -1, torch.clamp(idx, 0, lg.shape[-1] - 1)
+                         [..., None])[..., 0]
+        mx, arg = torch.max(lg.detach(), dim=-1)
+        return (torch.logsumexp(lg, dim=-1, keepdim=True),
+                torch.where(own, g, torch.zeros_like(g)),
+                mx[..., None], (arg + vid[0])[..., None])
+
+    lse, gold, mx, arg = shard_map_compat(
+        local, mesh=logits.device_mesh,
+        in_specs=(pl, lab_pl, ids.placements),
+        out_specs=(parts, sum_pl, parts, parts))(logits, labels, ids)
+    top = _first_of_parts(mx, arg, vdims)
+    return torch.logsumexp(lse, dim=-1), gold, top == labels
 
 
 def train_step(model: LM, opt_state: OptState,
@@ -88,19 +172,31 @@ def train_step(model: LM, opt_state: OptState,
     for p in params.values():
         if not p.requires_grad:
             p.requires_grad_(True)
-    loss, metrics = loss_fn(model, cfg, batch)
-    grads = torch.autograd.grad(loss, list(params.values()),
-                                allow_unused=True)
-    grads = {name: torch.zeros_like(p) if g is None else g
+    with dtensor_context(*params.values()):
+        loss, metrics = loss_fn(model, cfg, batch)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+    grads = {name: torch.zeros_like(p) if g is None else _as_param(g, p)
              for (name, p), g in zip(params.items(), grads)}
     err = opt_state.err
     if compress and err is not None:
         grads, err = compress_grads(grads, err, enabled=True)
     _, opt_state, opt_metrics = apply_updates(params, grads, opt_state,
                                               opt_cfg)
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics = {k: (v.full_tensor() if is_dtensor(v) else v).detach()
+               for k, v in metrics.items()}
     metrics.update(opt_metrics)
     return model, opt_state._replace(err=err), metrics
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements: the partial sums
+    over the batch's ranks reduced (the data-parallel all-reduce, or a
+    reduce-scatter under FSDP), as the JAX step's gradients take their
+    parameters' shardings."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def prefill_step(model: LM, tokens: torch.Tensor, cache_len: int,
@@ -242,6 +338,16 @@ def decode_step(model: LM, cfg: ArchConfig, caches: Caches,
     """
     h, caches = model(tokens, caches=caches, pos=pos)
     hid = h[:, -1]
+    if is_dtensor(hid):
+        if cfg.mips_mode != "exact":
+            raise NotImplementedError(
+                "the bandit head over DTensor parameters: the vocab-sharded "
+                "head runs over the serving Mesh (mesh=); its host-side "
+                "plan reads tensor values, which the dry run's fake "
+                "tensors do not have")
+        with dtensor_context(hid):
+            logits = masked_logits(cfg, model.head_table, hid)
+            return _sharded_argmax(logits).to(torch.int32), caches
     if cfg.mips_mode == "boundedme" and mesh is not None \
             and len(mesh.devices) > 1:
         head = sharded_mips_head(model, cfg, mesh)

@@ -31,6 +31,8 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import dtensor_context, is_dtensor
+
 __all__ = ["AdamWConfig", "OptState", "init_opt", "apply_updates",
            "cosine_schedule", "compress_grads", "global_norm", "jax_rank"]
 
@@ -84,9 +86,30 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """The f32 L2 norm over every tensor of ``tree``: one sum of squares
     per tensor, then the sum of those.  The JAX package sums per JAX leaf
     (a whole layer stack at once), so the two may round differently, in
-    the last bits of f32."""
+    the last bits of f32.
+
+    DTensors (Shard or Replicate placements) reduce across ranks: each
+    rank sums the squares of its shards, grouped by the mesh dimensions
+    a tensor is split over, and each group's sum is all-reduced over
+    those dimensions once (a replicated tensor counts once); the result
+    is a plain 0-d tensor, the same on every rank."""
     sums = [torch.sum(torch.square(x.to(torch.float32)))
-            for x in tree.values()]
+            for x in tree.values() if not is_dtensor(x)]
+    groups: Dict[tuple, list] = {}
+    for x in tree.values():
+        if is_dtensor(x):
+            split = tuple(i for i, p in enumerate(x.placements)
+                          if p.is_shard())
+            groups.setdefault((x.device_mesh, split), []).append(x)
+    for (mesh, split), xs in groups.items():
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        local = torch.sum(torch.stack([
+            torch.sum(torch.square(x.to_local().to(torch.float32)))
+            for x in xs]))
+        part = DTensor.from_local(
+            local, mesh, [Partial() if i in split else Replicate()
+                          for i in range(mesh.ndim)])
+        sums.append(part.full_tensor())
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -104,12 +127,17 @@ def init_opt(params: Mapping[str, torch.Tensor],
              with_err: bool = True) -> OptState:
     """Zero moments in ``moments_dtype`` (bf16 halves their memory), and
     a zero f32 error-feedback buffer with ``with_err``, each on its
-    parameter's device."""
+    parameter's device and, for a DTensor parameter, in its placements
+    (the JAX dry run's ``opt_specs``: moments inherit their parameter's
+    sharding)."""
     def zeros(dtype):
-        return {n: torch.zeros(p.shape, dtype=dtype, device=p.device)
+        return {n: torch.zeros_like(p.detach(), dtype=dtype,
+                                    memory_format=torch.contiguous_format)
                 for n, p in params.items()}
+    first = next(iter(params.values()))
     step = torch.zeros((), dtype=torch.int32,
-                       device=next(iter(params.values())).device)
+                       device=(first.to_local() if is_dtensor(first)
+                               else first).device)
     return OptState(step=step, mu=zeros(moments_dtype),
                     nu=zeros(moments_dtype),
                     err=zeros(torch.float32) if with_err else None)
@@ -140,7 +168,14 @@ def apply_updates(params: Mapping[str, torch.Tensor],
 
     The parameters and the moments are written in place (the same
     tensors come back, so a model holding them is updated); the step
-    count is a new tensor."""
+    count is a new tensor.  On DTensors every op is local to each
+    rank's shards, but the norm (`global_norm`); the gradients must be in
+    their parameters' placements."""
+    with dtensor_context(*params.values()):
+        return _apply_updates(params, grads, state, cfg)
+
+
+def _apply_updates(params, grads, state, cfg):
     gnorm = global_norm(grads)
     scale = torch.clamp(torch.full_like(gnorm, cfg.clip_norm)
                         / (gnorm + 1e-9), max=1.0)

@@ -89,7 +89,8 @@ def test_decode_demo_tokens_match_jax(arch, mips, precision, capsys):
         jax_get_config(arch).smoke(), mips_mode=mips, mips_eps=0.1,
         mips_delta=0.1, mips_precision=precision)
     params = init_params(jcfg, jax.random.PRNGKey(0))
-    model = params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    model = params_from_jax(jax.tree.map(np.asarray, params), cfg,
+                            device="cpu")
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, P))
     want = _jax_demo(jcfg, params, prompt)
     out = serve.run_decode_demo(args, model=model, perm_of=_jax_perm)
@@ -235,7 +236,7 @@ def test_decode_head_is_built_once_refuses_pq_and_shards_over_a_mesh():
                                           mips_head, sharded_mips_head)
     cfg = dataclasses.replace(get_config("qwen1.5-0.5b").smoke(),
                               mips_mode="boundedme")
-    model = DenseLM(cfg, seed=1)
+    model = DenseLM(cfg, seed=1, device="cpu")
     head = mips_head(model, cfg)
     assert mips_head(model, cfg) is head
     assert head.plan == make_mips_plan(cfg)

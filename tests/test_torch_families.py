@@ -341,7 +341,7 @@ def test_family_models_match_jax(arch):
     jcfg = jax_get_config(arch).smoke()
     params = init_params(jcfg, jax.random.PRNGKey(0))
     model = params_from_jax(jax.tree.map(np.asarray, params),
-                            get_config(arch).smoke())
+                            get_config(arch).smoke(), device="cpu")
     cfg = model.cfg
     S = 20 if cfg.family == "vlm" else 21       # ssm: a ragged chunk
     tok, kw = _inputs(cfg, 2, S, seed=5)
@@ -382,12 +382,12 @@ def test_init_params_shapes_and_types(arch, dtype):
     params = jax.tree.map(np.asarray, init_params(jcfg,
                                                   jax.random.PRNGKey(0)))
     want = {k: (tuple(t.shape), t.dtype) for k, t in _port_params(params)}
-    model = build_model(cfg, seed=5)
+    model = build_model(cfg, seed=5, device="cpu")
     got = {k: (tuple(t.shape), t.dtype) for k, t in model.named_parameters()}
     assert got == want
     assert type(model) is {"ssm": MambaLM, "hybrid": HybridLM,
                            "encdec": EncDecLM}.get(cfg.family, DenseLM)
-    again = build_model(cfg, seed=5)
+    again = build_model(cfg, seed=5, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
                                                  again.parameters()))
     p = dict(model.named_parameters())
@@ -412,7 +412,8 @@ def test_params_from_jax_unstacks_periods_and_encoder():
     jcfg = jax_get_config("jamba-v0.1-52b").smoke()
     params = jax.tree.map(np.asarray, init_params(jcfg,
                                                   jax.random.PRNGKey(2)))
-    model = params_from_jax(params, get_config("jamba-v0.1-52b").smoke())
+    model = params_from_jax(params, get_config("jamba-v0.1-52b").smoke(),
+                            device="cpu")
     pp = params["periods"]
     np.testing.assert_array_equal(model.periods[1].moe[0].w_up.numpy(),
                                   pp["moe"]["w_up"][1, 0])
@@ -424,15 +425,16 @@ def test_params_from_jax_unstacks_periods_and_encoder():
     broken = dict(params, periods=dict(pp, mlp=dict(pp["mlp"])))
     del broken["periods"]["mlp"]["w_up"]
     with pytest.raises(ValueError, match="missing"):
-        params_from_jax(broken, model.cfg)
+        params_from_jax(broken, model.cfg, device="cpu")
     deeper = dict(params, periods=dict(pp, mamba={
         k: np.concatenate([v, v], axis=1) for k, v in pp["mamba"].items()}))
     with pytest.raises(ValueError, match="extra"):
-        params_from_jax(deeper, model.cfg)
+        params_from_jax(deeper, model.cfg, device="cpu")
     jcfg = jax_get_config("whisper-medium").smoke()
     params = jax.tree.map(np.asarray, init_params(jcfg,
                                                   jax.random.PRNGKey(3)))
-    model = params_from_jax(params, get_config("whisper-medium").smoke())
+    model = params_from_jax(params, get_config("whisper-medium").smoke(),
+                            device="cpu")
     np.testing.assert_array_equal(model.enc_layers[1].wq.numpy(),
                                   params["enc_layers"]["wq"][1])
     np.testing.assert_array_equal(model.layers[0].cwk.numpy(),

@@ -100,7 +100,8 @@ def test_family_decode_demo_tokens_match_jax(arch, mips, precision,
         jax_get_config(arch).smoke(), mips_mode=mips, mips_eps=0.1,
         mips_delta=0.1, mips_precision=precision)
     params = init_params(jcfg, jax.random.PRNGKey(0))
-    model = params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    model = params_from_jax(jax.tree.map(np.asarray, params), cfg,
+                            device="cpu")
     want = _jax_demo(jcfg, params, P)
     routed, real = [], TL.moe_layer
 
@@ -161,7 +162,7 @@ def test_vlm_prompt_shorter_than_its_patches_is_refused(capsys):
     # shape mismatch there)
     args = serve.parse_args(["--arch", "internvl2-26b", "--smoke",
                              "--device", "cpu", "--prompt-len", "16"])
-    model = serve.build_model(serve.decode_config(args))
+    model = serve.build_model(serve.decode_config(args), device="cpu")
     with pytest.raises(ValueError, match="patch embeddings"):
         model(torch.zeros((1, 8), dtype=torch.long),
               patch_embeds=torch.zeros((1, 16, model.cfg.d_model)),

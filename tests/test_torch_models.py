@@ -167,7 +167,7 @@ def _jax_model(arch: str, seed: int = 0):
     jcfg = jax_get_config(arch).smoke()
     params = init_params(jcfg, jax.random.PRNGKey(seed))
     model = params_from_jax(jax.tree.map(np.asarray, params),
-                            get_config(arch).smoke())
+                            get_config(arch).smoke(), device="cpu")
     return jcfg, params, model
 
 
@@ -206,7 +206,7 @@ def test_params_from_jax_keeps_types_and_checks_names():
                               dtype="bfloat16")
     params = jax.tree.map(np.asarray, init_params(jcfg,
                                                   jax.random.PRNGKey(1)))
-    model = params_from_jax(params, cfg)
+    model = params_from_jax(params, cfg, device="cpu")
     assert model.embed.dtype == model.unembed.dtype == torch.bfloat16
     assert model.final_w.dtype == model.layers[0].ln1_w.dtype == \
         torch.float32
@@ -216,15 +216,17 @@ def test_params_from_jax_keeps_types_and_checks_names():
     broken = dict(params, layers=dict(params["layers"]))
     del broken["layers"]["w_up"]
     with pytest.raises(ValueError, match="missing"):
-        params_from_jax(broken, cfg)
+        params_from_jax(broken, cfg, device="cpu")
     with pytest.raises(ValueError, match="model has"):
-        params_from_jax(params, dataclasses.replace(cfg, dtype="float32"))
+        params_from_jax(params, dataclasses.replace(cfg, dtype="float32"),
+                        device="cpu")
 
 
 def test_dense_lm_init_shapes_scales_and_refusals():
     cfg = dataclasses.replace(get_config("qwen2.5-3b").smoke(),
                               dtype="bfloat16")
-    a, b = DenseLM(cfg, seed=5), DenseLM(cfg, seed=5)
+    a, b = (DenseLM(cfg, seed=5, device="cpu"),
+            DenseLM(cfg, seed=5, device="cpu"))
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(),
                                                  b.parameters()))
     jparams = init_params(dataclasses.replace(
@@ -243,7 +245,7 @@ def test_dense_lm_init_shapes_scales_and_refusals():
     # and the ln norm is a layer norm with its bias
     assert set(ARCHS) < set(REGISTRY) and len(REGISTRY) == 10
     moe = DenseLM(dataclasses.replace(cfg, family="moe", n_experts=4,
-                                      experts_per_token=2))
+                                      experts_per_token=2), device="cpu")
     assert moe.layers[0].router.dtype == torch.float32
     assert moe.layers[0].w_gate.shape == (4, cfg.d_model, cfg.d_ff)
     x = torch.arange(16, dtype=torch.float32).reshape(2, 8)

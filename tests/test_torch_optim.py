@@ -66,7 +66,8 @@ def _setup(arch: str, dtype: str = "float32", seed: int = 0):
     jcfg = dataclasses.replace(jax_get_config(arch).smoke(), dtype=dtype)
     cfg = dataclasses.replace(get_config(arch).smoke(), dtype=dtype)
     params = init_params(jcfg, jax.random.PRNGKey(seed))
-    model = params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    model = params_from_jax(jax.tree.map(np.asarray, params), cfg,
+                            device="cpu")
     return params, model, dict(model.named_parameters())
 
 
@@ -167,7 +168,7 @@ def test_apply_updates_matches_jax(arch, dtype, moments):
     jc = JA.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10)
     tc = TA.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10)
     js = JA.init_opt(params, moments_dtype=jnp.dtype(moments))
-    ts = opt_state_from_jax(jax.tree.map(np.asarray, js))
+    ts = opt_state_from_jax(jax.tree.map(np.asarray, js), device="cpu")
     before = {k: v.data_ptr() for k, v in tparams.items()}
     bf16 = "bfloat16" in (dtype, moments)
     for i in range(3):
@@ -235,14 +236,15 @@ def test_opt_state_from_jax_unstacks_the_moments():
     js = JA.init_opt(params, moments_dtype=jnp.bfloat16)
     js = js._replace(step=jnp.int32(5), mu=jax.tree.map(
         lambda p: jnp.full(p.shape, 0.5, jnp.bfloat16), params))
-    ts = opt_state_from_jax(jax.tree.map(np.asarray, js))
+    ts = opt_state_from_jax(jax.tree.map(np.asarray, js), device="cpu")
     assert int(ts.step) == 5 and ts.step.dtype == torch.int32
     assert set(ts.mu) == set(ts.nu) == set(ts.err) == set(tparams)
     assert ts.mu["periods.1.moe.0.w_up"].dtype == torch.bfloat16
     assert bool((ts.mu["periods.1.moe.0.w_up"] == 0.5).all())
     assert ts.err["embed"].dtype == torch.float32
     assert opt_state_from_jax(
-        jax.tree.map(np.asarray, JA.init_opt(params, with_err=False))
+        jax.tree.map(np.asarray, JA.init_opt(params, with_err=False)),
+        device="cpu"
     ).err is None
 
 

@@ -59,7 +59,8 @@ from repro_torch.convert import (opt_state_from_jax, params_from_jax,
 from repro_torch.launch.engine import seeded_perm
 from repro_torch.data.synthetic import LMStream
 from repro_torch.launch import train as T
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import (local_mesh_shape, make_local_mesh,
+                                     simulated_mesh)
 from repro_torch.models import layers as TL
 from repro_torch.models.model import build_model
 from repro_torch.models.steps import (decode_step, loss_fn, mips_head,
@@ -139,7 +140,7 @@ def test_loss_and_gradients_match_jax(arch):
     jcfg, cfg = jax_get_config(arch).smoke(), get_config(arch).smoke()
     params = init_params(jcfg, jax.random.PRNGKey(0))
     like = jax.tree.map(np.asarray, params)
-    model = params_from_jax(like, cfg)
+    model = params_from_jax(like, cfg, device="cpu")
     b = _batch(cfg, 2, 20, seed=1)
     (jl, jm), jg = jax.jit(jax.value_and_grad(
         lambda p: jax_loss(p, jcfg, _jax(b)), has_aux=True))(params)
@@ -151,7 +152,7 @@ def test_loss_and_gradients_match_jax(arch):
 
 def test_accuracy_takes_the_first_index_on_ties():
     cfg = get_config("tinyllama-1.1b").smoke()
-    model = build_model(cfg, seed=0)
+    model = build_model(cfg, seed=0, device="cpu")
     with torch.no_grad():
         model.unembed.zero_()            # every logit 0: a tie everywhere
     b = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
@@ -200,7 +201,7 @@ def test_remat_gives_bitwise_equal_gradients(arch):
     grads = {}
     for remat in (False, True):
         c = dataclasses.replace(cfg, remat=remat)
-        grads[remat] = _grads(build_model(c, seed=0), c, b)
+        grads[remat] = _grads(build_model(c, seed=0, device="cpu"), c, b)
     assert grads[False].keys() == grads[True].keys()
     for k in grads[False]:
         assert torch.equal(grads[False][k], grads[True][k]), k
@@ -211,7 +212,7 @@ def test_serving_builds_no_autograd_graph():
     turned the parameters' gradients on; the train mode builds a graph
     only then."""
     cfg = get_config("tinyllama-1.1b").smoke()
-    model = build_model(cfg, seed=0)
+    model = build_model(cfg, seed=0, device="cpu")
     tok = torch.zeros((2, 5), dtype=torch.int32)
     h, _ = model(tok)
     assert h.grad_fn is None
@@ -240,12 +241,12 @@ def test_train_step_with_compression_matches_jax():
     jcfg, cfg = jax_get_config(arch).smoke(), get_config(arch).smoke()
     params = init_params(jcfg, jax.random.PRNGKey(0))
     like = jax.tree.map(np.asarray, params)
-    model = params_from_jax(like, cfg)
+    model = params_from_jax(like, cfg, device="cpu")
     rng = np.random.default_rng(8)
     jo = JA.init_opt(params)
     jo = jo._replace(err=jax.tree.map(lambda e: jnp.asarray(
         rng.normal(size=e.shape) * 1e-4, jnp.float32), jo.err))
-    to = opt_state_from_jax(jax.tree.map(np.asarray, jo))
+    to = opt_state_from_jax(jax.tree.map(np.asarray, jo), device="cpu")
     jc = JA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     tc = TA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     b = _batch(cfg, 2, 16, seed=10)
@@ -281,7 +282,7 @@ def test_train_step_compresses_then_applies():
     cfg = get_config("qwen3-moe-30b-a3b").smoke()
     tc = TA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     b = _torch(_batch(cfg, 2, 16, seed=3))
-    m1 = build_model(cfg, seed=0)
+    m1 = build_model(cfg, seed=0, device="cpu")
     m2 = copy.deepcopy(m1)
     o1 = TA.init_opt(dict(m1.named_parameters()))
     o2 = TA.init_opt(dict(m2.named_parameters()))
@@ -309,7 +310,8 @@ def trained():
     jcfg = jax_get_config("tinyllama-1.1b").smoke()
     cfg = get_config("tinyllama-1.1b").smoke()
     params = init_params(jcfg, jax.random.PRNGKey(0))
-    model = params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    model = params_from_jax(jax.tree.map(np.asarray, params), cfg,
+                            device="cpu")
     jc = JA.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100)
     tc = TA.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100)
     jo, to = JA.init_opt(params), TA.init_opt(dict(model.named_parameters()))
@@ -432,11 +434,25 @@ def test_trainer_resume_at_the_stream_step_is_bitwise(tmp_path):
 
 def test_local_mesh_clamps_and_multi_card_training_raises(tmp_path,
                                                           monkeypatch):
-    assert make_local_mesh(4, 2, device="cpu") == (1, 1)
-    assert make_local_mesh(device="cpu") == (1, 1)
-    monkeypatch.setattr(T, "make_local_mesh", lambda d, m, dev: (2, 1))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.train(_args("--steps", "1", "--data-par", "2"))
+    """The local mesh clamps to the ranks there are, as the JAX package's
+    does: without a process group there is one, so ``--data-par 2
+    --model-par 2`` trains on one device (multi-card training no longer
+    raises); under a group of 4 ranks the clamped shapes, and a mesh
+    that does not cover every rank raises."""
+    assert local_mesh_shape(4, 2) == (1, 1)
+    assert local_mesh_shape() == (1, 1)
+    res = T.train(_args("--steps", "1", "--data-par", "2",
+                        "--model-par", "2"))
+    assert res["mesh"] is None and len(res["history"]) == 1
+    with simulated_mesh((4, 1), device="cpu"):
+        assert local_mesh_shape(4, 2) == (4, 1)
+        assert local_mesh_shape(2, 2) == (2, 2)
+        assert local_mesh_shape(3, 2) == (3, 1)
+        mesh = make_local_mesh(2, 2, device="cpu")
+        assert mesh.mesh_dim_names == ("data", "model")
+        assert tuple(mesh.shape) == (2, 2)
+        with pytest.raises(RuntimeError, match="process group of 3"):
+            make_local_mesh(3, 2, device="cpu")
 
 
 def test_step_deadline_raises_on_a_hung_step():

@@ -57,7 +57,7 @@ def _batch(stream, step, dev):
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-moe-30b-a3b"])
 def test_train_step_on_the_card_matches_the_cpu(arch, card):
     cfg = get_config(arch).smoke()
-    host = build_model(cfg, seed=3)
+    host = build_model(cfg, seed=3, device="cpu")
     dev = copy.deepcopy(host).to(card)
     stream = LMStream(cfg.vocab, batch=4, seq=32, seed=0)
     grads = {}
