@@ -292,10 +292,33 @@ Phases, one line each (any failure exits non-zero before the result):
    on the CPU; (f) the dry run (`repro_torch.launch.dryrun.run_cell`) of
    tinyllama-1.1b train_4k single, qwen3-moe-30b-a3b train_4k single and
    grok-1-314b decode_32k multi, each ``ok``, with each device's GB;
-16. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+16. mesh decode — decode over a ``DeviceMesh`` whose ranks are simulated
+   on the card: (a) one ``[bf16]`` launch through the registered operator
+   ``torch.ops.repro_torch.fused_cascade_batched`` bitwise the direct
+   launch on phase 3's operands; (b) `sharded_bounded_me_decode` over a
+   (1, 4) mesh on the serve table (B = 4, K = 4, eps = delta = 0.1), the
+   fp32 tier on its bf16 cells and int8: bitwise the serving `Mesh` at S
+   = 4 under the same perm, one launch per rank (counts set to 0 just
+   before, read just after), each held against the plain version, rank
+   0's launch timed; (c) command-r-35b at full width (`MESH_LAYERS` of 40
+   layers in bf16, `MESH_LAYERS_F32` in f32) placed by `param_pspecs` on
+   (2, 2): 4 prompts of 512 tokens into a 32,768-position cache split
+   over 'kvseq', 16 greedy tokens with the bandit head, kernel 1 launches
+   (from 0 over the decode) equal to steps x ranks, each held; tokens
+   against one card's (the head over the serving `Mesh` at S = 2) and
+   exact decode's (equal in f32; in bf16 equal to the mesh's exact head,
+   the agreement with one card and step 0's hidden-state distance and
+   top-two logit gap reported); each step's collectives by kind and
+   bytes, no all-gather near one layer's K shard; ms a token (ranks run
+   one after another) and peak card GB; (d) the dry run of command-r-35b
+   decode_32k single, qwen3-moe-30b-a3b decode_32k multi (the bandit
+   head) and qwen1.5-0.5b decode_32k single, each ``ok`` with its
+   all-gather bytes below its cache bytes;
+17. a ``kernels`` JSON line, one entry per kernel and tier (the batched
    cascade's launches are the serve, runtime, store, tenancy, decode,
-   sharded, families, train and train sharded phases'; its ``[bf16]``
-   entry times the decode head), and last the ``ok`` JSON line.
+   sharded, families, train, train sharded and mesh decode phases'; its
+   ``[bf16]`` entry times the decode head), and last the ``ok`` JSON
+   line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
 near-tie, counted and printed — every differing candidate's exact float64
@@ -449,9 +472,11 @@ def time_cuda(fn, n: int, warmup: int) -> float:
     return statistics.median(times)
 
 
-def compare(table, Q, got, ref, *, what: str, bitwise: bool = False) -> dict:
+def compare(table, Q, got, ref, *, what: str, bitwise: bool = False,
+            atol_scale: float = 0.0) -> dict:
     """Hold kernel (ids, vals[, rounds_used]) against the plain version's,
-    per query."""
+    per query; scores to rtol `SCORE_RTOL` and an atol of ``atol_scale``
+    times the launch's largest |score|."""
     ids_k, vals_k = (t.cpu() for t in got[:2])
     ids_p, vals_p = (t.cpu() for t in ref[:2])
     check(ids_k.shape == ids_p.shape and vals_k.shape == vals_p.shape,
@@ -486,8 +511,10 @@ def compare(table, Q, got, ref, *, what: str, bitwise: bool = False) -> dict:
     if bitwise:
         check(err == 0.0, f"{what}: scores differ (max abs {err:.3g}) on a "
               f"bitwise tier")
+    atol = atol_scale * float(vals_p[fin_p].abs().max()) if bool(
+        fin_p.any()) else 0.0
     check(torch.allclose(vals_k[fin_k], vals_p[fin_p], rtol=SCORE_RTOL,
-                         atol=0.0),
+                         atol=atol),
           f"{what}: scores differ beyond rtol {SCORE_RTOL} "
           f"(max abs {err:.3g})")
     return {"near_tie_queries": near_ties, "max_abs_err": err}
@@ -4036,9 +4063,439 @@ def phase_train_sharded(phase14_losses) -> dict:
     return out
 
 
+#: phase 16 (b): the serve table's row shards over a (1, 4) mesh, its
+#: ranks simulated on the one card, per tier: (tag, precision)
+MESH_SERVE_SHAPE = (1, 4)
+MESH_SERVE_TIERS = (("bf16", "fp32"), ("int8", "int8"))
+#: phase 16 (c): command-r-35b at full width with the bandit head on a
+#: simulated (2, 2) mesh, in bf16 cut to 4 of 40 layers (14.1 GB of
+#: weights, over the four ranks half again, and the tile copies, beside
+#: the one-card references; all 40 layers are 64.8 GB), and in f32 cut to
+#: 2 layers (22.4 GB; 16.8 GB of f32 tile shards on the ranks)
+MESH_ARCH, MESH_LAYERS, MESH_LAYERS_F32, MESH_SHAPE = (
+    "command-r-35b", 4, 2, (2, 2))
+#: (c): 4 prompts of 512 tokens into a cache of decode_32k's 32,768
+#: positions, then greedy tokens
+MESH_PROMPT, MESH_CACHE, MESH_TOKENS = 512, 32_768, 16
+#: phase 16 (d): the dry run's cells, on the host; qwen1.5-0.5b's
+#: all-gather bytes per device and step in PR 24's record of the cell
+MESH_DRYRUN_CELLS = (("command-r-35b", "decode_32k", "single"),
+                     ("qwen3-moe-30b-a3b", "decode_32k", "multi"),
+                     ("qwen1.5-0.5b", "decode_32k", "single"))
+PR24_QWEN_DECODE_ALL_GATHER = 25_769_805_312
+
+
+class TileRows:
+    """Row ``i`` of a tile-major table ``V4 (n_tiles, n_blocks, R, C)``,
+    as `compare` indexes a table (its near-tie check reads a few rows)."""
+
+    def __init__(self, V4: torch.Tensor):
+        self.V4 = V4
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        R = self.V4.shape[2]
+        return self.V4[i // R, :, i % R, :].reshape(-1)
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Every launch of the batched cascade through the operator, with its
+    operands and outputs (under simulated ranks: once per rank, on the
+    rank's own tensors)."""
+    from repro_torch.kernels import ops as kops
+    real, calls = kops.fused_cascade_batched_cuda, []
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+    kops.fused_cascade_batched_cuda = record
+    try:
+        yield calls
+    finally:
+        kops.fused_cascade_batched_cuda = real
+
+
+#: the held mesh launches' score atol, in units of the launch's largest
+#: |score|: a shard returns k_out = K + 1 candidates, and the one past
+#: its top K may be any row of the winner's final tile, near zero (2.6e-6
+#: beside 1.1e-3 on command-r's head, my chip run, PR 25), where the
+#: f32 sums' rounding (the products' scale, not the result's) fails a
+#: relative tolerance alone
+MESH_SCORE_ATOL = SCORE_RTOL
+
+
+def hold_launches(what: str, calls, *, bitwise: bool) -> dict:
+    """Each recorded launch against the plain version on its operands
+    (`compare`, scores also within `MESH_SCORE_ATOL`; the near-tie check
+    reads the launch's own tile-major table, the queries its blocked
+    operand)."""
+    from repro_torch.kernels.ref import fused_cascade_batched_ref
+    errs, ties = [0.0], 0
+    for i, (args, kw, out) in enumerate(calls):
+        ref = fused_cascade_batched_ref(*args, **kw)
+        torch.cuda.synchronize()
+        Qb = args[1]
+        try:
+            r = compare(TileRows(args[0]),
+                        Qb.reshape(Qb.shape[0], -1).float(), out, ref,
+                        what=f"{what} launch {i}", bitwise=bitwise,
+                        atol_scale=MESH_SCORE_ATOL)
+        except SmokeFailure as e:
+            raise SmokeFailure(f"{e}; kernel {out[:2]}, plain {ref[:2]}, "
+                               f"|Qb| {float(Qb.float().abs().max())}") \
+                from None
+        errs.append(r["max_abs_err"])
+        ties += r["near_tie_queries"]
+    return {"held": len(calls), "max_abs_err": max(errs),
+            "near_tie_queries": ties}
+
+
+def shard_launch_times(plan, args, kw) -> dict:
+    """One rank's recorded launch timed alone (CUDA events) against its
+    bound and its plain version; beside them ``torch.matmul`` +
+    ``torch.topk`` over the shard's rows where the launch pulls a float
+    table (its own rows, untiled)."""
+    from repro_torch.core.schedule import PULL_BIT
+    from repro_torch.kernels.fused_cascade import fused_cascade_batched_cuda
+    from repro_torch.kernels.ref import fused_cascade_batched_ref
+    V4, Qb = args[0], args[1]
+    kw = {k: v for k, v in kw.items() if v is not None}
+    n_tiles, n_blocks, R, C = V4.shape
+    pulled = torch.zeros((n_tiles, n_blocks), dtype=torch.bool, device=DEV)
+    fused_cascade_batched_ref(*args, pulled=pulled, **kw)
+    n_pulls = int(((args[2].cpu() & PULL_BIT) != 0).sum()) * Qb.shape[0]
+    out = {**kernel_bound(plan, args, kw, pulled, n_pulls),
+           "shard_table": [n_tiles * R, plan.N], "library_ms": None,
+           "kernel_ms": time_cuda(lambda: fused_cascade_batched_cuda(
+               *args, **kw), 10, 2),
+           "plain_ms": time_cuda(lambda: fused_cascade_batched_ref(
+               *args, **kw), 3, 1)}
+    if V4.dtype in (torch.float32, torch.bfloat16):
+        rows = V4.permute(0, 2, 1, 3).reshape(n_tiles * R, n_blocks * C)
+        Qt = Qb.reshape(Qb.shape[0], -1).to(V4.dtype)
+        out["library_ms"] = time_cuda(
+            lambda: torch.topk(rows @ Qt.T, plan.K, dim=0), 10, 2)
+    return out
+
+
+def mesh_op_bitwise() -> dict:
+    """Phase 16 (a): one ``[bf16]`` launch through the registered operator
+    (``torch.ops.repro_torch.fused_cascade_batched``) bitwise the direct
+    launch on phase 3's operands: the serve table in bf16, row mode, the
+    fp32 tier, B = 4, K = 4, eps = delta = 0.1, n_valid 151,936."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import make_serving_table
+    from repro_torch.core.boundedme_torch import tile_table
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.fused_cascade import fused_cascade_batched_cuda
+    from repro_torch.launch.engine import seeded_perm
+    table, n_valid = make_serving_table(get_config("qwen1.5-0.5b"), 0, DEV)
+    plan = tier_plan(table, n_valid, "fp32", "hoeffding", "row")
+    V4 = tile_table(table, plan, DEV)
+    Q = torch.from_numpy(np.random.default_rng(1234).normal(
+        size=(B, plan.N)).astype(np.float32)).to(DEV)
+    args, kw = cascade_operands(plan, V4, Q, seeded_perm(0, 0, plan.n_blocks))
+    direct = fused_cascade_batched_cuda(*args, n_valid=n_valid, **kw)
+    kops.reset_launch_counts()
+    via = kops.fused_cascade_batched(*args, n_valid=n_valid, **kw)
+    counts = kops.launch_counts()
+    torch.cuda.synchronize()
+    check(counts["fused_cascade_batched[bf16]"] == 1
+          == counts["fused_cascade_batched"],
+          f"mesh op: {counts['fused_cascade_batched']} launches through "
+          f"the operator")
+    check(len(via) == 2 and all(torch.equal(a, b)
+                                for a, b in zip(direct, via)),
+          "mesh op: the operator's launch is not bitwise the direct one")
+    out = {"table": list(table.shape), "bitwise": True, "launches": 1}
+    say("mesh op: " + json.dumps(out))
+    return out
+
+
+def mesh_serve() -> dict:
+    """Phase 16 (b): `sharded_bounded_me_decode` over a simulated
+    `MESH_SERVE_SHAPE` ``DeviceMesh`` on the serve table (153,600 x 1,024
+    bf16, nothing cut), B = 4, K = 4, eps = delta = 0.1, per tier of
+    `MESH_SERVE_TIERS`: ids, scores and gaps bitwise the serving-`Mesh`
+    version at S = 4 under the same perm; the launch counts set to 0 just
+    before the mesh run and read just after (one launch per rank), each
+    launch held against its plain version; rank 0's launch timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import make_serving_table
+    from repro_torch.core.mips import table_abs_max
+    from repro_torch.distributed.sharding import (Mesh, make_shard_plan,
+                                                  sharded_bounded_me_decode)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.engine import seeded_perm
+    from repro_torch.launch.mesh import simulated_mesh
+    table, n_valid = make_serving_table(get_config("qwen1.5-0.5b"), 0, DEV)
+    n, N = table.shape
+    Q = torch.from_numpy(np.random.default_rng(1234).normal(
+        size=(B, N)).astype(np.float32)).to(DEV)
+    S = MESH_SERVE_SHAPE[1]
+    out = {}
+    for tag, precision in MESH_SERVE_TIERS:
+        kw = dict(K=K, eps=EPS, delta=DELTA, precision=precision,
+                  value_range=2.0 * table_abs_max(table))
+        plan = make_shard_plan(n, N, S, **kw)[0]
+        perm = seeded_perm(0, 1, plan.n_blocks)
+        want = sharded_bounded_me_decode(table, Q, perm, mesh=Mesh(
+            [DEV] * S), n_valid=n_valid, **kw)
+        t0 = time.perf_counter()
+        with simulated_mesh(MESH_SERVE_SHAPE, device=DEV) as mesh:
+            kops.reset_launch_counts()
+            with recorded_launches() as calls:
+                got = sharded_bounded_me_decode(table, Q, perm, mesh=mesh,
+                                                n_valid=n_valid, **kw)
+            counts = kops.launch_counts()
+            got = [gathered(g) for g in got]
+        run_s = time.perf_counter() - t0
+        launches = counts[f"fused_cascade_batched[{tag}]"]
+        check(launches == S == counts["fused_cascade_batched"]
+              == len(calls),
+              f"mesh serve {tag}: {launches} launches "
+              f"({counts['fused_cascade_batched']} in all) on {S} ranks")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"mesh serve {tag}: not bitwise the serving Mesh version")
+        held = hold_launches(f"mesh serve {tag}", calls,
+                             bitwise=precision == "int8")
+        args, lkw, _ = calls[0]
+        rec = {"launches": launches, **held, "bitwise_serving_mesh": True,
+               "ids": got[0].tolist(), "run_s": run_s,
+               "shard": shard_launch_times(plan, args, lkw)}
+        del calls, args, lkw
+        out[tag] = rec
+        say(f"mesh serve {tag}: " + json.dumps(rec))
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_decode(dtype: str, layers: int, strict: bool) -> dict:
+    """Phase 16 (c): `MESH_ARCH` at full width, ``layers`` layers in
+    ``dtype`` with the bandit head: `MESH_PROMPT`-token prompts of 4 into
+    a `MESH_CACHE`-position cache, `MESH_TOKENS` greedy tokens.  First on
+    one card: the bandit head over the serving `Mesh` at S = 2 (the
+    mesh's shard plan) and the exact head; then the same weights placed
+    by `param_pspecs` on a simulated `MESH_SHAPE` mesh, the cache split
+    over 'kvseq', each bandit step under a `TraceCounter`.  Kernel 1
+    launches (counted from 0 over the mesh's bandit decode) equal steps x
+    ranks, each held; no all-gather carries the cache.  With ``strict``
+    (f32) the mesh's tokens equal both one-card references; in bf16 the
+    sharded model's partial sums round to bf16 before they are reduced,
+    its hidden states stand about 1 % from one card's (my chip run, PR
+    25), and a near-tie can pick another token there: its tokens must
+    equal the exact head's on the same mesh, and their agreement with
+    one card is reported."""
+    from repro_torch.distributed.sharding import Mesh, logical_mesh
+    from repro_torch.distributed.specs import (batch_pspecs, local_bytes,
+                                               param_pspecs, place_params,
+                                               place_tree)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.launch.comm_analysis import (TraceCounter,
+                                                  collective_bytes,
+                                                  shape_bytes)
+    from repro_torch.launch.engine import seeded_perm
+    from repro_torch.launch.mesh import simulated_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.steps import decode_step, prefill_step
+    what = f"mesh decode {dtype}"
+    cfg = dataclasses.replace(serve.decode_config(decode_args(
+        MESH_ARCH, "boundedme", MESH_TOKENS, MESH_PROMPT)),
+        n_layers=layers, dtype=dtype)
+    cfg_e = dataclasses.replace(cfg, mips_mode="exact")
+    tag = tier_tag("fp32", torch.empty(0, dtype=getattr(torch, dtype)))
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, seed=0, device=DEV)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, MESH_PROMPT))).to(DEV)
+    n_blocks = -(-cfg.d_model // min(512, cfg.d_model))
+    perms = [seeded_perm(0, i, n_blocks) for i in range(MESH_TOKENS)]
+
+    def greedy(c, tok, mesh=None, steps=None, calls=None):
+        """Prefill and `MESH_TOKENS` greedy steps: the tokens (B, T) on
+        the host; each step's collectives into ``steps``."""
+        _, caches = prefill_step(model, tok, MESH_CACHE)
+        if steps is not None:
+            kv = caches[0]["k"]
+            check(any(p.is_shard(1) for p in kv.placements),
+                  f"{what}: the cache is not split over its sequence "
+                  f"({kv.placements})")
+            out["cache_gb_per_rank"] = local_bytes(
+                t for layer in caches for t in layer.values()) / 1e9
+            out["layer_k_bytes_per_rank"] = local_bytes([kv])
+            kops.reset_launch_counts()
+        cur, toks = tok[:, -1:], []
+        for i in range(MESH_TOKENS):
+            ts = time.perf_counter()
+            with TraceCounter() as tc:
+                nxt, caches = decode_step(model, c, caches, cur,
+                                          MESH_PROMPT + i, perm=perms[i],
+                                          mesh=mesh)
+            torch.cuda.synchronize()
+            if steps is not None:
+                step_s.append(time.perf_counter() - ts)
+                steps.append(tc.collectives)
+            toks.append(gathered(nxt))
+            cur = nxt[:, None]
+        return torch.stack(toks, 1).cpu()
+    out = {"arch": MESH_ARCH, "layers": layers, "mesh": MESH_SHAPE,
+           "dtype": dtype, "prompt_len": MESH_PROMPT,
+           "cache_len": MESH_CACHE, "tokens": MESH_TOKENS}
+    # the one-card head's hidden states (as it casts them), for step 0's
+    # distance to the mesh's and the top two exact logits' gap
+    from repro_torch.models import steps as model_steps
+    from repro_torch.models.model import masked_logits
+    hid_card, head_call = [], model_steps.ShardedMipsHead.__call__
+
+    def recording(self, hid, perm):
+        hid_card.append(hid.to(self.shards[0].dtype).float())
+        return head_call(self, hid, perm)
+    model_steps.ShardedMipsHead.__call__ = recording
+    try:
+        card = greedy(cfg, prompt, Mesh([DEV] * MESH_SHAPE[1]))
+    finally:
+        model_steps.ShardedMipsHead.__call__ = head_call
+    top2 = torch.topk(masked_logits(cfg, model.head_table.detach(),
+                                    hid_card[0]), 2, dim=-1).values
+    out["one_card_step0_top2_logit_gap"] = (top2[:, 0]
+                                            - top2[:, 1]).tolist()
+    exact = greedy(cfg_e, prompt)
+    model._sharded_head = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    steps, step_s = [], []
+    with simulated_mesh(MESH_SHAPE, device=DEV) as mesh, \
+            logical_mesh(mesh):
+        place_params(model, param_pspecs(
+            cfg, dict(model.named_parameters()), mesh), mesh)
+        tok = place_tree({"tokens": prompt}, batch_pspecs(
+            mesh, B, {"tokens": prompt}), mesh)["tokens"]
+        with recorded_launches() as calls:
+            got = greedy(cfg, tok, steps=steps)
+        counts = kops.launch_counts()
+        plan = model._mesh_head.plan
+        out["param_gb_per_rank"] = local_bytes(model.parameters()) / 1e9
+        run_s = time.perf_counter() - t0
+        if not strict:
+            model._mesh_head = None
+            got_exact = greedy(cfg_e, tok)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = MESH_SHAPE[0] * MESH_SHAPE[1]
+    launches = counts[f"fused_cascade_batched[{tag}]"]
+    check(launches == MESH_TOKENS * ranks
+          == counts["fused_cascade_batched"] == len(calls),
+          f"{what}: {launches} [{tag}] launches "
+          f"({counts['fused_cascade_batched']} in all) for "
+          f"{MESH_TOKENS} steps on {ranks} ranks")
+    # each rank's launch held on the tensors it ran on, outside the
+    # simulated ranks (where a fresh tensor would be one per rank)
+    held = hold_launches(what, calls, bitwise=False)
+    head = shard_launch_times(plan, *calls[0][:2])
+    # step 0's hidden states on the mesh, from the launches of the ranks
+    # at 'model' coordinate 0 (rank order: 'data' outer), against one
+    # card's: relative L2 per row
+    per_data = MESH_SHAPE[1]
+    hid_mesh = torch.cat([calls[r][0][1].reshape(
+        calls[r][0][1].shape[0], -1)[:, :cfg.d_model]
+        for r in range(0, len(calls[:ranks]), per_data)])
+    out["step0_hidden_rel_l2"] = ((hid_mesh - hid_card[0]).norm(dim=-1)
+                                  / hid_card[0].norm(dim=-1)).tolist()
+    del calls, hid_card
+    gathers = [shape_bytes(sh) for st in steps for k, sh in st
+               if k == "all-gather"]
+    check(max(gathers) < 0.1 * out["layer_k_bytes_per_rank"],
+          f"{what}: an all-gather of {max(gathers)} bytes against "
+          f"{out['layer_k_bytes_per_rank']} bytes of one layer's K on a "
+          f"rank")
+    if strict:
+        check(torch.equal(got, card),
+              f"{what}: tokens {got.tolist()} vs one card's "
+              f"{card.tolist()}")
+        check(torch.equal(got, exact),
+              f"{what}: tokens {got.tolist()} vs exact decode's "
+              f"{exact.tolist()}")
+    else:
+        check(torch.equal(got, got_exact),
+              f"{what}: tokens {got.tolist()} vs the mesh's exact decode "
+              f"{got_exact.tolist()}")
+    out.update({
+        "tag": tag, "equal_one_card_serving_mesh": torch.equal(got, card),
+        "equal_one_card_exact": torch.equal(got, exact),
+        "agreement_one_card": float((got == card).float().mean()),
+        "rows_equal_one_card": (got == card).all(1).tolist(),
+        "one_card_equal_exact": torch.equal(card, exact),
+        "launches": launches, **held,
+        "collectives_per_step": {k: v for k, v in collective_bytes(
+            steps[-1]).items() if v},
+        "largest_all_gather_bytes": max(gathers),
+        "ms_per_token_four_ranks_serialised_on_one_card_not_a_"
+        "throughput": [t * 1e3 for t in step_s],
+        "peak_card_gb": peak, "mem_before_gb": base_gb, "head": head,
+        "run_s": run_s})
+    say(f"{what}: " + json.dumps(out))
+    return out
+
+
+def mesh_dryrun() -> dict:
+    """Phase 16 (d): `MESH_DRYRUN_CELLS` through the dry run on the host,
+    each ``ok``; the bandit head's cells with ``mips_mode`` boundedme; the
+    dense cell's all-gather bytes below its cache bytes and against PR
+    24's record."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun as D
+    out = {}
+    for arch, shape, mesh_name in MESH_DRYRUN_CELLS:
+        cfg = get_config(arch)
+        rec = D.run_cell(cfg, get_shape(shape), mesh_name, save=False)
+        tag = f"{arch} x {shape} x {mesh_name}"
+        check(rec["ok"], f"dry run {tag}: {rec.get('error')}")
+        check(rec["mips_mode"] == cfg.mips_mode,
+              f"dry run {tag}: mips_mode {rec['mips_mode']}")
+        c = rec["collectives"]
+        check(c["all-gather_bytes"] < rec["cache_bytes"],
+              f"dry run {tag}: {c['all-gather_bytes']} all-gather bytes "
+              f"against {rec['cache_bytes']} of cache")
+        out[tag] = {"mips_mode": rec["mips_mode"],
+                    "all_gather_bytes": c["all-gather_bytes"],
+                    "all_gather_count": c["all-gather_count"],
+                    "all_reduce_bytes": c["all-reduce_bytes"],
+                    "all_reduce_count": c["all-reduce_count"],
+                    "cache_bytes": rec["cache_bytes"],
+                    "trace_s": rec["lower_s"]}
+        if arch == "qwen1.5-0.5b":
+            out[tag]["pr24_all_gather_bytes"] = PR24_QWEN_DECODE_ALL_GATHER
+        say(f"dry run {tag}: " + json.dumps(out[tag]))
+    return out
+
+
+def phase_mesh_decode() -> dict:
+    """Phase 16: decode over a mesh — kernel 1 through its operator, the
+    sharded decode over a simulated ``DeviceMesh``, a model placed over
+    one, and the dry run's bandit cells."""
+    t_phase = time.perf_counter()
+    out = {"op": mesh_op_bitwise()}
+    torch.cuda.empty_cache()
+    out["serve"] = mesh_serve()
+    out["decode"] = mesh_decode("bfloat16", MESH_LAYERS, strict=False)
+    out["decode_f32"] = mesh_decode("float32", MESH_LAYERS_F32,
+                                    strict=True)
+    out["dryrun"] = mesh_dryrun()
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"mesh decode: phase in {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
                    lib, decode, sharded, families, trained,
-                   trained_sharded) -> list:
+                   trained_sharded, meshed) -> list:
     """The ``kernels`` line: one entry per kernel and tier.  The batched
     cascade's launches are those of the serve, runtime, store, tenancy,
     decode, sharded, families and train phases (the fp32 tier on the f32
@@ -4062,6 +4519,10 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
             runs += [families[arch] for arch, *_ in FAMILY_RUNS]
             runs.append(trained["serve"])
             runs.append(trained_sharded["serve"])
+            runs.append(meshed["decode"])
+        if tag == "fp32":
+            runs.append(meshed["decode_f32"])
+        runs.append(meshed["serve"].get(tag, none))
         runs.append(sharded["per_tag"].get(tag, none))
         row, coord = kern[(tag, "row")], kern.get((tag, "coord"))
         timed = decode["head"] if tag == "bf16" else row
@@ -4099,6 +4560,17 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
                 k: head[k] for k in ("table", "kernel_ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")
             } | {"launches": trained_sharded["serve"]["launches"]}
+            head = meshed["decode"]["head"]
+            entry["mesh_decode_shard"] = {
+                k: head[k] for k in ("shard_table", "kernel_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")
+            } | {"launches": meshed["decode"]["launches"]}
+        if tag in meshed["serve"]:
+            head = meshed["serve"][tag]["shard"]
+            entry["mesh_serve_shard"] = {
+                k: head[k] for k in ("shard_table", "kernel_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")
+            } | {"launches": meshed["serve"][tag]["launches"]}
         if coord:
             entry.update(coord_ms=coord["kernel_ms"],
                          coord_plain_ms=coord["plain_ms"],
@@ -4214,6 +4686,9 @@ def main() -> int:
         families = phase_families()
         trained = phase_train()
         trained_sharded = phase_train_sharded(trained["full"]["losses"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        meshed = phase_mesh_decode()
         say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -4221,7 +4696,7 @@ def main() -> int:
         return 1
     print(json.dumps({"kernels": kernel_entries(
         kern, single, aux, served, runtime, stored, tenancy, lib, decode,
-        sharded, families, trained, trained_sharded)}), flush=True)
+        sharded, families, trained, trained_sharded, meshed)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -33,9 +33,11 @@ one `fused_cascade_batched` dispatch.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -54,6 +56,7 @@ __all__ = ["BlockedPlan", "make_plan", "choose_pull_mode", "resolve_device",
            "measured_plan_quant_err",
            "make_measured_plan", "schedule_operands", "cert_operand",
            "decode_operands", "decode_tiled", "bounded_me_decode",
+           "outside_simulated_ranks",
            "draw_perms", "bounded_me_blocked", "bounded_me_batched"]
 
 
@@ -461,9 +464,45 @@ def make_measured_plan(V, K: int = 1, eps: float = 0.1, delta: float = 0.05,
     return make_plan(n, N, pull_mode=pull_mode, quant_err=qerr, **kwargs)
 
 
-@functools.lru_cache(maxsize=32)
+def _in_fake_mode() -> bool:
+    """Whether a ``FakeTensorMode`` is active (the dry run): tensors made
+    now are fake, and no value may be read or kept past the trace."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def outside_simulated_ranks():
+    """The context in which ops run once, on plain tensors, even where the
+    ranks of a mesh are simulated (``LocalTensorMode`` switched off):
+    for constants that a process caches and every rank shares, and for
+    seeded draws (under ``LocalTensorMode`` each rank would draw its
+    own)."""
+    if not torch.distributed.is_available():
+        return contextlib.nullcontext()
+    from torch.distributed._local_tensor import (
+        maybe_disable_local_tensor_mode)
+    return maybe_disable_local_tensor_mode()
+
+
+def _shared_constants(build):
+    """``build`` cached per arguments, its tensors made outside simulated
+    ranks; under a fake mode built anew and never kept (a fake tensor
+    must not outlive its trace)."""
+    cached = functools.lru_cache(maxsize=32)(build)
+
+    @functools.wraps(build)
+    def get(*args):
+        if _in_fake_mode():
+            return build(*args)
+        with outside_simulated_ranks():
+            return cached(*args)
+    get.cache_clear, get.cache_info = cached.cache_clear, cached.cache_info
+    return get
+
+
+@_shared_constants
 def schedule_operands(sched: Schedule, final_coverage: bool,
-                       device: torch.device):
+                      device: torch.device):
     """Device copies of the flat schedule, built once per (plan, device).
 
     Returns ``(slotcode (S,) int32, rounds_meta (n_rounds + 1, 3) int32,
@@ -478,24 +517,46 @@ def schedule_operands(sched: Schedule, final_coverage: bool,
             flat.t_final, flat.n_final)
 
 
-@functools.lru_cache(maxsize=32)
+@_shared_constants
 def cert_operand(sched: Schedule, device: torch.device) -> torch.Tensor:
     """Device copy of `cert_coeffs`, built once per (plan, device)."""
     return torch.as_tensor(cert_coeffs(sched), dtype=torch.float32,
                            device=device)
 
 
+# id(perm) -> (its weakref, its version) of every perm known to be one:
+# checked here once, or drawn by `draw_perms`
+_PERMS: dict = {}
+
+
+def _known_perm(p: torch.Tensor) -> bool:
+    seen = _PERMS.get(id(p))
+    return seen is not None and seen[0]() is p and seen[1] == p._version
+
+
+def _remember_perm(p: torch.Tensor) -> None:
+    for k in [k for k, v in _PERMS.items() if v[0]() is None]:
+        del _PERMS[k]
+    _PERMS[id(p)] = (weakref.ref(p), p._version)
+
+
 def _check_perm(perm, n_blocks: int, device: torch.device) -> torch.Tensor:
     """``perm`` as int64 on ``device``: one permutation of
-    ``range(n_blocks)`` or a ``(B, n_blocks)`` stack of them, each row
-    checked."""
+    ``range(n_blocks)`` or a ``(B, n_blocks)`` stack of them.  Its values
+    are read on the host once per tensor (and again after an in-place
+    write); a perm `draw_perms` made, or a fake one, only by shape."""
     p = torch.as_tensor(perm)
-    host = p.detach().cpu().numpy()
-    if (host.ndim not in (1, 2) or host.shape[-1] != n_blocks
-            or not (np.sort(host, axis=-1) == np.arange(n_blocks)).all()):
+    shape_ok = p.dim() in (1, 2) and p.shape[-1] == n_blocks
+    if shape_ok and not (_in_fake_mode() or _known_perm(p)):
+        host = p.detach().cpu().numpy()
+        shape_ok = bool((np.sort(host, axis=-1)
+                         == np.arange(n_blocks)).all())
+        if shape_ok:
+            _remember_perm(p)
+    if not shape_ok:
         raise ValueError(f"perm must be a permutation of range({n_blocks}) "
                          f"or a (B, {n_blocks}) stack of them, got shape "
-                         f"{tuple(host.shape)}")
+                         f"{tuple(p.shape)}")
     return p.to(device=device, dtype=torch.int64)
 
 
@@ -503,13 +564,20 @@ def draw_perms(n_blocks: int, B: Optional[int] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Block permutations from ``generator`` (default: a CPU generator
     seeded 0, so calls without one repeat): ``(n_blocks,)``, or ``(B,
-    n_blocks)`` with one ``torch.randperm`` per query, drawn in order."""
+    n_blocks)`` with one ``torch.randperm`` per query, drawn in order.
+    Drawn once for all simulated ranks (each would draw its own), and
+    known to be permutations: `_check_perm` reads none of them."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    if B is None:
-        return torch.randperm(n_blocks, generator=generator)
-    return torch.stack([torch.randperm(n_blocks, generator=generator)
-                        for _ in range(B)])
+    with outside_simulated_ranks():
+        if B is None:
+            p = torch.randperm(n_blocks, generator=generator)
+        else:
+            p = torch.stack([torch.randperm(n_blocks, generator=generator)
+                             for _ in range(B)])
+    if not _in_fake_mode():
+        _remember_perm(p)
+    return p
 
 
 def decode_operands(plan: BlockedPlan, *, final_exact: bool,

@@ -5,7 +5,9 @@
 `repro_torch.kernels.ops.fused_cascade` launch per call) and on the CPU,
 through the kernel's plain PyTorch version, with ``device="cpu"``.
 ``sharded_mips_topk`` serves a batch over a row-sharded table (one
-batched launch per shard and a top-K merge); the serving engine's
+batched launch per shard and a top-K merge), over the serving `Mesh` or
+a ``DeviceMesh`` (under ``local_map``, as the JAX package's runs under
+``shard_map``); the serving engine's
 multi-device path, ``sharded_bounded_me_decode``, is re-exported here
 from `repro_torch.distributed.sharding`, as in the JAX package.
 """
@@ -18,13 +20,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.boundedme_torch import (BlockedPlan,
+from repro_torch.core.boundedme_torch import (BlockedPlan, _check_perm,
+                                              _pad_operands,
                                               bounded_me_blocked,
                                               cascade_tiled, make_plan,
                                               quantize_table, resolve_device,
                                               tile_table)
-from repro_torch.distributed.sharding import (_check_axis, device_guard,
-                                              merge_topk,
+from repro_torch.distributed.sharding import (PartitionSpec, _batch_input,
+                                              _check_axis, axis_sizes,
+                                              device_guard, is_device_mesh,
+                                              merge_gathered, merge_topk,
+                                              mesh_table_shards, rank_along,
+                                              shard_map_compat,
                                               sharded_bounded_me_decode,
                                               stage_batch)
 
@@ -210,19 +217,32 @@ def sharded_mips_topk(table, queries, perms, K: int, *, mesh,
         precision / pull_mode / coord_block / quant_err / pq_subdims /
         pq_codes: as in `mips_topk` ('pq' needs ``quant_err`` or a
         ``plan``); ``plan``, when given, is the shard plan.
-      mesh: the `repro_torch.distributed.sharding.Mesh`.  ``model_axis``
-        must be ``"model"`` and ``batch_axes`` None (the JAX signature;
-        the batch is replicated).
+      mesh: the serving `repro_torch.distributed.sharding.Mesh`
+        (``model_axis`` must be ``"model"`` and ``batch_axes`` None: the
+        batch is replicated), or a ``DeviceMesh``: rows over
+        ``model_axis``, queries and perms over ``batch_axes``, each rank
+        laying out its own rows and the K-merge after one all-gather of
+        its winners over ``model_axis``; the results are then DTensors.
       n_valid: real row count when ``table`` carries padding rows (e.g. a
         padded vocab); padding is masked out of the merge.
 
     Returns:
       ``(ids (B, K) int32, scores (B, K) float32)``.
     """
+    if is_device_mesh(mesh):
+        return _mesh_mips_topk(table, queries, perms, K, mesh=mesh,
+                               model_axis=model_axis, batch_axes=batch_axes,
+                               n_valid=n_valid, plan=plan,
+                               final_exact=final_exact, eps=eps,
+                               delta=delta, value_range=value_range,
+                               tile=tile, block=block, precision=precision,
+                               pull_mode=pull_mode, coord_block=coord_block,
+                               quant_err=quant_err, pq_subdims=pq_subdims,
+                               pq_codes=pq_codes)
     _check_axis(model_axis)
     if batch_axes is not None:
-        raise ValueError("batch_axes must be None: the port's serving mesh "
-                         "has only the row axis")
+        raise ValueError("batch_axes must be None on the serving Mesh: it "
+                         "has only the row axis (a DeviceMesh takes them)")
     S = len(mesh.devices)
     n, N = table.shape
     if n % S != 0:
@@ -264,3 +284,53 @@ def sharded_mips_topk(table, queries, perms, K: int, *, mesh,
     home = mesh.devices[0]
     return merge_topk(torch.cat([p[0].to(home) for p in parts], dim=1),
                       torch.cat([p[1].to(home) for p in parts], dim=1), K)
+
+
+def _mesh_mips_topk(table, queries, perms, K: int, *, mesh, model_axis,
+                    batch_axes, n_valid, plan, final_exact: bool,
+                    **plan_knobs):
+    """`sharded_mips_topk` over a ``DeviceMesh``, the JAX package's
+    ``shard_map`` body under ``local_map``: each rank's batched cascade
+    on its rows with its queries' perms, its winners' global ids (the
+    padding rows past ``n_valid`` at -inf), the all-gather over
+    ``model_axis`` and the top K."""
+    S = axis_sizes(mesh)[model_axis]
+    n, N = table.shape
+    if n % S != 0:
+        raise ValueError(f"{n} rows do not split evenly over {S} shards; "
+                         f"use sharded_bounded_me_decode for a ragged table")
+    n_local = n // S
+    if plan is None:
+        plan = make_plan(n_local, N, K=K, **dict(
+            plan_knobs, delta=plan_knobs["delta"] / S))
+    shards = mesh_table_shards(table, mesh, plan, k_out=plan.K,
+                               model_axis=model_axis)
+    B = queries.shape[0]
+    perms = _check_perm(perms, plan.n_blocks, torch.device("cpu"))
+    if tuple(perms.shape) != (B, plan.n_blocks):
+        raise ValueError(f"perms must be ({B}, {plan.n_blocks})")
+    bspec = PartitionSpec(batch_axes, None)
+    args = [shards.V4, _batch_input(torch.as_tensor(queries,
+                                                    dtype=torch.float32),
+                                    mesh, bspec),
+            _batch_input(perms, mesh, bspec), *(shards.quantized or ())]
+    specs = [PartitionSpec(model_axis, None, None, None), bspec, bspec]
+    specs += [PartitionSpec(model_axis, *(None,) * (t.dim() - 1))
+              for t in shards.quantized or ()]
+
+    def local(V4_l, Q_l, P_l, *quant):
+        _, Qp = _pad_operands(None, Q_l, plan)
+        ids, scores = cascade_tiled(
+            V4_l, Qp, P_l, plan=plan, batched=True,
+            final_exact=final_exact, k_out=plan.K, n_valid=plan.n,
+            quantized=quant or None)
+        gids = ids + rank_along(mesh, model_axis) * n_local
+        if n_valid is not None and n_valid < n:
+            # vocab-padding rows (zeros) must never win the merge
+            scores = torch.where(gids < n_valid, scores,
+                                 torch.full_like(scores, -torch.inf))
+        top_ids, vals, _ = merge_gathered(mesh, model_axis, K, gids, scores)
+        return top_ids, vals
+
+    return shard_map_compat(local, mesh=mesh, in_specs=tuple(specs),
+                            out_specs=(bspec, bspec))(*args)

@@ -40,6 +40,22 @@ candidates — O(shards * k_out) numbers per query — are then copied to
 counterpart of XLA's forced host device count, with which the tests run
 S shards on the CPU and ``chip_smoke.py`` on one card.
 
+**Over a DeviceMesh.**  `sharded_bounded_me_decode` and
+`repro_torch.core.mips.sharded_mips_topk` also take a training mesh, a
+``DeviceMesh``, with the JAX signature whole: ``model_axis`` names the
+row axis, ``batch_axes`` the axes the query batch is split over.  The
+work runs under ``local_map`` (`shard_map_compat`) as the JAX package's
+runs under ``shard_map``: each rank lays out and quantizes its own row
+shard (`mesh_table_shards`), runs the fused cascade on it with its own
+live count and its rank's global row offset, and the candidates are
+all-gathered over ``model_axis`` (one collective of O(B * shards *
+k_out) words) and merged on every rank (`sharded_decode_mesh`).  The
+same code runs on real ranks (one per card, NCCL; gloo on the CPU), on
+ranks simulated under ``LocalTensorMode`` (the kernel operator runs once
+per rank on that rank's tensors; a live count that differs per rank is
+a per-rank int) and under the dry run's fake tensors (the operator's
+fake implementation).
+
 Why the global (eps, delta) guarantee holds (DESIGN.md §7): the shard
 owning the global optimum returns a candidate within eps of it with
 probability >= 1 - delta / shards (each shard's plan runs at ``delta /
@@ -53,6 +69,7 @@ descending sort, where ``torch.topk`` promises no order for ties.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -62,7 +79,9 @@ import torch
 from repro_torch.core.boundedme_torch import (BlockedPlan, _check_perm,
                                               _pad_operands, as_kept,
                                               cascade_tiled, make_plan,
-                                              quantize_table, resolve_device)
+                                              outside_simulated_ranks,
+                                              quantize_table, resolve_device,
+                                              tile_table)
 from repro_torch.core.schedule import pulls_through_round
 
 __all__ = ["LOGICAL_RULES", "PartitionSpec", "P", "AbstractMesh",
@@ -74,7 +93,9 @@ __all__ = ["LOGICAL_RULES", "PartitionSpec", "P", "AbstractMesh",
            "device_guard", "make_shard_plan", "shard_valid_counts",
            "quantize_shards", "stage_batch", "merge_topk",
            "sharded_decode_tiled", "sharded_bounded_me_decode",
-           "dispatch_lane_stats"]
+           "dispatch_lane_stats", "is_device_mesh", "rank_along",
+           "gather_over", "MeshShards", "mesh_table_shards",
+           "sharded_decode_mesh", "merge_gathered"]
 
 
 class Mesh:
@@ -114,11 +135,11 @@ class Mesh:
 
 
 def _check_axis(model_axis: str) -> None:
-    """The JAX signature's ``model_axis``: the port's mesh has the one
-    axis ``"model"``."""
+    """The JAX signature's ``model_axis`` on the serving `Mesh`, whose one
+    axis is ``"model"`` (a ``DeviceMesh`` names its own axes)."""
     if model_axis != "model":
-        raise ValueError(f"model_axis must be 'model', the port's one mesh "
-                         f"axis; got {model_axis!r}")
+        raise ValueError(f"model_axis must be 'model', the serving Mesh's "
+                         f"one axis; got {model_axis!r}")
 
 
 def device_guard(device: torch.device):
@@ -377,10 +398,13 @@ def sharded_bounded_me_decode(table, Q, perm, *, mesh: Mesh, K: int = 1,
       table: (n, N) float table (float32 or bfloat16 kept), any device.
       Q: (B, N) query batch.
       perm: the shared block permutation.
-      mesh: the `Mesh`.  ``model_axis`` must be ``"model"`` and
-        ``batch_axes`` None (the JAX signature): the port's mesh has the
-        one row axis, and the batch is replicated as in the JAX
-        package's serving path.
+      mesh: the serving `Mesh` (``model_axis`` must be ``"model"`` and
+        ``batch_axes`` None: it has the one row axis, and the batch is
+        replicated as in the JAX package's serving path), or a
+        ``DeviceMesh``: the rows split over ``model_axis`` and the batch
+        over ``batch_axes`` (a mesh axis, a tuple of them, or None for a
+        replicated batch; B must divide), the work under ``local_map``
+        (`sharded_decode_mesh`), the results DTensors.
       n_valid: real rows of a padded table (default n), or a per-shard
         ``(shards,)`` vector of live counts; rows past it are masked
         inside each shard's cascade.
@@ -404,17 +428,28 @@ def sharded_bounded_me_decode(table, Q, perm, *, mesh: Mesh, K: int = 1,
     """
     from repro_torch.distributed.specs import serving_table_sharding
 
-    _check_axis(model_axis)
-    if batch_axes is not None:
-        raise ValueError("batch_axes must be None: the port's serving mesh "
-                         "has only the row axis")
     n, N = table.shape
-    S = len(mesh.devices)
-    plan, n_local, _, k_out = make_shard_plan(
+    if is_device_mesh(mesh):
+        S = axis_sizes(mesh)[model_axis]
+    else:
+        _check_axis(model_axis)
+        if batch_axes is not None:
+            raise ValueError("batch_axes must be None on the serving Mesh: "
+                             "it has only the row axis (a DeviceMesh takes "
+                             "them)")
+        S = len(mesh.devices)
+    plan, _, _, k_out = make_shard_plan(
         n, N, S, K=K, eps=eps, delta=delta, value_range=value_range,
         tile=tile, block=block, precision=precision, bound=bound,
         pull_mode=pull_mode, coord_block=coord_block, quant_err=quant_err,
         pq_subdims=pq_subdims, pq_codes=pq_codes)
+    if is_device_mesh(mesh):
+        shards = mesh_table_shards(table, mesh, plan, k_out=k_out,
+                                   model_axis=model_axis)
+        return sharded_decode_mesh(
+            shards, Q, perm, K=K, n_valid=n if n_valid is None else n_valid,
+            batch_axes=batch_axes, final_exact=final_exact,
+            adaptive=adaptive, return_candidates=return_candidates)
     shards = serving_table_sharding(table, mesh, plan)
     return sharded_decode_tiled(
         shards, Q, perm, mesh=mesh, plan=plan, K=K, k_out=k_out,
@@ -422,6 +457,247 @@ def sharded_bounded_me_decode(table, Q, perm, *, mesh: Mesh, K: int = 1,
         final_exact=final_exact, quantized=quantize_shards(shards, plan),
         adaptive=adaptive,
         return_candidates=return_candidates)
+
+
+# ---------------------------------------------------------------------------
+# The sharded decode over a DeviceMesh (the JAX package's shard_map form)
+# ---------------------------------------------------------------------------
+
+def is_device_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` (named axes over ranks), not
+    the serving `Mesh` or an `AbstractMesh`."""
+    return getattr(mesh, "mesh_dim_names", None) is not None
+
+
+def rank_along(mesh, axis: str):
+    """This rank's coordinate along ``axis`` (``jax.lax.axis_index``): an
+    int, or under ``LocalTensorMode`` an int that holds each simulated
+    rank's own."""
+    return mesh.get_local_rank(axis)
+
+
+def gather_over(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``t`` of every rank along ``axis`` stacked on a new leading dim,
+    rank order (``jax.lax.all_gather`` at axis 0): one all-gather."""
+    from torch.distributed import _functional_collectives as funcol
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor
+    n = axis_sizes(mesh)[axis]
+    out = gather(t.contiguous(), 0,
+                 (mesh, list(mesh.mesh_dim_names).index(axis)))
+    if isinstance(out, funcol.AsyncCollectiveTensor):
+        out = out.wait()
+    return out.reshape(n, *t.shape)
+
+
+def merge_gathered(mesh, model_axis: str, K: int, ids, scores, *rest):
+    """The exact cross-shard merge of one rank's ``(B_loc, k)`` candidates
+    (global ids, scores, then ``rest``: int32 or float32, ``(B_loc, k)``
+    or ``(B_loc,)``): every rank's all-gathered over ``model_axis`` in one
+    collective (ints carried bit for bit in float32 words), then the top
+    ``K`` by `merge_topk`.  Returns ``(ids, vals, [rest[0] at the top
+    K,] (B_loc, S, ...) gathered parts in the inputs' order)``."""
+    B = ids.shape[0]
+    parts = [ids, scores, *rest]
+    cols = [p if p.dim() == 2 else p[:, None] for p in parts]
+    words = torch.cat([c.view(torch.float32) if c.dtype == torch.int32
+                       else c for c in cols], dim=1)
+    g = gather_over(words, mesh, model_axis).transpose(0, 1)  # (B, S, W)
+    out, at = [], 0
+    for p, c in zip(parts, cols):
+        w = g[..., at:at + c.shape[1]].contiguous()
+        if p.dtype == torch.int32:
+            w = w.view(torch.int32)
+        out.append(w if p.dim() == 2 else w[..., 0])
+        at += c.shape[1]
+    top = merge_topk(out[0].reshape(B, -1), out[1].reshape(B, -1), K,
+                     *(r.reshape(B, -1) for r in out[2:3]))
+    return (*top, out)
+
+
+@dataclasses.dataclass
+class MeshShards:
+    """A table's row shards over a ``DeviceMesh``, each laid out by its
+    own rank: ``V4`` is a DTensor whose local tensor on a rank is that
+    rank's tile-major shard (split over ``model_axis``, replicated over
+    the other axes), ``quantized`` the tier artifacts as DTensors of the
+    same split (a pq codebook is each rank's own, stacked), ``plan`` the
+    shard plan and ``k_out`` the candidates a shard returns."""
+
+    plan: BlockedPlan
+    mesh: object
+    model_axis: str
+    V4: torch.Tensor
+    quantized: Optional[tuple]
+    k_out: int
+
+    @property
+    def shards(self) -> int:
+        return axis_sizes(self.mesh)[self.model_axis]
+
+
+def mesh_table_shards(table, mesh, plan: BlockedPlan, *, k_out: int,
+                      model_axis: str = "model") -> MeshShards:
+    """Lay out each rank's row shard of an ``(n, N)`` table once.
+
+    ``plan`` is the shard plan (`make_shard_plan`: ``plan.n`` rows a
+    shard).  A plain table is zero-padded to ``shards * plan.n`` rows and
+    each rank cuts its shard from its own copy (no collective); a DTensor
+    table (a model's vocab table placed by ``param_pspecs``) must split
+    evenly and is redistributed to rows over ``model_axis``, where it is
+    not already.  Each rank then lays out and, on a quantized tier,
+    quantizes its own rows (pq: a codebook trained on them) under
+    ``local_map``."""
+    from torch.distributed.tensor import distribute_tensor
+    S = axis_sizes(mesh)[model_axis]
+    n, N = table.shape
+    if N != plan.N or n > S * plan.n:
+        raise ValueError(f"plan of {plan.n} rows x {plan.N} cannot shard a "
+                         f"({n}, {N}) table {S} ways")
+    rows = PartitionSpec(model_axis, None)
+    if not is_dtensor(table):
+        t = as_kept(table, _mesh_device(mesh))
+        if n < S * plan.n:
+            t = torch.nn.functional.pad(t, (0, 0, 0, S * plan.n - n))
+        table = distribute_tensor(t, mesh, placements(mesh, rows),
+                                  src_data_rank=None)
+    elif n != S * plan.n:
+        raise ValueError(f"a DTensor table of {n} rows must split evenly "
+                         f"into {S} shards of {plan.n}")
+
+    def lay(t_l):
+        V4 = tile_table(t_l, plan, t_l.device)
+        if plan.precision == "fp32":
+            return V4
+        return (V4, *quantize_table(V4, plan))
+
+    tiles = PartitionSpec(model_axis, None, None, None)
+    if plan.precision == "fp32":
+        outs = tiles
+    else:
+        aux = (tiles if plan.precision == "pq"
+               else PartitionSpec(model_axis, None))
+        outs = (tiles, tiles, aux)
+    got = shard_map_compat(lay, mesh=mesh, in_specs=(rows,),
+                           out_specs=outs)(table)
+    V4, quant = (got, None) if plan.precision == "fp32" \
+        else (got[0], tuple(got[1:]))
+    return MeshShards(plan, mesh, model_axis, V4, quant, int(k_out))
+
+
+def _live_count(n_valid, r, n_local: int):
+    """A rank's live rows from a global prefix bound ``n_valid`` (an int,
+    or a per-rank int under ``LocalTensorMode``)."""
+    return torch.sym_max(0, torch.sym_min(n_valid - r * n_local, n_local))
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device of this process's rank of a ``DeviceMesh`` (the current
+    card on a CUDA mesh)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _batch_input(x, mesh, spec: "PartitionSpec"):
+    """``x`` as a DTensor on ``mesh``: a plain tensor placed by ``spec``,
+    each rank cutting its part from its own copy; a DTensor as it is
+    (``local_map`` redistributes it)."""
+    if is_dtensor(x):
+        return x
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(torch.as_tensor(x).to(_mesh_device(mesh)),
+                             mesh, placements(mesh, spec),
+                             src_data_rank=None)
+
+
+def sharded_decode_mesh(shards: MeshShards, Q, perm, *, K: int, n_valid,
+                        batch_axes=None, final_exact: bool = True,
+                        adaptive: bool = False,
+                        return_candidates: bool = False):
+    """`sharded_bounded_me_decode` over a ``DeviceMesh`` on a table laid
+    out by `mesh_table_shards`.
+
+    Under ``local_map`` each rank pads its ``(B_loc, N)`` queries (the
+    batch split over ``batch_axes``), runs `cascade_tiled` on its shard
+    with ``shards.k_out`` candidates and its own live count (from a
+    global prefix ``n_valid``, or a per-shard ``(shards,)`` vector),
+    rescores them exactly where ``final_exact`` is off, offsets the ids
+    by its rank along the row axis, computes each candidate's gap over
+    its shard's best non-returned survivor and sets fillers to -inf, as
+    ``repro.distributed.sharding`` does; `merge_gathered` then
+    all-gathers the candidates over the row axis and takes the top K.
+    ``perm`` is one ``(n_blocks,)`` permutation shared by the batch and
+    every rank (checked on the host once, `_check_perm`; a fake one by
+    shape only).  Returns the JAX package's tuple as DTensors: the batch
+    over ``batch_axes``, replicated over the row axis.
+    """
+    plan, mesh, axis = shards.plan, shards.mesh, shards.model_axis
+    S, n_local, k_out = shards.shards, plan.n, shards.k_out
+    perm = _check_perm(perm, plan.n_blocks, torch.device("cpu"))
+    qspec = PartitionSpec(batch_axes, None)
+    Q = Q if is_dtensor(Q) else torch.as_tensor(Q)
+    if Q.dim() != 2 or Q.shape[1] != plan.N:
+        raise ValueError(f"Q must be (B, {plan.N}), got {tuple(Q.shape)}")
+    args = [shards.V4, _batch_input(Q, mesh, qspec)]
+    specs = [PartitionSpec(axis, None, None, None), qspec]
+    vector = is_dtensor(n_valid) or np.ndim(
+        n_valid.cpu() if isinstance(n_valid, torch.Tensor) else n_valid) == 1
+    if vector:
+        if not is_dtensor(n_valid):
+            n_valid = torch.as_tensor(shard_valid_counts(n_valid, S,
+                                                         n_local))
+        args.append(_batch_input(n_valid, mesh, PartitionSpec(axis)))
+        specs.append(PartitionSpec(axis))
+    else:
+        n_valid = int(n_valid)
+    if shards.quantized is not None:
+        args += list(shards.quantized)
+        specs += [PartitionSpec(axis, *(None,) * (t.dim() - 1))
+                  for t in shards.quantized]
+
+    def local(V4_l, Q_l, *rest):
+        r = rank_along(mesh, axis)
+        if vector:
+            nv, rest = rest[0][0].item(), rest[1:]
+        else:
+            nv = _live_count(n_valid, r, n_local)
+        _, Qp = _pad_operands(None, as_kept(Q_l, V4_l.device), plan)
+        out = cascade_tiled(
+            V4_l, Qp, perm.to(V4_l.device), plan=plan, batched=True,
+            final_exact=final_exact, k_out=k_out, n_valid=nv,
+            quantized=tuple(rest) if rest else None, adaptive=adaptive)
+        ids, scores = out[0], out[1]
+        if not final_exact:
+            # merge decisions compare exact inner products, never
+            # block-mean estimates
+            scores = _exact_scores(V4_l, Qp, ids, plan)
+        if k_out > plan.K:
+            # margin over the shard's best non-returned survivor
+            gaps = scores - scores[:, k_out - 1:k_out]
+        else:
+            gaps = torch.full_like(scores, torch.inf)
+        # a shard with fewer than k_out live rows emits fillers
+        scores = torch.where(ids < nv, scores,
+                             torch.full_like(scores, -torch.inf))
+        rounds = (out[2] if adaptive else
+                  torch.zeros(ids.shape[0], dtype=torch.int32,
+                              device=ids.device))
+        top_ids, vals, top_gaps, (c_ids, c_sc, c_gap, c_rnd) = \
+            merge_gathered(mesh, axis, K, ids + r * n_local, scores, gaps,
+                           rounds)
+        return top_ids, vals, top_gaps, c_rnd, c_ids, c_sc, c_gap
+
+    three = PartitionSpec(batch_axes, None, None)
+    ids, vals, gaps, rounds, c_ids, c_sc, c_gap = shard_map_compat(
+        local, mesh=mesh, in_specs=tuple(specs),
+        out_specs=(qspec, qspec, qspec, qspec, three, three, three))(*args)
+    out = [ids, vals, gaps]
+    if adaptive:
+        out.append(rounds)
+    if return_candidates:
+        out.append({"ids": c_ids, "scores": c_sc, "gaps": c_gap})
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -701,14 +977,3 @@ def dtensor_context(*tensors):
         yield
     finally:
         disp._allow_implicit_replication = prev
-
-
-def outside_simulated_ranks():
-    """The context in which ops run once, on plain tensors, even where the
-    ranks of a mesh are simulated (``LocalTensorMode`` switched off):
-    for constants that a process caches and every rank shares."""
-    if not torch.distributed.is_available():
-        return contextlib.nullcontext()
-    from torch.distributed._local_tensor import (
-        maybe_disable_local_tensor_mode)
-    return maybe_disable_local_tensor_mode()

@@ -11,13 +11,27 @@ The entry points are generic in the feature-tile width ``C``: 'row' and
 'coord' plans differ only in the geometry of the operands.  The launch
 counts also break the fused cascade down by entry and tier
 (``fused_cascade[int8]``, ``fused_cascade_batched[pq+adaptive]``).
+
+The fused cascade (kernel 1) is reached through two registered
+operators, ``torch.ops.repro_torch.fused_cascade_batched`` and
+``torch.ops.repro_torch.fused_cascade``: their CUDA implementation is
+the ``ctypes`` launch (`repro_torch.kernels.fused_cascade`), their CPU
+implementation the plain version, and a fake implementation gives the
+outputs' shapes and types.  The dispatcher then carries the kernel
+through what wraps a tensor: ``local_map`` hands it each rank's shard,
+``LocalTensorMode`` runs it once per simulated rank on that rank's local
+tensors, and ``FakeTensorMode`` (the dry run) takes the fake
+implementation, where the ``ctypes`` call itself could reach none of
+them.  Each operator returns a list: ``[ids, vals]``, and
+``rounds_used`` third where ``cert`` turns early exit on.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.blocked_matvec import blocked_matvec_cuda
@@ -62,6 +76,99 @@ def gather_block_dot(V4: torch.Tensor, idx: torch.Tensor,
     return ref.gather_block_dot_ref(V4, idx, cols, qsel)
 
 
+# ---- kernel 1 as registered operators ---------------------------------------
+# The scalar arguments come last and resolved (``k_out`` and ``n_valid``
+# as ints): under ``LocalTensorMode`` an int may differ per simulated rank
+# (each rank's live count), and the dispatcher hands each rank its own.
+
+
+def _kwargs(n_arms, K, t_final, n_final, k_out, n_valid, vscale, qscale,
+            codebook, packed_int4, cert, k_cert, track_var) -> dict:
+    return dict(n_arms=n_arms, K=K, t_final=t_final, n_final=n_final,
+                k_out=k_out, n_valid=n_valid, vscale=vscale, qscale=qscale,
+                codebook=codebook, packed_int4=packed_int4, cert=cert,
+                k_cert=k_cert, track_var=track_var)
+
+
+@torch.library.custom_op("repro_torch::fused_cascade_batched",
+                         mutates_args=(), device_types="cpu")
+def _cascade_batched_op(V4: Tensor, Qb: Tensor, slotcode: Tensor,
+                        rounds_meta: Tensor, cols: Tensor,
+                        vscale: Optional[Tensor], qscale: Optional[Tensor],
+                        codebook: Optional[Tensor], cert: Optional[Tensor],
+                        n_arms: int, K: int, t_final: int, n_final: int,
+                        k_out: int, n_valid: int, packed_int4: bool,
+                        k_cert: int, track_var: bool) -> List[Tensor]:
+    """The plain version (`ref.fused_cascade_batched_ref`)."""
+    return list(ref.fused_cascade_batched_ref(
+        V4, Qb, slotcode, rounds_meta, cols, **_kwargs(
+            n_arms, K, t_final, n_final, k_out, n_valid, vscale, qscale,
+            codebook, packed_int4, cert, k_cert, track_var)))
+
+
+@_cascade_batched_op.register_kernel("cuda")
+def _cascade_batched_cuda(V4, Qb, slotcode, rounds_meta, cols, vscale,
+                          qscale, codebook, cert, n_arms, K, t_final,
+                          n_final, k_out, n_valid, packed_int4, k_cert,
+                          track_var):
+    """The CUDA kernel's launch (`fused_cascade_batched_cuda`, looked up
+    here at each call)."""
+    return list(fused_cascade_batched_cuda(
+        V4, Qb, slotcode, rounds_meta, cols, **_kwargs(
+            n_arms, K, t_final, n_final, k_out, n_valid, vscale, qscale,
+            codebook, packed_int4, cert, k_cert, track_var)))
+
+
+@_cascade_batched_op.register_fake
+def _cascade_batched_fake(V4, Qb, slotcode, rounds_meta, cols, vscale,
+                          qscale, codebook, cert, n_arms, K, t_final,
+                          n_final, k_out, n_valid, packed_int4, k_cert,
+                          track_var):
+    B = cols.shape[0]
+    out = [V4.new_empty((B, k_out), dtype=torch.int32),
+           V4.new_empty((B, k_out), dtype=torch.float32)]
+    if cert is not None:
+        out.append(V4.new_empty((B,), dtype=torch.int32))
+    return out
+
+
+@torch.library.custom_op("repro_torch::fused_cascade", mutates_args=(),
+                         device_types="cpu")
+def _cascade_op(V4: Tensor, qb: Tensor, slotcode: Tensor,
+                rounds_meta: Tensor, cols: Tensor, vscale: Optional[Tensor],
+                qscale: Optional[Tensor], codebook: Optional[Tensor],
+                cert: Optional[Tensor], n_arms: int, K: int, t_final: int,
+                n_final: int, k_out: int, n_valid: int, packed_int4: bool,
+                k_cert: int, track_var: bool) -> List[Tensor]:
+    """The plain version (`ref.fused_cascade_ref`)."""
+    return list(ref.fused_cascade_ref(
+        V4, qb, slotcode, rounds_meta, cols, **_kwargs(
+            n_arms, K, t_final, n_final, k_out, n_valid, vscale, qscale,
+            codebook, packed_int4, cert, k_cert, track_var)))
+
+
+@_cascade_op.register_kernel("cuda")
+def _cascade_cuda(V4, qb, slotcode, rounds_meta, cols, vscale, qscale,
+                  codebook, cert, n_arms, K, t_final, n_final, k_out,
+                  n_valid, packed_int4, k_cert, track_var):
+    """The CUDA kernel's launch (`fused_cascade_cuda`)."""
+    return list(fused_cascade_cuda(
+        V4, qb, slotcode, rounds_meta, cols, **_kwargs(
+            n_arms, K, t_final, n_final, k_out, n_valid, vscale, qscale,
+            codebook, packed_int4, cert, k_cert, track_var)))
+
+
+@_cascade_op.register_fake
+def _cascade_fake(V4, qb, slotcode, rounds_meta, cols, vscale, qscale,
+                  codebook, cert, n_arms, K, t_final, n_final, k_out,
+                  n_valid, packed_int4, k_cert, track_var):
+    out = [V4.new_empty((k_out,), dtype=torch.int32),
+           V4.new_empty((k_out,), dtype=torch.float32)]
+    if cert is not None:
+        out.append(V4.new_empty((), dtype=torch.int32))
+    return out
+
+
 def fused_cascade(V4: torch.Tensor, qb: torch.Tensor,
                   slotcode: torch.Tensor, rounds_meta: torch.Tensor,
                   cols: torch.Tensor, *, n_arms: int, K: int, t_final: int,
@@ -80,15 +187,14 @@ def fused_cascade(V4: torch.Tensor, qb: torch.Tensor,
     ``(ids (k_out,) int32, vals (k_out,) float32)``, vals unscaled block
     means, and with ``cert`` also a scalar ``rounds_used`` int32 tensor.
     """
-    kw = dict(n_arms=n_arms, K=K, t_final=t_final, n_final=n_final,
-              k_out=k_out, n_valid=n_valid, vscale=vscale, qscale=qscale,
-              codebook=codebook, packed_int4=packed_int4, cert=cert,
-              k_cert=k_cert, track_var=track_var)
     tensors = [t for t in (V4, qb, slotcode, rounds_meta, cols, vscale,
                            qscale, codebook, cert) if t is not None]
-    if on_cuda(*tensors):
-        return fused_cascade_cuda(V4, qb, slotcode, rounds_meta, cols, **kw)
-    return ref.fused_cascade_ref(V4, qb, slotcode, rounds_meta, cols, **kw)
+    on_cuda(*tensors)
+    return tuple(_cascade_op(
+        V4, qb, slotcode, rounds_meta, cols, vscale, qscale, codebook, cert,
+        n_arms, K, t_final, n_final, K if k_out is None else int(k_out),
+        n_arms if n_valid is None else n_valid, packed_int4, k_cert,
+        track_var))
 
 
 def fused_cascade_batched(V4: torch.Tensor, Qb: torch.Tensor,
@@ -135,17 +241,14 @@ def fused_cascade_batched(V4: torch.Tensor, Qb: torch.Tensor,
     row expanded over the batch (stride 0): the kernel then reads round
     1's cells once for the whole batch.  Results do not depend on it.
     """
-    kw = dict(n_arms=n_arms, K=K, t_final=t_final, n_final=n_final,
-              k_out=k_out, n_valid=n_valid, vscale=vscale, qscale=qscale,
-              codebook=codebook, packed_int4=packed_int4, cert=cert,
-              k_cert=k_cert, track_var=track_var)
     tensors = [t for t in (V4, Qb, slotcode, rounds_meta, cols, vscale,
                            qscale, codebook, cert) if t is not None]
-    if on_cuda(*tensors):
-        return fused_cascade_batched_cuda(V4, Qb, slotcode, rounds_meta,
-                                          cols, **kw)
-    return ref.fused_cascade_batched_ref(V4, Qb, slotcode, rounds_meta,
-                                         cols, **kw)
+    on_cuda(*tensors)
+    return tuple(_cascade_batched_op(
+        V4, Qb, slotcode, rounds_meta, cols, vscale, qscale, codebook, cert,
+        n_arms, K, t_final, n_final, K if k_out is None else int(k_out),
+        n_arms if n_valid is None else n_valid, packed_int4, k_cert,
+        track_var))
 
 
 def blocked_matvec(W: torch.Tensor, q: torch.Tensor, *, tile_n: int = 256,

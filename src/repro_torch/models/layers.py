@@ -30,13 +30,18 @@ FFN width (the JAX annotations of the dispatch buffer and the expert
 outputs fold into that ``local_map``; the partial sum is reduced once,
 after the combine, where GSPMD reduces the expert outputs).
 
-Where the port gathers what the JAX package keeps split (another
-program, the same function): the decode cache's sequence ('kvseq') and
-the query positions' keys at ``long_500k`` (each rank attends over every
-key, `_sdpa_sharded`); a dimension its mesh axes do not divide (`shard`
-leaves it whole); and, under FSDP, the expert weights and the vocab
-table over 'data' inside their ``local_map`` (as ``shard_map`` gathers
-an input over an axis its spec does not name).
+Decode attention over a cache whose sequence is split ('kvseq', over
+'model' or over ('data', 'model')) keeps the cache split, as GSPMD's
+partition of the JAX step does (`_sdpa_split_kv`): each rank scores the
+replicated query against its own keys, and the softmax's max and sum
+and the PV product are all-reduced over the sequence's mesh axes.  Where
+the port gathers what the JAX package keeps split (another program, the
+same function): the query positions' keys at ``long_500k`` prefill and
+train (each rank attends over every key, `_sdpa_sharded`); a dimension
+its mesh axes do not divide (`shard` leaves it whole); and, under FSDP,
+the expert weights and the vocab table over 'data' inside their
+``local_map`` (as ``shard_map`` gathers an input over an axis its spec
+does not name).
 """
 
 from __future__ import annotations
@@ -229,9 +234,11 @@ def _sdpa_sharded(q, k, v, causal: bool, q_offset: int, chunk: int):
     and the kv heads are not (their count rarely divides 'model'), each
     rank takes the kv head of each of its query heads (``h // G``; the
     head itself where there are as many), and attends with one kv head
-    per query head.  The keys and values are
-    gathered along a split sequence (the decode cache on 'kvseq'),
-    where the JAX package keeps them split."""
+    per query head; where every query head has its own kv head (``G =
+    1``) and the keys and values already split their heads as the
+    queries do (the encdec cross attention's K/V) they keep that split.  Keys and values split along their
+    sequence are gathered here (the query positions' keys at
+    ``long_500k``); decode over a split cache takes `_sdpa_split_kv`."""
     from torch.distributed.tensor import (Replicate, Shard,
                                           distribute_tensor)
     H = q.shape[2]
@@ -239,7 +246,9 @@ def _sdpa_sharded(q, k, v, causal: bool, q_offset: int, chunk: int):
     mesh = q.device_mesh
     q_pl = [p if p.is_shard() and p.dim in (0, 1, 2) else Replicate()
             for p in q.placements]
-    kv_pl = [p if p.is_shard(0) else Replicate() for p in q_pl]
+    kv_pl = [p if p.is_shard(0) or (G == 1 and p.is_shard(2)
+                                    and kp.is_shard(2)) else Replicate()
+             for p, kp in zip(q_pl, k.placements)]
 
     def ids(n, dim):          # each rank's indices along q's dim ``dim``
         return distribute_tensor(
@@ -250,7 +259,8 @@ def _sdpa_sharded(q, k, v, causal: bool, q_offset: int, chunk: int):
     heads, qpos = ids(H, 2), ids(q.shape[1], 1)
 
     def local(q_l, k_l, v_l, h_l, s_l):
-        if q_l.shape[2] < H:                  # this rank's query heads
+        if q_l.shape[2] < H and k_l.shape[2] * G == H:
+            # this rank's query heads, over the kv heads they read
             k_l, v_l = k_l[:, :, h_l // G], v_l[:, :, h_l // G]
         off = s_l[0] + q_offset if q_l.shape[1] < qpos.shape[0] \
             else q_offset
@@ -260,6 +270,69 @@ def _sdpa_sharded(q, k, v, causal: bool, q_offset: int, chunk: int):
         local, mesh=mesh,
         in_specs=(q_pl, kv_pl, kv_pl, heads.placements, qpos.placements),
         out_specs=q_pl)(q, k, v, heads, qpos)
+
+
+def _seq_split(t) -> bool:
+    """Whether DTensor ``t`` (B, S, KV, D) has its sequence split."""
+    return any(p.is_shard(1) for p in t.placements)
+
+
+def _sdpa_split_kv(q, k, v, q_offset: int):
+    """Causal decode attention, ``q (B, Sq, H, D)`` at positions
+    ``q_offset + [0, Sq)`` against a cache ``k``/``v (B, S_max, KV, D)``
+    whose sequence is split over one or more mesh axes, the cache never
+    gathered (the JAX package's 'kvseq' decode as GSPMD partitions it).
+
+    Under ``local_map`` each rank takes the query whole (its batch rows
+    as the cache's; replicated over the sequence's axes, every head) and
+    scores it in f32 against its own keys, masked by their global
+    positions (``kpos <= qpos + q_offset``, the masked fill -1e30).  The
+    softmax then reduces over the sequence's mesh axes as GSPMD reduces
+    a split reduction: an all-reduce max of each row's max ``M``, an
+    all-reduce sum of ``l = sum exp(s - M)``, the weights ``exp(s - M) /
+    l`` cast to ``v``'s type as on one device, and an all-reduce sum of
+    each rank's f32 PV product.  A rank whose keys all lie past the
+    query (a short prompt in a long cache) holds only masked scores: its
+    weights are ``exp(-1e30 - M) = 0``, so it adds nothing, and no row
+    divides by zero (the query's own key is live on some rank).  Only
+    the gradient-free decode step comes here."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import (Replicate, Shard,
+                                          distribute_tensor)
+    mesh = k.device_mesh
+    Sk = k.shape[1]
+    seq_dims = [i for i, p in enumerate(k.placements) if p.is_shard(1)]
+    kv_pl = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
+             for p in k.placements]
+    q_pl = [p if p.is_shard(0) else Replicate() for p in kv_pl]
+    kpos = distribute_tensor(
+        torch.arange(Sk, device=k.device), mesh,
+        [Shard(0) if i in seq_dims else Replicate()
+         for i in range(len(kv_pl))], src_data_rank=None)
+
+    def reduce(t, op):
+        for i in seq_dims:
+            t = funcol.all_reduce(t, op, (mesh, i))
+            if isinstance(t, funcol.AsyncCollectiveTensor):
+                t = t.wait()
+        return t
+
+    def local(q_l, k_l, v_l, kpos_l):
+        B, Sq, H, D = q_l.shape
+        KV = k_l.shape[2]
+        s = _scores(q_l.reshape(B, Sq, KV, H // KV, D), k_l,
+                    1.0 / math.sqrt(D))
+        qpos = torch.arange(Sq, device=q_l.device)[:, None]
+        mask = (kpos_l[None, :] <= qpos + q_offset)[None, :, None, None, :]
+        s = torch.where(mask, s, torch.full_like(s, _MASKED))
+        e = torch.exp(s - reduce(s.amax(-1, keepdim=True), "max"))
+        w = e / reduce(e.sum(-1, keepdim=True), "sum")
+        return reduce(_pv(w, v_l), "sum").reshape(B, Sq, H, D) \
+            .to(q_l.dtype)
+
+    return shard_map_compat(
+        local, mesh=mesh, in_specs=(q_pl, kv_pl, kv_pl, kpos.placements),
+        out_specs=q_pl)(q, k, v, kpos)
 
 
 def attention(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
@@ -298,10 +371,9 @@ def attention(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
     if cache is None and cache_len is None:               # train
         o = _sdpa_chunked(q, k, v, causal=causal, chunk=chunk)
     elif cache_len is not None:                           # prefill
-        pad = (0, 0, 0, 0, 0, cache_len - S)
-        kf = shard(torch.nn.functional.pad(k, pad), "batch", "kvseq",
+        kf = shard(_pad_seq(k, cache_len - S), "batch", "kvseq",
                    "kv_heads", None)
-        vf = shard(torch.nn.functional.pad(v, pad), "batch", "kvseq",
+        vf = shard(_pad_seq(v, cache_len - S), "batch", "kvseq",
                    "kv_heads", None)
         new_cache = {"k": kf, "v": vf}
         o = _sdpa_chunked(q, k, v, causal=causal, chunk=chunk)
@@ -315,10 +387,27 @@ def attention(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
             cache["k"][:, pos:pos + S] = k
             cache["v"][:, pos:pos + S] = v
             new_cache = cache
-        o = _sdpa_chunked(q, new_cache["k"], new_cache["v"], causal=True,
-                          q_offset=pos, chunk=chunk)
+        if is_dtensor(new_cache["k"]) and _seq_split(new_cache["k"]):
+            o = _sdpa_split_kv(q, new_cache["k"], new_cache["v"], pos)
+        else:
+            o = _sdpa_chunked(q, new_cache["k"], new_cache["v"],
+                              causal=True, q_offset=pos, chunk=chunk)
     y = o.reshape(B, S, H * D) @ p[f"{prefix}wo"]
     return shard(y, "batch", "seq", None).to(x.dtype), new_cache
+
+
+def _pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t (B, S, KV, D)`` with ``n`` zero positions appended (the JAX
+    package's ``jnp.pad``); a DTensor whose sequence is whole is padded
+    by each rank under ``local_map``, its placements kept (DTensor's own
+    rule for ``pad`` fails to plan a redistribution on some releases)."""
+    pad = (0, 0, 0, 0, 0, n)
+    if not is_dtensor(t) or _seq_split(t):
+        return torch.nn.functional.pad(t, pad)
+    pl = list(t.placements)
+    return shard_map_compat(lambda t_l: torch.nn.functional.pad(t_l, pad),
+                            mesh=t.device_mesh, in_specs=(pl,),
+                            out_specs=pl)(t)
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int

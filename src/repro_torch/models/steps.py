@@ -21,14 +21,22 @@ everywhere in the port.  With ``mesh`` the head is vocab-sharded: the
 table split into row shards over the mesh's devices once per parameter
 set (`sharded_mips_head`), and each step one launch per shard and the
 exact cross-shard merge, as the JAX package's step runs
-``sharded_bounded_me_decode`` under a bound mesh.  The heads read only
-the final hidden state, so every family's caches (attention K/V, SSM
-state, hybrid periods, encdec cross K/V) pass through them unchanged.
+``sharded_bounded_me_decode`` under a bound mesh.  A model placed over a
+``DeviceMesh`` (`repro_torch.distributed.specs.place_params`) decodes as
+the JAX package's does under ``logical_mesh``: with a 'model' axis
+larger than 1 its vocab table's row shards run the bandit each on its
+rank and the candidates merge after one all-gather
+(`mesh_mips_head`, `repro_torch.distributed.sharding.sharded_decode_mesh`);
+with a 'model' axis of 1 each rank runs the single-device head on its
+whole table and its own rows of the batch.  The heads read only the
+final hidden state, so every family's caches (attention K/V, SSM state,
+hybrid periods, encdec cross K/V) pass through them unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -37,11 +45,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.boundedme_torch import (BlockedPlan, decode_tiled,
                                               draw_perms, make_plan,
                                               quantize_table, tile_table)
-from repro_torch.distributed.sharding import (dtensor_context, is_dtensor,
-                                              make_shard_plan,
+from repro_torch.distributed.sharding import (MeshShards, PartitionSpec,
+                                              axis_sizes, dtensor_context,
+                                              is_dtensor, make_shard_plan,
+                                              mesh_table_shards,
                                               quantize_shards,
                                               shard_map_compat,
-                                              sharded_decode_tiled)
+                                              sharded_decode_mesh,
+                                              sharded_decode_tiled, spec_of)
 from repro_torch.distributed.specs import serving_table_sharding
 from repro_torch.models.model import (LM, Caches, logits_from_hidden,
                                       masked_logits)
@@ -50,7 +61,7 @@ from repro_torch.optim.adamw import (AdamWConfig, OptState, apply_updates,
 
 __all__ = ["loss_fn", "train_step", "prefill_step", "make_mips_plan",
            "MipsHead", "mips_head", "ShardedMipsHead", "sharded_mips_head",
-           "decode_step"]
+           "MeshMipsHead", "mesh_mips_head", "decode_step"]
 
 
 def loss_fn(model: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
@@ -320,6 +331,86 @@ def sharded_mips_head(model: LM, cfg: ArchConfig,
     return model._sharded_head
 
 
+def _head_settings(cfg: ArchConfig) -> tuple:
+    if cfg.mips_precision == "pq":
+        raise ValueError("the decode head's plan has no table to calibrate "
+                         "a pq error bound on; pq serves through --loop")
+    return (cfg.padded_vocab, cfg.d_model, cfg.mips_eps, cfg.mips_delta,
+            cfg.mips_precision, cfg.vocab)
+
+
+@dataclasses.dataclass
+class MeshMipsHead:
+    """The bandit head of a model placed over a ``DeviceMesh``: the vocab
+    table laid out by each rank (`mesh_table_shards`: its row shard over
+    'model', or, with a 'model' axis of 1, the whole table under the
+    single-device plan) and its quantized artifacts."""
+
+    shards: MeshShards
+    n_valid: int
+    sharded: bool
+    key: tuple
+    table: object                      # a weak reference to the table
+
+    @property
+    def plan(self) -> BlockedPlan:
+        return self.shards.plan
+
+    def __call__(self, hid: torch.Tensor, perm, batch_axes=None
+                 ) -> torch.Tensor:
+        """``ids (B, 1) int32`` of DTensor hidden states ``hid (B, d)``
+        (the batch over ``batch_axes``) under the block permutation
+        ``perm``, a DTensor split as the batch."""
+        if self.sharded:       # the JAX package casts to the table's type
+            return sharded_decode_mesh(
+                self.shards, hid.to(self.shards.V4.dtype), perm, K=1,
+                n_valid=self.n_valid, batch_axes=batch_axes,
+                final_exact=True)[0]
+        plan, quant = self.plan, self.shards.quantized
+        rows = PartitionSpec(batch_axes, None)
+
+        def local(V4_l, h_l, *q):
+            return decode_tiled(V4_l, h_l, perm, plan=plan,
+                                final_exact=True, n_valid=self.n_valid,
+                                quantized=q or None)[0]
+        return shard_map_compat(
+            local, mesh=self.shards.mesh,
+            in_specs=(PartitionSpec("model", None, None, None), rows,
+                      *(PartitionSpec("model", *(None,) * (t.dim() - 1))
+                        for t in quant or ())),
+            out_specs=rows)(self.shards.V4, hid, *(quant or ()))
+
+
+@torch.no_grad()
+def mesh_mips_head(model: LM, cfg: ArchConfig, mesh) -> MeshMipsHead:
+    """The bandit head of a model whose vocab table is a DTensor on
+    ``mesh``, at the JAX package's settings: with a 'model' axis larger
+    than 1 the shard plan (`make_shard_plan`: K = 1, ``value_range``
+    4.0, tiles of 8, blocks of ``min(512, d_model)``, delta over the
+    shards), else `make_mips_plan`.  Built at the first call and kept
+    until the mesh, the settings or the table (the DTensor's identity or
+    an in-place write) change; a table of fake tensors is laid out as
+    fake tensors, and nothing reads its values."""
+    table = model.head_table
+    S = axis_sizes(mesh).get("model", 1)
+    key = (id(mesh), S, _head_settings(cfg), id(table), table._version)
+    head = getattr(model, "_mesh_head", None)
+    if head is None or head.key != key or head.table() is not table:
+        model._mesh_head = None                # free the old shards first
+        if S > 1:
+            plan, _, _, k_out = make_shard_plan(
+                cfg.padded_vocab, cfg.d_model, S, K=1, eps=cfg.mips_eps,
+                delta=cfg.mips_delta, value_range=4.0, tile=8,
+                block=min(512, cfg.d_model), precision=cfg.mips_precision)
+        else:
+            plan = make_mips_plan(cfg)
+            k_out = plan.K
+        shards = mesh_table_shards(table, mesh, plan, k_out=k_out)
+        model._mesh_head = MeshMipsHead(shards, cfg.vocab, S > 1, key,
+                                        weakref.ref(table))
+    return model._mesh_head
+
+
 @torch.no_grad()
 def decode_step(model: LM, cfg: ArchConfig, caches: Caches,
                 tokens: torch.Tensor, pos: int, perm=None, mesh=None
@@ -333,19 +424,25 @@ def decode_step(model: LM, cfg: ArchConfig, caches: Caches,
     with exact final scores and the padding rows masked in the cascade;
     with ``mesh`` (more than one shard) the vocab-sharded head
     (`sharded_mips_head`), its next tokens back on the model's device.
-    The step, and the heads' tables built from the model's, are outside
-    autograd, whether or not the parameters require grad.
+    On a model placed over a ``DeviceMesh`` (DTensor hidden states) the
+    bandit head is `mesh_mips_head` on the hidden states' mesh, the
+    batch split as the bound rules' 'batch' axis (``spec_of``), and the
+    next tokens a DTensor split the same way.  The step, and the heads'
+    tables built from the model's, are outside autograd, whether or not
+    the parameters require grad.
     """
     h, caches = model(tokens, caches=caches, pos=pos)
     hid = h[:, -1]
     if is_dtensor(hid):
-        if cfg.mips_mode != "exact":
-            raise NotImplementedError(
-                "the bandit head over DTensor parameters: the vocab-sharded "
-                "head runs over the serving Mesh (mesh=); its host-side "
-                "plan reads tensor values, which the dry run's fake "
-                "tensors do not have")
         with dtensor_context(hid):
+            if cfg.mips_mode == "boundedme":
+                head = mesh_mips_head(model, cfg, hid.device_mesh)
+                if perm is None:
+                    perm = draw_perms(head.plan.n_blocks)
+                ids = head(hid, perm, spec_of("batch")[0])
+                return ids[:, 0].to(torch.int32), caches
+            if cfg.mips_mode != "exact":
+                raise ValueError(f"unknown mips_mode {cfg.mips_mode!r}")
             logits = masked_logits(cfg, model.head_table, hid)
             return _sharded_argmax(logits).to(torch.int32), caches
     if cfg.mips_mode == "boundedme" and mesh is not None \
