@@ -4078,11 +4078,12 @@ MESH_ARCH, MESH_LAYERS, MESH_LAYERS_F32, MESH_SHAPE = (
 #: positions, then greedy tokens
 MESH_PROMPT, MESH_CACHE, MESH_TOKENS = 512, 32_768, 16
 #: phase 16 (d): the dry run's cells, on the host; qwen1.5-0.5b's
-#: all-gather bytes per device and step in PR 24's record of the cell
+#: all-gather bytes per device and step of the cell's dry run when decode
+#: gathered the whole split cache at every step
 MESH_DRYRUN_CELLS = (("command-r-35b", "decode_32k", "single"),
                      ("qwen3-moe-30b-a3b", "decode_32k", "multi"),
                      ("qwen1.5-0.5b", "decode_32k", "single"))
-PR24_QWEN_DECODE_ALL_GATHER = 25_769_805_312
+GATHERED_CACHE_QWEN_DECODE_ALL_GATHER = 25_769_805_312
 
 
 class TileRows:
@@ -4119,7 +4120,7 @@ def recorded_launches():
 #: the held mesh launches' score atol, in units of the launch's largest
 #: |score|: a shard returns k_out = K + 1 candidates, and the one past
 #: its top K may be any row of the winner's final tile, near zero (2.6e-6
-#: beside 1.1e-3 on command-r's head, my chip run, PR 25), where the
+#: beside 1.1e-3 on command-r's head, measured on one H100), where the
 #: f32 sums' rounding (the products' scale, not the result's) fails a
 #: relative tolerance alone
 MESH_SCORE_ATOL = SCORE_RTOL
@@ -4283,8 +4284,8 @@ def mesh_decode(dtype: str, layers: int, strict: bool) -> dict:
     ranks, each held; no all-gather carries the cache.  With ``strict``
     (f32) the mesh's tokens equal both one-card references; in bf16 the
     sharded model's partial sums round to bf16 before they are reduced,
-    its hidden states stand about 1 % from one card's (my chip run, PR
-    25), and a near-tie can pick another token there: its tokens must
+    its hidden states stand about 1 % from one card's (measured on one
+    H100), and a near-tie can pick another token there: its tokens must
     equal the exact head's on the same mesh, and their agreement with
     one card is reported."""
     from repro_torch.distributed.sharding import Mesh, logical_mesh
@@ -4447,8 +4448,8 @@ def mesh_decode(dtype: str, layers: int, strict: bool) -> dict:
 def mesh_dryrun() -> dict:
     """Phase 16 (d): `MESH_DRYRUN_CELLS` through the dry run on the host,
     each ``ok``; the bandit head's cells with ``mips_mode`` boundedme; the
-    dense cell's all-gather bytes below its cache bytes and against PR
-    24's record."""
+    dense cell's all-gather bytes below its cache bytes and against those
+    of decode that gathered the whole split cache."""
     from repro_torch.configs import get_config, get_shape
     from repro_torch.launch import dryrun as D
     out = {}
@@ -4471,7 +4472,8 @@ def mesh_dryrun() -> dict:
                     "cache_bytes": rec["cache_bytes"],
                     "trace_s": rec["lower_s"]}
         if arch == "qwen1.5-0.5b":
-            out[tag]["pr24_all_gather_bytes"] = PR24_QWEN_DECODE_ALL_GATHER
+            out[tag]["gathered_cache_all_gather_bytes"] = (
+                GATHERED_CACHE_QWEN_DECODE_ALL_GATHER)
         say(f"dry run {tag}: " + json.dumps(out[tag]))
     return out
 
