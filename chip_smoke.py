@@ -152,12 +152,17 @@ Phases, one line each (any failure exits non-zero before the result):
    float64 nearest-neighbour search, and ``bounded_me_batched`` on 4
    queries with per-query perms: one batched launch, bitwise equal to
    four single-query calls;
-9. quickstart — the recommender table of ``examples/quickstart.py``
+9. quickstart — ``examples_torch/quickstart.py``'s ``run`` on its table
    (``mf_dataset(20000, 8192, rank=32, seed=0)``, block 128, K = 5,
-   delta = 0.1, eps in {0.5, 2, 8} sigma, fp32, ``final_exact``):
-   kernel held against the plain version, exact scores; prints the top-5
-   overlap with exact search, the plan's speedup, and the kernel and call
-   ms against ``torch.matmul`` + ``torch.topk``;
+   delta = 0.1, eps in {0.5, 2, 8} sigma, fp32, ``final_exact``), the
+   launch counts set to 0 just before and read just after: one
+   ``fused_cascade[fp32]`` launch per eps, each held against the plain
+   version, exact scores; the exact top-5 held against a float64 search
+   and the JAX example's printed list (equal or a near-tie), the plan's
+   speedups equal to the JAX example's printed ones; prints the example's
+   lines, the top-5 overlap with exact search, and the kernel (against
+   its bound and the plain version) and call ms against ``torch.matmul``
+   + ``torch.topk``;
 10. decode — the ``repro_torch.launch.serve`` decode demo (no ``--loop``)
    in process: qwen1.5-0.5b at full width and depth, bf16 weights from a
    seeded generator on the card, 4 prompts of 16 tokens, 32 greedy
@@ -314,11 +319,36 @@ Phases, one line each (any failure exits non-zero before the result):
    decode_32k single, qwen3-moe-30b-a3b decode_32k multi (the bandit
    head) and qwen1.5-0.5b decode_32k single, each ``ok`` with its
    all-gather bytes below its cache bytes;
-17. a ``kernels`` JSON line, one entry per kernel and tier (the batched
+17. examples — the port's examples (``examples_torch/``) on the card:
+   (a) quickstart is phase 9; (b) ``serve_decode_mips.run`` at the
+   example's config (qwen1.5-0.5b's smoke depth at width 256, the full
+   151,936-row vocab padded to 153,600, f32) and batch (8 prompts of 12
+   tokens), 30 tokens a head after a 2-token warm-up: the launch counts
+   set to 0 just before and read just after, one
+   ``fused_cascade_batched[fp32]`` launch per bandit step (60), each held
+   as in phase 10; prints the token agreement with exact decode, ms per
+   token and the head's launch against its bound; (c)
+   ``frank_wolfe_lmo.run`` at the script's size (n = 1000, N = 20,000, 25
+   iterations; no kernel): its three lines held to the JAX example's
+   printed rel err and multiplies (on a miss, the first step whose pick
+   differs from the port's CPU run, and both arms' means), and one LMO
+   call of each kind timed; (d) ``train_lm``'s command line: first
+   mamba2-130m at full width cut to 2 layers in f32, 2 steps on the card
+   against the CPU from one draw of the weights (phase 14 (d)'s rule),
+   then ``--full``: mamba2-130m at its published size (24 layers,
+   d_model 768, bf16, remat), B = 8, S = 128, lr 3e-3, 20 steps, the
+   checkpoint in a temporary directory; finite losses, the last below
+   the first; prints ms per step (median of steps 2 on), tokens a
+   second, peak card GB and the checkpoint's GB and seconds; (e) each
+   script once as a user runs it, ``python examples_torch/<name>.py``
+   in a subprocess under a time limit (``train_lm.py --full --steps
+   10``), exit code 0, its output printed;
+18. a ``kernels`` JSON line, one entry per kernel and tier (the batched
    cascade's launches are the serve, runtime, store, tenancy, decode,
-   sharded, families, train, train sharded and mesh decode phases'; its
-   ``[bf16]`` entry times the decode head), and last the ``ok`` JSON
-   line.
+   sharded, families, train, train sharded, mesh decode and examples
+   phases'; its ``[bf16]`` entry times the decode head; the single-query
+   cascade's are the library API's and quickstart's), and last the
+   ``ok`` JSON line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
 near-tie, counted and printed — every differing candidate's exact float64
@@ -646,7 +676,7 @@ def kernel_bound(plan, ops, kw, pulled, n_pulls) -> dict:
     nbytes = (valid_cells * R * table.shape[3] * table.element_size()
               + sum(t.numel() * t.element_size()
                     for t in (Qb, slotcode, rmeta, cols))
-              + nq * K * 8)
+              + nq * kw.get("k_out", plan.K) * 8)
     if plan.precision in ("int8", "int4"):
         nbytes += cells * 4 + kw["qscale"].numel() * 4
         t_ops = 2 * n_pulls * R * C * pull_share / INT8_OPS_PER_S
@@ -2496,46 +2526,99 @@ def phase_families() -> dict:
     return out
 
 
+def load_example(name: str):
+    """The port's example ``examples_torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: what ``examples/quickstart.py`` prints on the CPU (jax 0.9.0): the
+#: exact top-5 and, per eps multiple, the plan's FLOP speedup
+QUICKSTART_JAX = {"exact": [13655, 3098, 19016, 10172, 18189],
+                  "speedup": {0.5: "1.0", 2.0: "1.3", 8.0: "4.4"}}
+
+
+def hold_ids(V, q, got, want, what: str) -> int:
+    """Top-K ids ``got`` against ``want``: equal, or every differing
+    position's float64 exact score within 1e-5 relative of the one it
+    replaced (a near-tie); returns the near-tie count."""
+    ties = 0
+    for j, (a, c) in enumerate(zip(got, want, strict=True)):
+        if a == c:
+            continue
+        sa = float(V[a].double() @ q.double())
+        sc = float(V[c].double() @ q.double())
+        check(abs(sa - sc) <= 1e-5 * abs(sc),
+              f"{what}: position {j}: id {a} (exact {sa:.9g}) vs {c} "
+              f"(exact {sc:.9g})")
+        ties += 1
+    return ties
+
+
 def phase_quickstart() -> dict:
-    """Phase 9: examples/quickstart.py's regime on the card."""
-    from repro_torch.core import mips
+    """Phase 9, and phase 17 (a): ``examples_torch/quickstart.py``'s `run`
+    on the card, the launch counts set to 0 just before and read just
+    after: one ``fused_cascade[fp32]`` launch per eps multiple, each held
+    against the plain version on the same permutation, the served scores
+    exact, the exact top-5 against a float64 search and the JAX example's
+    printed list; then the kernel alone on each call's operands."""
     from repro_torch.core.boundedme_torch import (draw_perms, make_plan,
                                                   tile_table)
+    from repro_torch.core.schedule import PULL_BIT
     from repro_torch.data.synthetic import mf_dataset
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.fused_cascade import fused_cascade_cuda
+    from repro_torch.kernels.ref import fused_cascade_ref
+    qs = load_example("quickstart")
 
     n, N = MF_SHAPE
     t0 = time.perf_counter()
     Vn, qn = mf_dataset(n, N, rank=32, seed=0)
-    sigma = float(np.std(Vn[:512] @ qn / N))
-    vr = float(8.0 * np.std(Vn) * np.std(qn))
-    V, q = torch.from_numpy(Vn).cuda(), torch.from_numpy(qn).cuda()
-    del Vn
+    sigma, vr = qs.knobs(Vn, qn)
     say(f"quickstart: mf_dataset{(n, N)} in {time.perf_counter() - t0:.1f}"
         f" s, sigma {sigma:.6g}, value_range {vr:.6g}")
+    kops.reset_launch_counts()
+    res = qs.run(Vn, qn, device=DEV, log=lambda s: say("quickstart: " + s))
+    torch.cuda.synchronize()
+    launches = kops.launch_counts()["fused_cascade[fp32]"]
+    check(launches == len(qs.MULTS) == len(res["runs"]),
+          f"quickstart: {launches} fused_cascade[fp32] launches for "
+          f"{len(qs.MULTS)} searches")
+    V, q = torch.from_numpy(Vn).to(DEV), torch.from_numpy(qn).to(DEV)
+    del Vn
     exact = torch.topk(V.double() @ q.double(), 5).indices.tolist()
+    got = res["exact"].tolist()
+    ties = hold_ids(V, q, got, exact, "quickstart exact vs float64")
+    ties += hold_ids(V, q, got, QUICKSTART_JAX["exact"],
+                     "quickstart exact vs the JAX example")
     library_ms = time_cuda(lambda: torch.topk(V @ q, 5), 10, 2)
-    out = {}
-    for mult in (0.5, 2.0, 8.0):
-        eps = mult * sigma
-        kw = dict(K=5, eps=eps, delta=0.1, value_range=vr, final_exact=True,
-                  block=128, device=DEV)
-        kops.reset_launch_counts()
-        ids, scores = mips.mips_topk(V, q, **kw)
-        torch.cuda.synchronize()
-        launches = kops.launch_counts()["fused_cascade[fp32]"]
-        check(launches == 1, f"quickstart {mult}: {launches} launches")
+    out = {"launches": launches, "exact": got,
+           "exact_equals_jax": got == QUICKSTART_JAX["exact"],
+           "exact_near_ties": ties}
+    errs = []
+    for run in res["runs"]:
+        mult, eps, ids, scores = (run[k] for k in ("mult", "eps", "ids",
+                                                   "scores"))
+        check(f"{run['speedup']:4.1f}".strip()
+              == QUICKSTART_JAX["speedup"][mult],
+              f"quickstart {mult}: speedup {run['speedup']} vs the JAX "
+              f"example's {QUICKSTART_JAX['speedup'][mult]}")
         with plain_route():
-            pids, pscores = mips.mips_topk(V, q, **kw)
+            pids, pscores = qs.search(V, q, eps, vr, device=DEV)
         r = compare(V, q[None], [ids[None], scores[None]],
                     [pids[None], pscores[None]],
                     what=f"quickstart eps={mult}*sigma")
+        errs.append(r["max_abs_err"])
         ex = (V[ids.long()].double() @ q.double()) / N
         check(torch.allclose(scores.double(), ex, rtol=EXACT_RTOL, atol=0.0),
               f"quickstart {mult}: scores {scores.tolist()} vs exact "
               f"{ex.tolist()}")
-        # the kernel alone, on the operands the call built
+        # the kernel alone, on the operands the call built (its perm: the
+        # generator seeded 0)
         plan = make_plan(n, N, K=5, eps=eps, delta=0.1, value_range=vr,
                          block=128)
         V4 = tile_table(V, plan, DEV)
@@ -2543,24 +2626,34 @@ def phase_quickstart() -> dict:
             q, (0, plan.n_blocks * plan.block - N))[None],
             draw_perms(plan.n_blocks))
         sops, skw = single_of(ops_, kw_)
+        pulled = torch.zeros((plan.n_tiles, plan.n_blocks), dtype=torch.bool,
+                             device=DEV)
+        fused_cascade_ref(*sops, pulled=pulled, **skw)
+        n_pulls = int(((sops[2].cpu() & PULL_BIT) != 0).sum())
         kernel_ms = time_cuda(lambda: fused_cascade_cuda(*sops, **skw), 10,
                               2)
         calls = []
         for _ in range(5):
             t0 = time.perf_counter()
-            mips.mips_topk(V, q, **kw)
+            qs.search(V, q, eps, vr, device=DEV)
             torch.cuda.synchronize()
             calls.append(1e3 * (time.perf_counter() - t0))
-        res = {"eps_sigma": mult, "overlap": len(set(ids.tolist())
-                                                 & set(exact)),
-               "speedup": plan.speedup, "rounds": len(plan.schedule.rounds),
-               "kernel_ms": kernel_ms, "call_ms": statistics.median(calls),
-               "library_ms": library_ms, "launches": launches,
+        rec = {"eps_sigma": mult, "overlap": run["overlap"],
+               "overlap_float64": len(set(ids.tolist()) & set(exact)),
+               "speedup": run["speedup"],
+               "rounds": len(plan.schedule.rounds),
+               **kernel_bound(plan, sops, skw, pulled, n_pulls),
+               "kernel_ms": kernel_ms,
+               "plain_ms": time_cuda(lambda: fused_cascade_ref(*sops, **skw),
+                                     3, 1),
+               "call_ms": statistics.median(calls),
+               "example_wall_s": run["wall_s"], "library_ms": library_ms,
                "max_abs_err": r["max_abs_err"],
                "near_tie_queries": r["near_tie_queries"]}
-        out[mult] = res
-        say("quickstart: " + json.dumps(res))
+        out[mult] = rec
+        say("quickstart: " + json.dumps(rec))
         del V4, ops_, sops
+    out["max_abs_err"] = max(errs)
     return out
 
 
@@ -4495,17 +4588,321 @@ def phase_mesh_decode() -> dict:
     return out
 
 
+#: phase 17 (b): serve_decode_mips at its geometry (B = 8, P = 12) for
+#: 30 tokens a head, 60 bandit steps over its two eps
+EXAMPLE_DECODE_TOKENS = 30
+#: what ``examples/frank_wolfe_lmo.py`` prints on the CPU (jax 0.9.0):
+#: per LMO tag, the rel err and the LMO multiplies over naive
+FRANK_WOLFE_JAX = {"exact": ("0.1556", "1.00"),
+                   "boundedme(eps=0.2)": ("0.1556", "0.56"),
+                   "boundedme(eps=0.5)": ("0.1556", "0.21")}
+#: phase 17 (d): train_lm's --full run, and its 2-layer f32 twin held on
+#: the card against the CPU first
+EXAMPLE_TRAIN_STEPS, EXAMPLE_TWIN_LAYERS, EXAMPLE_TWIN_STEPS = 20, 2, 2
+#: phase 17 (e): (script, arguments, seconds allowed) as a user runs them
+EXAMPLE_SCRIPTS = (("quickstart", (), 240), ("serve_decode_mips", (), 240),
+                   ("frank_wolfe_lmo", (), 240),
+                   ("train_lm", ("--full", "--steps", "10"), 300))
+
+
+def example_decode() -> dict:
+    """Phase 17 (b): ``examples_torch/serve_decode_mips.py``'s `run` at the
+    example's config and batch, `EXAMPLE_DECODE_TOKENS` tokens a head
+    (after a 2-token warm-up on the same model), the launch counts set to
+    0 just before and read just after: one ``fused_cascade_batched[fp32]``
+    launch per bandit step, each held against the plain version."""
+    from repro_torch.kernels import ops as kops
+    sd = load_example("serve_decode_mips")
+    cfg = sd.make_config()
+    warm = sd.run(cfg, T=2, device=DEV, log=lambda s: None)
+    model = warm["model"]
+    T = EXAMPLE_DECODE_TOKENS
+    kops.reset_launch_counts()
+    with recording_heads() as calls:
+        res = sd.run(cfg, T=T, device=DEV, model=model,
+                     log=lambda s: say("serve_decode_mips: " + s))
+    counts = kops.launch_counts()
+    launches = counts["fused_cascade_batched[fp32]"]
+    bandit = [t for t in res["tokens"] if t != "exact"]
+    check(launches == T * len(bandit) == counts["fused_cascade_batched"]
+          == len(calls),
+          f"serve_decode_mips: {launches} fused_cascade_batched[fp32] "
+          f"launches ({counts['fused_cascade_batched']} in all, "
+          f"{len(calls)} head calls) for {T * len(bandit)} bandit steps")
+    table = model.head_table
+    check(table.dtype == torch.float32 and table.shape[0]
+          == res["padded_rows"] == cfg.padded_vocab,
+          f"serve_decode_mips: head table {tuple(table.shape)} "
+          f"{table.dtype}")
+    held = hold_head_steps("serve_decode_mips", calls, cfg, table)
+    out = {**held, "launches": launches, "batch": 8, "tokens": T,
+           "padded_rows": res["padded_rows"],
+           "token_agreement_with_exact": res["agreement"],
+           "ms_per_token": {k: 1e3 * v / T
+                            for k, v in res["seconds"].items()},
+           "head": head_launch(calls, cfg, table, widened=False)}
+    say("serve_decode_mips: " + json.dumps(out))
+    del calls, model, warm, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def frank_wolfe_drift(fw, S, target, card: list) -> str:
+    """Where the card's Frank-Wolfe run leaves the CPU's: per LMO, the
+    first step whose pick differs and both arms' exact mean products at
+    that step's query (the CPU trajectory's)."""
+    notes = []
+    n, N = S.shape
+    S64 = torch.from_numpy(S).double()
+    for lmo, eps in fw.LMOS:
+        tag = lmo if eps is None else f"{lmo}(eps={eps})"
+        want = []
+        fw.frank_wolfe(S, target, iters=25, lmo=lmo, eps=eps or 0,
+                       device="cpu", trace=want)
+        got = next(r["trace"] for r in card if r["tag"] == tag)
+        for (t, a, _), (_, c, _) in zip(got, want):
+            if a != c:
+                x, _ = fw.frank_wolfe(S, target, iters=t, lmo=lmo,
+                                      eps=eps or 0, device="cpu")
+                q = -2.0 * (x.double() - torch.from_numpy(target))
+                m = S64 @ q / N
+                notes.append(f"{tag} step {t}: card arm {a} (mean "
+                             f"{float(m[a]):.9g}) vs CPU arm {c} (mean "
+                             f"{float(m[c]):.9g})")
+                break
+    return "; ".join(notes) or "no pick differs from the CPU run"
+
+
+def example_frank_wolfe() -> dict:
+    """Phase 17 (c): ``examples_torch/frank_wolfe_lmo.py``'s `run` on the
+    card at the script's size (n = 1000, N = 20,000, 25 iterations): its
+    three lines, each held to the JAX example's printed rel err and
+    multiplies; then one LMO call of each kind timed."""
+    from repro_torch.core.boundedme import bounded_me, reward_matrix
+    fw = load_example("frank_wolfe_lmo")
+    S, target = fw.problem(1000, 20_000)
+    t0 = time.perf_counter()
+    runs = fw.run(S, target, iters=25, device=DEV,
+                  log=lambda s: say("frank_wolfe_lmo: " + s))
+    run_s = time.perf_counter() - t0
+    bad = [r["tag"] for r in runs
+           if (f"{r['rel_err']:.4f}", f"{r['multiplies']:.2f}")
+           != FRANK_WOLFE_JAX[r["tag"]]]
+    if bad:
+        check(False, f"frank_wolfe_lmo: {bad} differ from the JAX example's "
+              f"{FRANK_WOLFE_JAX}: " + frank_wolfe_drift(fw, S, target,
+                                                          runs))
+    Sc = torch.from_numpy(S).to(DEV)
+    S64 = Sc.double()
+    tc = torch.from_numpy(target).to(DEV)
+    q = -2.0 * (Sc[0] - tc)
+    vr = float(Sc.abs().max()) * float(q.abs().max())
+    perm = np.random.default_rng(0).permutation(S.shape[1])
+
+    def host_ms(fn, n: int = 5) -> float:
+        fn()
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+    lmo_ms = {"exact": host_ms(lambda: int(torch.argmax(S64 @ q)))}
+    for eps in (0.2, 0.5):
+        lmo_ms[f"boundedme(eps={eps})"] = host_ms(lambda eps=eps: int(
+            bounded_me(reward_matrix(Sc, q, perm=perm), K=1, eps=eps * vr,
+                       delta=0.1, value_range=2 * vr).topk[0]))
+    out = {"run_s": run_s, "lmo_ms": lmo_ms,
+           "runs": {r["tag"]: {k: r[k] for k in ("rel_err", "multiplies",
+                                                 "pulls", "seconds")}
+                    for r in runs}}
+    say("frank_wolfe_lmo: " + json.dumps(out))
+    del Sc, S64
+    torch.cuda.empty_cache()
+    return out
+
+
+def example_train_twin() -> dict:
+    """Phase 17 (d), first: mamba2-130m at full width cut to
+    `EXAMPLE_TWIN_LAYERS` layers in f32, `EXAMPLE_TWIN_STEPS` trainer
+    steps at train_lm's flags on the card against the same steps on the
+    CPU: losses to rtol 1e-5 (`hold_losses`), gradient norms to rtol
+    1e-4, parameters by `hold_params` (`train_card_vs_cpu`'s rule)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    tl = load_example("train_lm")
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              n_layers=EXAMPLE_TWIN_LAYERS, dtype="float32")
+    res, real = {}, T.build_model
+
+    def drawn_on_cpu(cfg, seed=0, device="cuda"):
+        # one draw for both runs: a seeded draw differs by device
+        return real(cfg, seed=seed, device="cpu").to(device)
+    T.build_model = drawn_on_cpu
+    try:
+        for dev in ("cpu", DEV):
+            argv = tl.command(tl.parse_args(
+                ["--full", "--steps", str(EXAMPLE_TWIN_STEPS), "--device",
+                 dev, "--ckpt-dir", ""]))
+            t0 = time.perf_counter()
+            res[dev] = T.train(T.parse_args(argv[3:]), cfg=cfg)
+            res[dev]["run_s"] = time.perf_counter() - t0
+    finally:
+        T.build_model = real
+    host, card = res["cpu"], res[DEV]
+    lossh = [h["loss"] for h in host["history"]]
+    lossc = [h["loss"] for h in card["history"]]
+    gn = [(h["grad_norm"], c["grad_norm"])
+          for h, c in zip(host["history"], card["history"])]
+    what = "train_lm twin mamba2-130m card vs cpu"
+    out = {"layers": EXAMPLE_TWIN_LAYERS, "steps": EXAMPLE_TWIN_STEPS,
+           "dtype": "float32", "losses_card": lossc, "losses_cpu": lossh,
+           "loss_rel_err": hold_losses(lossc, lossh, what),
+           "grad_norm_rel_err": max(abs(c - h) / h for h, c in gn),
+           "cpu_s": host["run_s"], "card_s": card["run_s"]}
+    check(out["grad_norm_rel_err"] <= CARD_CPU_RTOL,
+          f"{what}: grad norms {gn}")
+    out.update(hold_params(
+        {n: p.detach() for n, p in card["model"].named_parameters()},
+        {n: p.detach() for n, p in host["model"].named_parameters()},
+        card["opt_cfg"].lr, EXAMPLE_TWIN_STEPS, what))
+    say(f"{what}: " + json.dumps(out))
+    del res, host, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def example_train_full() -> dict:
+    """Phase 17 (d): ``examples_torch/train_lm.py --full`` through the
+    trainer in process, with the command line the example builds:
+    mamba2-130m at its published size (24 layers, d_model 768, state
+    128, vocab 50,280, bf16, remat), B = 8, S = 128, lr 3e-3,
+    `EXAMPLE_TRAIN_STEPS` steps, the checkpoint in a temporary directory
+    (removed after): finite losses, the last below the first."""
+    import shutil
+    from repro_torch.launch import train as T
+    tl = load_example("train_lm")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    argv = tl.command(tl.parse_args(
+        ["--full", "--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir", tmp,
+         "--device", DEV]))
+    say("train_lm --full: + " + " ".join(argv))
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with timed_checkpoints() as io:
+            t0 = time.perf_counter()
+            res = T.train(T.parse_args(argv[3:]))
+            run_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg, model, hist = res["cfg"], res["model"], res["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == EXAMPLE_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train_lm --full: losses {losses}")
+    check(losses[-1] < losses[0],
+          f"train_lm --full: the loss did not fall ({losses[0]:.4f} -> "
+          f"{losses[-1]:.4f})")
+    check((cfg.name, cfg.n_layers, cfg.d_model, cfg.ssm_state, cfg.vocab,
+           cfg.dtype) == ("mamba2-130m", 24, 768, 128, 50_280, "bfloat16"),
+          f"train_lm --full: not the published size: {cfg}")
+    check([c[0] for c in io] == ["write"],
+          f"train_lm --full: checkpoint calls {[c[0] for c in io]}")
+    args = T.parse_args(argv[3:])
+    tokens = args.batch * args.seq
+    step_ms = statistics.median(res["step_s"][2:]) * 1e3
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+           "batch": args.batch, "seq": args.seq, "lr": args.lr,
+           "steps": len(hist),
+           "params": sum(p.numel() for p in model.parameters()),
+           "losses": losses, "loss_fell_by": losses[0] - losses[-1],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step0_ms": res["step_s"][0] * 1e3,
+           "ms_per_step": step_ms,
+           "ms_per_step_spread": [min(res["step_s"][2:]) * 1e3,
+                                  max(res["step_s"][2:]) * 1e3],
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "checkpoint": {"gb": io[0][2], "write_s": io[0][1]},
+           "run_s": run_s, "mem_before_gb": base_gb,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    say("train_lm --full: " + json.dumps(out))
+    del res, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def example_scripts() -> dict:
+    """Phase 17 (e): each example as a user runs it, ``python
+    examples_torch/<name>.py`` in a subprocess under a time limit (the
+    kernels come from phase 2's build): exit code 0, its standard output
+    printed here."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        for name, extra, limit in EXAMPLE_SCRIPTS:
+            argv = [sys.executable, str(ROOT / "examples_torch" /
+                                        f"{name}.py"), *extra]
+            if name == "train_lm":
+                argv += ["--ckpt-dir", tmp]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=ROOT, env=env, text=True,
+                                  capture_output=True, timeout=limit)
+            seconds = time.perf_counter() - t0
+            for line in proc.stdout.splitlines():
+                say(f"{name}.py: {line}")
+            check(proc.returncode == 0,
+                  f"{name}.py exited {proc.returncode}: "
+                  f"{proc.stderr[-2000:]}")
+            out[name] = {"seconds": seconds, "returncode": proc.returncode}
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("example scripts: " + json.dumps(out))
+    return out
+
+
+def phase_examples(quickstart: dict) -> dict:
+    """Phase 17: the port's examples on the card: (a) quickstart is phase
+    9; (b) serve_decode_mips; (c) frank_wolfe_lmo; (d) train_lm --full,
+    after its 2-layer f32 twin on the card against the CPU; (e) each
+    script once as a user runs it."""
+    t_phase = time.perf_counter()
+    out = {"quickstart": quickstart, "decode": example_decode(),
+           "frank_wolfe": example_frank_wolfe(),
+           "train_twin": example_train_twin(),
+           "train_full": example_train_full(),
+           "scripts": example_scripts()}
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"examples: phase in {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
                    lib, decode, sharded, families, trained,
-                   trained_sharded, meshed) -> list:
+                   trained_sharded, meshed, examples) -> list:
     """The ``kernels`` line: one entry per kernel and tier.  The batched
     cascade's launches are those of the serve, runtime, store, tenancy,
-    decode, sharded, families and train phases (the fp32 tier on the f32
-    stores and the sharded library call; ``[bf16]`` on the bf16 serving
+    decode, sharded, families, train, mesh decode and examples phases
+    (the fp32 tier on the f32 stores, the sharded library call and the
+    serve_decode_mips example's head; ``[bf16]`` on the bf16 serving
     table and model heads; S per sharded dispatch); its bf16 entry's
     times are the decode head's, on step 0's operands, and each family
-    arch's head and the trained model's beside them.  Times of a tier are
-    phase 3's, row mode (coord beside them)."""
+    arch's head and the trained model's beside them.  The single-query
+    cascade's launches are the library API's and quickstart's.  Times of
+    a tier are phase 3's, row mode (coord beside them); the examples'
+    kernel times ride in sub-entries."""
     none = {"launches": 0, "max_abs_err": 0.0}
     info = {t[0]: t[1:] for t in TIERS}
     info["bf16"] = info["fp32"]
@@ -4524,6 +4921,7 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
             runs.append(meshed["decode"])
         if tag == "fp32":
             runs.append(meshed["decode_f32"])
+            runs.append(examples["decode"])
         runs.append(meshed["serve"].get(tag, none))
         runs.append(sharded["per_tag"].get(tag, none))
         row, coord = kern[(tag, "row")], kern.get((tag, "coord"))
@@ -4567,6 +4965,12 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
                 k: head[k] for k in ("shard_table", "kernel_ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")
             } | {"launches": meshed["decode"]["launches"]}
+        if tag == "fp32":
+            head = examples["decode"]["head"]
+            entry["serve_decode_mips"] = {
+                k: head[k] for k in ("table", "kernel_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")
+            } | {"launches": examples["decode"]["launches"], "batch": 8}
         if tag in meshed["serve"]:
             head = meshed["serve"][tag]["shard"]
             entry["mesh_serve_shard"] = {
@@ -4581,12 +4985,13 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
         if tag == "bf16":      # the single-query entry's bf16 time rides
             continue           # on its fp32 entry: no path launches it
         row1 = single[(tag, "row")]
+        quick = examples["quickstart"] if tag == "fp32" else none
         entry = {
             "name": "fused_cascade" + ("" if tag == "fp32" else f"[{tag}]"),
             "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL_SINGLE,
             "launches": lib[(tag, "row")]["launches"]
-            + lib[(tag, "coord")]["launches"],
-            "max_abs_err": max(row1["max_abs_err"], *(
+            + lib[(tag, "coord")]["launches"] + quick["launches"],
+            "max_abs_err": max(row1["max_abs_err"], quick["max_abs_err"], *(
                 single[k]["max_abs_err"] for k in single if k[0] == tag)),
             "ms": row1["kernel_ms"], "plain_ms": row1["plain_ms"],
             "bound_ms": row1["bound_ms"], "bound_by": row1["bound_by"],
@@ -4598,6 +5003,12 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
         if tag == "fp32":
             entry.update(bf16_ms=single[("bf16", "row")]["kernel_ms"],
                          bf16_coord_ms=single[("bf16", "coord")]["kernel_ms"])
+            entry["quickstart"] = {
+                f"{m}*sigma": {k: quick[m][k] for k in (
+                    "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "call_ms")}
+                for m in (0.5, 2.0, 8.0)} | {"launches": quick["launches"],
+                                             "table": list(MF_SHAPE)}
         entries.append(entry)
     f32, b16 = torch.float32, torch.bfloat16
     for name, src, replaces, launches, base, alt in (
@@ -4674,7 +5085,7 @@ def main() -> int:
         lib = phase_mips(table32, n_valid)
         del table, table32
         torch.cuda.empty_cache()
-        phase_quickstart()
+        quick = phase_quickstart()
         torch.cuda.empty_cache()
         decode = phase_decode()
         torch.cuda.empty_cache()
@@ -4691,6 +5102,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         meshed = phase_mesh_decode()
+        gc.collect()
+        torch.cuda.empty_cache()
+        examples = phase_examples(quick)
         say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -4698,7 +5112,8 @@ def main() -> int:
         return 1
     print(json.dumps({"kernels": kernel_entries(
         kern, single, aux, served, runtime, stored, tenancy, lib, decode,
-        sharded, families, trained, trained_sharded, meshed)}), flush=True)
+        sharded, families, trained, trained_sharded, meshed, examples)}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -758,7 +758,8 @@ def bounded_me_decode(V, Q, perm, *, plan: BlockedPlan,
     The serving hot path.  All queries share the block permutation
     ``perm``, an ``(n_blocks,)`` integer permutation of
     ``range(plan.n_blocks)``; survivor sets and eliminations stay fully
-    per-query.
+    per-query.  The (eps, delta) guarantee and the pull budget are the
+    plan's.
 
     Args:
       V: (n, N) item/arm matrix (rows are arms).

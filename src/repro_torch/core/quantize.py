@@ -148,7 +148,8 @@ def pq_train(V4: torch.Tensor, *, n_codes: int = 16, subdims: int = 8,
     For every (block, slice) pair the rows of the whole table form the
     training set of one ``n_codes``-centroid Lloyd k-means: strided
     data-order initialisation (no RNG), ``iters`` fixed iterations, and
-    an empty cluster keeps its centroid.  ``V4 (n_tiles, n_blocks, R,
+    an empty cluster keeps its centroid, so training is deterministic:
+    the same table gives the same codebook.  ``V4 (n_tiles, n_blocks, R,
     C)`` with C a multiple of ``subdims`` -> ``codebook (n_blocks, S,
     n_codes, subdims)`` float32, ``S = C / subdims``.
     """
@@ -183,7 +184,8 @@ def pq_train(V4: torch.Tensor, *, n_codes: int = 16, subdims: int = 8,
 def pq_encode(V4: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest codeword of every (row, block, subspace) slice.
 
-    Per-cell independent, ties to the lowest code.  ``V4 (n_tiles,
+    Per-cell independent: the argmin of the squared distance, ties to
+    the lowest code.  ``V4 (n_tiles,
     n_blocks, R, C)``, ``codebook (n_blocks, S, n_codes, w)`` -> ``codes
     (n_tiles, n_blocks, R, S) uint8``.  Works through the tiles in chunks
     to bound the distance tensor.
@@ -234,7 +236,8 @@ def pq_tile_dot(codes: torch.Tensor, qcol: torch.Tensor,
                 cb: torch.Tensor) -> torch.Tensor:
     """The pq pull of one coordinate block: ``out[..., r] = sum_s
     lut[s, codes[..., r, s]]`` with the LUT of `pq_lut`, summed over s in
-    order.
+    order: the order of the CUDA kernel's pq pull and of the plain
+    version's (the fallback a tensor on the CPU takes).
 
     ``codes (..., R, S)`` uint8, ``qcol (C,)`` f32, ``cb (S, n_codes,
     w)`` -> ``(..., R)`` f32.

@@ -533,6 +533,8 @@ class MeshShards:
 
     @property
     def shards(self) -> int:
+        """The number of row shards: the size of ``model_axis`` (1 when
+        the mesh does not split the rows)."""
         return axis_sizes(self.mesh)[self.model_axis]
 
 

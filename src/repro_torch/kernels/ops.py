@@ -183,7 +183,8 @@ def fused_cascade(V4: torch.Tensor, qb: torch.Tensor,
     """The whole BoundedME cascade of one query in one dispatch.
 
     As `fused_cascade_batched` with one query: ``qb (n_blocks, C)``,
-    ``cols (S,)`` and, on the int tiers, ``qscale (n_blocks,)``.  Returns
+    ``cols (S,)`` and, on the int tiers, ``qscale (n_blocks,)``; ``k_out``,
+    ``n_valid``, ``vscale``, ``codebook`` and ``cert`` as there.  Returns
     ``(ids (k_out,) int32, vals (k_out,) float32)``, vals unscaled block
     means, and with ``cert`` also a scalar ``rounds_used`` int32 tensor.
     """

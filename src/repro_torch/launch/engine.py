@@ -819,8 +819,9 @@ class MIPSServeEngine:
         mutations, or `grow` / `refresh_codebook` out of band) the LRU is
         invalidated and its salt bumped; then the executor re-derives its
         plan if the store's capacity or value range outgrew it (counted
-        in ``stats()["updates"]["recalibrations"]``).  No-op without a
-        store.
+        in ``stats()["updates"]["recalibrations"]``).  Sampled recall
+        reads the store's host mirror, always current, so no recall
+        state goes stale.  No-op without a store.
         """
         store = self._store
         if store is None:
@@ -1667,7 +1668,8 @@ class ServeRuntime:
         ``latency_ms`` (p50/p95/p99) covers *answered* requests (cache
         hits at 0); shed/rejected/failed requests are visible in
         ``outcomes`` and ``admission`` instead.  ``degradation`` reports
-        the eps ladder and how many responses each rung served;
+        the eps ladder and how many responses each rung served (the
+        ``eps_served`` counts);
         ``lanes`` aggregates per-dispatch lane accounting (occupancy +
         executed pull fraction); ``faults`` reconciles retries / failed
         batches (+ the injector's own schedule when attached).  Keys and

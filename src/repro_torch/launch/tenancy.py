@@ -104,8 +104,8 @@ class TenantConfig:
 
     The serving knobs mirror `repro_torch.launch.engine.ServeRuntime`'s
     constructor — a tenant served through `MultiTenantRuntime` under this
-    config gets answers bitwise a dedicated runtime's built with the same
-    arguments and seed.  ``weight`` scales the tenant's deficit-round-
+    config gets answers bit-identical to a dedicated runtime's built with
+    the same arguments and seed.  ``weight`` scales the tenant's deficit-round-
     robin share, ``priority`` / ``deadline_ms`` define its one priority
     class, ``queue_capacity`` bounds its private admission queue,
     ``capacity`` provisions its store and ``pinned`` exempts its table
@@ -327,7 +327,7 @@ class TableRegistry:
         exceed ``byte_budget``, cold evictable tables are paged out
         least-recently-served first; when even that cannot make room the
         registration is refused with `TenancyError` and the pool is left
-        as it was.
+        as it was: registering a tenant never OOMs the budget.
         """
         if name in self._entries:
             raise TenancyError(f"tenant {name!r} already registered")
@@ -406,7 +406,7 @@ class TableRegistry:
         reference to them is left, so the card's allocated bytes fall by
         the table's.  The host side keeps rows, ids, version, value
         range, the pq codebook and staged mutations; the next serve's
-        page-in rebuilds the buffers bytewise.
+        page-in rebuilds the buffers bit-identical (bytewise).
         """
         entry = self._entry(name)
         if not entry.resident:
@@ -705,13 +705,16 @@ class MultiTenantRuntime:
     under deficit-round-robin: each round every backlogged tenant's
     deficit grows by ``lanes * weight`` and it may dispatch up to it, so
     with every tenant backlogged each gets about one full dispatch per
-    round whatever the arrival skew, and idle tenants cost nothing.
+    round whatever the arrival skew, no backlogged tenant starves, and
+    idle tenants cost nothing.  That is the tenants' isolation: one
+    tenant's load delays another's by at most a round.
     Executors come from the `TableRegistry`'s bounded cache; acquiring
     them pages an evicted table back in (its seconds are charged to the
     dispatch's virtual busy time), and the in-flight guard keeps the
     serving table off the eviction list.
 
-    Per-tenant results are bitwise a dedicated `ServeRuntime`'s with the
+    Per-tenant results are bit-identical to a dedicated `ServeRuntime`'s
+    with the
     same `TenantConfig`, seed and batch composition: dispatch ``didx`` of
     tenant ``t`` serves under ``perm_source(t, didx, n_blocks)`` (default
     ``seeded_perm(config.seed, didx, n_blocks)``, the dedicated runtime's

@@ -354,6 +354,10 @@ class MeshMipsHead:
 
     @property
     def plan(self) -> BlockedPlan:
+        """The plan each rank's launch runs: the shard plan
+        (`make_shard_plan` at the head's eps, delta and tier, delta split
+        over the shards), or the single-device plan with a 'model' axis
+        of 1."""
         return self.shards.plan
 
     def __call__(self, hid: torch.Tensor, perm, batch_axes=None

@@ -709,8 +709,8 @@ class DynamicTableStore:
         O(rows touched) work: each op updates the host mirror and the id
         maps; then the touched rows are written into the tiled device
         table in place (one copy and one scatter for the flush) and — on
-        the quantized tiers — the touched arm-tiles are re-encoded on the
-        device and spliced into the shadow (int8/int4 re-quantization, or
+        the quantized tiers — the touched (dirty) arm-tiles are re-encoded
+        on the device and spliced into the shadow (int8/int4 re-quantization, or
         pq re-encode against the frozen codebook; each bytewise a full
         rebuild of the updated table).  Bumps ``version`` once per
         applied mutation.  Returns ``{"applied", "version",

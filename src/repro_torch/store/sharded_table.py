@@ -60,7 +60,8 @@ class ShardedTableStore:
     ``n_valid`` vector (`n_valid_vector`).  New ids append to the shard
     with the most free capacity; deletes swap-fill within their shard.
     Monotonic ``version`` and ``value_abs_max`` follow the
-    `DynamicTableStore` contract.
+    `DynamicTableStore` contract.  A query's answer is the exact top-K
+    merge of the shards' candidates (`merge_topk`).
 
     Args:
       table: optional (n0, N) initial rows (an array, or a tensor on any
