@@ -26,6 +26,9 @@ default order over mesh dimensions is that one when the names come in
 the mesh's order, and another order raises.  ``with_sharding_constraint``
 becomes ``DTensor.redistribute`` (`shard`), ``shard_map`` becomes
 ``local_map`` with explicit collectives inside (`shard_map_compat`).
+A partial sum of a 16-bit float type is reduced in f32 and rounded once
+(`redistribute`, `widen`), as XLA compiles the JAX package's bf16
+reductions.
 
 **One controller over a list of devices.**  The JAX package runs each
 shard's body under ``shard_map`` from one Python process and gathers the
@@ -87,7 +90,8 @@ from repro_torch.core.schedule import pulls_through_round
 __all__ = ["LOGICAL_RULES", "PartitionSpec", "P", "AbstractMesh",
            "axis_sizes", "logical_mesh", "current_mesh", "rebinder",
            "spec_of",
-           "placements", "shard", "named_sharding", "shard_map_compat",
+           "placements", "redistribute", "fan_out", "widen", "shard",
+           "named_sharding", "shard_map_compat",
            "dtensor_context", "outside_simulated_ranks", "is_dtensor",
            "Mesh",
            "device_guard", "make_shard_plan", "shard_valid_counts",
@@ -877,20 +881,118 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+#: the float types whose partial sums are reduced in f32 (`redistribute`)
+_WIDENED = (torch.bfloat16, torch.float16)
+
+
+def _recast(x, dtype):
+    """The DTensor ``x`` with each rank's local tensor cast to ``dtype``
+    and its placements kept: a partial sum stays one, of the cast
+    parts."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x.to_local().to(dtype), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _reduce(x, mesh, pl):
+    """``x.redistribute(mesh, pl)`` under the rule of `redistribute`,
+    without autograd."""
+    if x.dtype in _WIDENED and any(p.is_partial() and p != q
+                                   for p, q in zip(x.placements, pl)):
+        return _recast(_recast(x, torch.float32).redistribute(mesh, pl),
+                       x.dtype)
+    return x.redistribute(mesh, pl)
+
+
 class _Constrain(torch.autograd.Function):
-    """A sharding constraint and its transpose: the value redistributed to
-    ``pl``, and its gradient too (JAX transposes
-    ``with_sharding_constraint`` to the same constraint on the
-    cotangent; DTensor alone would carry a partial-sum gradient on)."""
+    """A redistribution and its transpose: the value redistributed to
+    ``pl`` and its gradient to ``grad_pl``, both by `_reduce`."""
 
     @staticmethod
-    def forward(ctx, x, mesh, pl):
-        ctx.mesh, ctx.pl = mesh, pl
-        return x.redistribute(mesh, pl)
+    def forward(ctx, x, mesh, pl, grad_pl):
+        ctx.mesh, ctx.grad_pl = mesh, grad_pl
+        return _reduce(x, mesh, pl)
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(ctx.mesh, ctx.pl), None, None
+        return _reduce(g, ctx.mesh, ctx.grad_pl), None, None, None
+
+
+def redistribute(x, mesh, pl, grad_pl=None):
+    """``x.redistribute(mesh, pl)`` under the port's rule for partial
+    sums, its gradient redistributed to ``grad_pl`` (default ``pl``: JAX
+    transposes ``with_sharding_constraint`` to the same constraint on
+    the cotangent, where DTensor alone would carry a partial-sum
+    gradient on) under the same rule.
+
+    The rule: a partial sum of a 16-bit float type (bf16, f16) is
+    reduced in f32 — each rank's part cast to f32, the parts reduced in
+    f32 (all-reduce or reduce-scatter), the result cast back once.  That
+    is the program XLA compiles the JAX package's bf16 ``psum`` and
+    GSPMD's partial sums to (an f32 all-reduce between two converts),
+    and an f32 sum depends only on the order of the ranks, where a
+    16-bit one rounds at each add.  Every reduction of a partial result
+    in the port goes through here; an f32 tensor is redistributed as it
+    is."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Constrain.apply(x, mesh, pl,
+                                tuple(pl if grad_pl is None else grad_pl))
+    return _reduce(x, mesh, pl)
+
+
+class _FanOut(torch.autograd.Function):
+    """``n`` uses of ``x``, their gradients summed by `fan_out`'s rule."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.dtype, ctx.mesh, ctx.pl = x.dtype, x.device_mesh, x.placements
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        sums = {}
+        for g in gs:
+            if g is not None:
+                pl, g = tuple(g.placements), _recast(g, torch.float32)
+                sums[pl] = sums[pl] + g if pl in sums else g
+        total = None
+        for part in sums.values():
+            part = _reduce(part, ctx.mesh, ctx.pl)
+            total = part if total is None else total + part
+        return (None if total is None else _recast(total, ctx.dtype)), None
+
+
+def fan_out(x, n: int):
+    """``x`` once for each of ``n`` uses (the products of one input with
+    several weights), their gradients summed here rather than by
+    autograd: in f32, the parts of one placement added, each such sum
+    reduced onto ``x``'s placements under `redistribute`'s rule, the
+    total rounded once to ``x``'s type.  Where some uses' gradients are
+    partial sums and others whole (a query projection split over 'model'
+    beside key and value heads that are not), DTensor would otherwise
+    reduce the partial one in 16 bits to add them, on some torch
+    versions.  Any tensor but a 16-bit DTensor being differentiated
+    comes back ``n`` times as it is."""
+    if (is_dtensor(x) and x.dtype in _WIDENED and x.requires_grad
+            and torch.is_grad_enabled()):
+        return _FanOut.apply(x, n)
+    return (x,) * n
+
+
+def widen(x):
+    """``x`` in f32 for an f32 product (the JAX package's
+    ``preferred_element_type=float32``).  The gradient of a 16-bit
+    DTensor parameter is reduced across ranks in f32 onto the
+    parameter's placements (`redistribute` of the cast, its forward a
+    no-op) before the cast's one rounding to ``x``'s type, as XLA
+    reduces the f32 output of the transposed product; autograd alone
+    would round each rank's part first.  Any other tensor is cast as it
+    is."""
+    t = x.to(torch.float32)
+    if is_dtensor(t) and x.dtype in _WIDENED and t.requires_grad:
+        return redistribute(t, t.device_mesh, t.placements)
+    return t
 
 
 def shard(x, *logical_axes: Optional[str]):
@@ -912,10 +1014,7 @@ def shard(x, *logical_axes: Optional[str]):
     spec = [None if e is not None and x.shape[d] % int(np.prod(
         [sizes[a] for a in ((e,) if isinstance(e, str) else e)])) else e
         for d, e in enumerate(spec_of(*logical_axes))]
-    pl = placements(mesh, spec)
-    if not torch.is_grad_enabled() or not x.requires_grad:
-        return x.redistribute(mesh, pl)
-    return _Constrain.apply(x, mesh, pl)
+    return redistribute(x, mesh, placements(mesh, spec))
 
 
 def named_sharding(*logical_axes: Optional[str]):
@@ -955,9 +1054,28 @@ def shard_map_compat(f, *, mesh, in_specs, out_specs):
     grads = tuple(None if pl is None else [
         Partial() if i in split and isinstance(p, Replicate) else p
         for i, p in enumerate(pl)] for pl in ins)
-    return local_map(f, out_placements=outs, in_placements=ins,
-                     in_grad_placements=grads, device_mesh=mesh,
-                     redistribute_inputs=True)
+    mapped = local_map(f, out_placements=outs, in_placements=ins,
+                       in_grad_placements=grads, device_mesh=mesh,
+                       redistribute_inputs=True)
+
+    def placed(x, pl, gpl):
+        # a 16-bit input whose gradient is a partial sum (where ``grads``
+        # says so) or that local_map would redistribute is placed here:
+        # its gradient is reduced onto its placements in f32 (FSDP's
+        # weights gathered over 'data' get an f32 reduce-scatter), where
+        # local_map and DTensor would reduce it in 16 bits
+        if pl is None or not is_dtensor(x) or x.dtype not in _WIDENED \
+                or (tuple(x.placements) == tuple(pl)
+                    and not any(p.is_partial() for p in gpl)):
+            return x
+        return redistribute(x, mesh, pl, grad_pl=[
+            Replicate() if p.is_partial() else p for p in x.placements])
+
+    def call(*args, **kwargs):
+        return mapped(*(placed(x, pl, gpl) for x, pl, gpl
+                        in zip(args, ins, grads, strict=True)), **kwargs)
+
+    return call
 
 
 @contextlib.contextmanager

@@ -26,7 +26,9 @@ bytes of its shards of the step's inputs and outputs, ``collectives``
 (``hlo_bytes_accessed``, ``temp_size_in_bytes``,
 ``generated_code_size_in_bytes``) is -1, not measured.  It adds each
 device's ``param_bytes``, ``moment_bytes``, ``batch_bytes`` and
-``cache_bytes``.  The port's layers are a Python loop, not a scan, so
+``cache_bytes``, and ``reductions_16_bit``, the count of all-reduces and
+reduce-scatters of a bf16 or f16 shape (0: the port reduces every 16-bit
+partial sum in f32, `sharding.redistribute`).  The port's layers are a Python loop, not a scan, so
 ``--unroll`` changes nothing (every layer is traced and counted either
 way); the flag and the record's ``unrolled`` are kept for the JAX CLI's
 sake.
@@ -228,6 +230,10 @@ def trace_cell(cfg: ArchConfig, shape: RunShape, mesh,
     for k in _NOT_MEASURED:
         out[k] = -1
     out["collectives"] = collective_bytes(tc.collectives)
+    out["reductions_16_bit"] = sum(
+        1 for kind, sh in tc.collectives
+        if kind in ("all-reduce", "reduce-scatter")
+        and sh.startswith(("bf16[", "f16[")))
     return out
 
 
@@ -340,6 +346,7 @@ def main(argv: Optional[list] = None) -> int:
                 print(f"[ok]   {tag}: flops={rec['flops']:.3e} "
                       f"coll={rec['collectives']['total_bytes']:.3e}B "
                       f"params={rec['param_bytes'] / 1e9:.3f}GB "
+                      f"red16={rec.get('reductions_16_bit')} "
                       f"trace={rec.get('lower_s')}s", flush=True)
             else:
                 n_fail += 1

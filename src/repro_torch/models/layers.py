@@ -55,10 +55,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import PartitionSpec as SpecP
 from repro_torch.distributed.sharding import (axis_sizes, current_mesh,
-                                              is_dtensor,
+                                              fan_out, is_dtensor,
                                               outside_simulated_ranks,
-                                              placements, shard,
-                                              shard_map_compat, spec_of)
+                                              placements, redistribute,
+                                              shard, shard_map_compat,
+                                              spec_of)
 
 __all__ = ["rms_norm", "layer_norm", "norm", "rope", "attention", "mlp",
            "moe_layer", "mamba2_layer"]
@@ -93,10 +94,12 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def norm(x: torch.Tensor, p: Params, cfg: ArchConfig, name: str
          ) -> torch.Tensor:
     """The config's norm under parameters ``{name}_w`` (and ``{name}_b``
-    for ``ln``)."""
-    if cfg.norm == "ln":
-        return layer_norm(x, p[f"{name}_w"], p[f"{name}_b"])
-    return rms_norm(x, p[f"{name}_w"])
+    for ``ln``).  Its output's gradient, a partial sum of the products
+    it feeds, is reduced whole before the norm's backward (`fan_out`):
+    the norm's input gradient then meets the residual's whole."""
+    h = (layer_norm(x, p[f"{name}_w"], p[f"{name}_b"]) if cfg.norm == "ln"
+         else rms_norm(x, p[f"{name}_w"]))
+    return fan_out(h, 1)[0]
 
 
 def _freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
@@ -142,9 +145,10 @@ def _qkv(x: torch.Tensor, p: Params, cfg: ArchConfig, prefix: str = ""
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p[f"{prefix}wq"]
-    k = x @ p[f"{prefix}wk"]
-    v = x @ p[f"{prefix}wv"]
+    xq, xk, xv = fan_out(x, 3)
+    q = xq @ p[f"{prefix}wq"]
+    k = xk @ p[f"{prefix}wk"]
+    v = xv @ p[f"{prefix}wv"]
     if cfg.qkv_bias:
         q, k, v = (q + p[f"{prefix}bq"], k + p[f"{prefix}bk"],
                    v + p[f"{prefix}bv"])
@@ -310,7 +314,7 @@ def _sdpa_split_kv(q, k, v, q_offset: int):
         [Shard(0) if i in seq_dims else Replicate()
          for i in range(len(kv_pl))], src_data_rank=None)
 
-    def reduce(t, op):
+    def reduce(t, op):        # of f32 parts (`_scores`, `_pv`)
         for i in seq_dims:
             t = funcol.all_reduce(t, op, (mesh, i))
             if isinstance(t, funcol.AsyncCollectiveTensor):
@@ -598,7 +602,8 @@ def _moe_ep(x: torch.Tensor, p: Params, cfg: ArchConfig, mesh
     of its batch shard's ``T = B_l * S_l`` tokens (capacity over those T,
     not per batch row), keeps only the assignments to its ``E / m`` local
     experts, and the partial outputs are merged with one sum all-reduce
-    over 'model' per layer (in the model's type)."""
+    over 'model' per layer, in f32 for a 16-bit model (`redistribute`:
+    XLA compiles the JAX ``psum`` of bf16 parts to an f32 all-reduce)."""
     from torch.distributed.tensor import Replicate, distribute_tensor
     E, k = cfg.n_experts, cfg.experts_per_token
     msize = axis_sizes(mesh)["model"]
@@ -624,9 +629,9 @@ def _moe_ep(x: torch.Tensor, p: Params, cfg: ArchConfig, mesh
                   placements(mesh, ("model", None, None)), rank.placements),
         out_specs=_model_partial(mesh, x_pl))
     y = f(x, p["router"], p["w_gate"], p["w_up"], p["w_down"], rank)
-    return y.redistribute(mesh, [Replicate() if name == "model" else pl
-                                 for name, pl in zip(mesh.mesh_dim_names,
-                                                     y.placements)])
+    return redistribute(y, mesh, [Replicate() if name == "model" else pl
+                                  for name, pl in zip(mesh.mesh_dim_names,
+                                                      y.placements)])
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -699,10 +704,11 @@ def mamba2_layer(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
     f32 = torch.float32
     # z and y carry the 'dinner' split too (the port's annotations): left
     # to DTensor, their gradients may come split along the sequence
-    z = shard(x @ p["wz"], "batch", "seq", "dinner")
-    xh = shard(x @ p["wx"], "batch", "seq", "dinner").reshape(B, S, H, P)
-    Bm, Cm = x @ p["wB"], x @ p["wC"]
-    dt = _softplus((x @ p["wdt"]).to(f32) + p["dt_bias"])
+    xz, xx, xb, xc, xdt = fan_out(x, 5)
+    z = shard(xz @ p["wz"], "batch", "seq", "dinner")
+    xh = shard(xx @ p["wx"], "batch", "seq", "dinner").reshape(B, S, H, P)
+    Bm, Cm = xb @ p["wB"], xc @ p["wC"]
+    dt = _softplus((xdt @ p["wdt"]).to(f32) + p["dt_bias"])
     A = -torch.exp(p["A_log"].to(f32))
     new_cache = None
     if mode in ("train", "prefill"):

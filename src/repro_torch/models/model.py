@@ -55,9 +55,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.boundedme_torch import resolve_device
-from repro_torch.distributed.sharding import (dtensor_context, is_dtensor,
-                                              rebinder, shard,
-                                              shard_map_compat)
+from repro_torch.distributed.sharding import (dtensor_context, fan_out,
+                                              is_dtensor, rebinder, shard,
+                                              shard_map_compat, widen)
 from repro_torch.models import layers as L
 
 __all__ = ["DenseBlock", "MambaBlock", "HybridPeriod", "EncoderBlock",
@@ -300,11 +300,13 @@ class DecoderBlock(Params):
 
     def cross_kv(self, enc_out: torch.Tensor, cfg: ArchConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The block's cross keys and values ``(B, S_e, H, D)``."""
+        """The block's cross keys and values ``(B, S_e, H, D)``; the
+        encoder's output gets their gradients' sum whole (`fan_out`)."""
         B, S_e, _ = enc_out.shape
         shape = (B, S_e, cfg.n_heads, cfg.head_dim)
-        return ((enc_out @ self.cwk).reshape(shape),
-                (enc_out @ self.cwv).reshape(shape))
+        ek, ev = fan_out(enc_out, 2)
+        return ((ek @ self.cwk).reshape(shape),
+                (ev @ self.cwv).reshape(shape))
 
     def forward(self, x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor, cache: Optional[Tensors],
@@ -438,8 +440,10 @@ def _vocab_lookup(table, tokens):
     """``table[tokens]`` of a DTensor table whose rows may be split over
     mesh axes (the vocab on 'model'), without gathering it: each rank
     looks up the tokens of its own rows (zeros for the others), a partial
-    sum over those axes that the caller's annotation reduces.  The table
-    is gathered over any other axis (FSDP's 'data')."""
+    sum over those axes that the caller's annotation reduces (one
+    nonzero part, so exact in any type; in f32 as every 16-bit partial
+    sum, `redistribute`).  The table is gathered over any other axis
+    (FSDP's 'data')."""
     from torch.distributed.tensor import (Partial, Replicate, Shard,
                                           distribute_tensor)
     mesh = table.device_mesh
@@ -630,10 +634,11 @@ def logits_from_hidden(model: LM, cfg: ArchConfig, hidden: torch.Tensor
     """``(B, S, d) -> (B, S, padded_vocab)`` f32 logits of the model's head
     table, rows past ``cfg.vocab`` at -1e30: the training head, and
     differentiable.  The product is f32 of the operands widened exactly
-    (the JAX package's einsum with ``preferred_element_type=float32``);
-    `masked_logits` is the serving head."""
+    (the JAX package's einsum with ``preferred_element_type=float32``),
+    the table's gradient reduced across ranks in f32 before its one
+    rounding (`widen`); `masked_logits` is the serving head."""
     table = model.head_table
-    logits = shard(hidden.to(torch.float32) @ table.to(torch.float32).T,
+    logits = shard(hidden.to(torch.float32) @ widen(table).T,
                    "batch", "seq", "vocab")
     if cfg.padded_vocab != cfg.vocab:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \

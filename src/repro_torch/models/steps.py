@@ -49,7 +49,7 @@ from repro_torch.distributed.sharding import (MeshShards, PartitionSpec,
                                               axis_sizes, dtensor_context,
                                               is_dtensor, make_shard_plan,
                                               mesh_table_shards,
-                                              quantize_shards,
+                                              quantize_shards, redistribute,
                                               shard_map_compat,
                                               sharded_decode_mesh,
                                               sharded_decode_tiled, spec_of)
@@ -204,9 +204,9 @@ def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """A DTensor gradient in its parameter's placements: the partial sums
     over the batch's ranks reduced (the data-parallel all-reduce, or a
     reduce-scatter under FSDP), as the JAX step's gradients take their
-    parameters' shardings."""
+    parameters' shardings; a 16-bit gradient's in f32 (`redistribute`)."""
     if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
-        return g.redistribute(p.device_mesh, p.placements)
+        return redistribute(g, p.device_mesh, p.placements)
     return g
 
 

@@ -31,8 +31,10 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import simulated_mesh
 
 MESH = ((2, 4), ("data", "model"))
-#: each device's bytes by kind, which the port's record adds
-EXTRA = {"param_bytes", "moment_bytes", "batch_bytes", "cache_bytes"}
+#: each device's bytes by kind and the count of 16-bit reductions, which
+#: the port's record adds
+EXTRA = {"param_bytes", "moment_bytes", "batch_bytes", "cache_bytes",
+         "reductions_16_bit"}
 
 
 def _jax_record_keys() -> set:
@@ -128,6 +130,7 @@ def test_smoke_cells_trace_with_the_jax_record(arch, kind):
     assert rec["n_devices"] == 8 and rec["kind"] == kind
     assert rec["param_bytes"] == _jax_param_bytes(arch)
     assert rec["flops"] > 0
+    assert rec["reductions_16_bit"] == 0
     coll = rec["collectives"]
     assert coll["total_bytes"] == sum(v for k, v in coll.items()
                                       if k.endswith("_bytes")
