@@ -9,7 +9,8 @@ Phases, one line each (any failure exits non-zero before the result):
    off for matmuls and cuDNN so every fp32 product here is full fp32, and
    bf16 matmuls reduce in f32;
 2. build — compiles every CUDA kernel of the port from ``src/`` (nvcc,
-   ``sm_90a``), one nvcc per source, all started together;
+   ``sm_90a``; the cascade, the gathered tile-dot, the blocked matvec and
+   the chain sum), one nvcc per source, all started together;
 3. kernel — at the full qwen1.5-0.5b vocab table ((153600, 1024) in
    bf16, as the JAX package serves a bf16 model's tied embedding; n_valid
    151936, K = 4, eps = delta = 0.1) every kernel is held against
@@ -65,17 +66,29 @@ Phases, one line each (any failure exits non-zero before the result):
    widths), seeded faults (``--inject-error-rate 0.25
    --inject-latency-rate 0.05 --fault-seed 0``), for fp32 and for
    ``--precision int8 --adaptive --bound bernstein``.  ``warmup()`` runs
-   before traffic.  It fails unless ``--check-outcomes`` holds, all five
-   outcomes occur, two rungs or more launched, launches of the tier equal
-   the rung executors' dispatches (warm-up included), every answered
-   dispatch agrees with the plain version on its buffer, permutation and
-   rung plan, served scores are the exact ones, every dispatch error was
-   an injected one, and ``tools/check_obs_artifacts.py`` passes on the
-   metrics, trace and flight artifacts.  It prints the outcomes, requests
-   served per rung, p50 / p95 / p99, throughput, lane use, executed pull
-   fraction, retries, failed batches, each launched rung's median
-   measured dispatch time, and the device memory allocated before the
-   rungs were built and at the stream's peak;
+   before traffic.  Each tier's stream runs twice, on rungs built anew.
+   Pass 1 hands the runtime's virtual clock a fixed service time of 0.6
+   ms a dispatch (`RUNTIME_DT`, the runtime tests' DT; the injected
+   spikes and retry backoff ride on it as always), so that nothing
+   depends on the host's speed: its outcome counts, rungs launched,
+   requests served per rung and dispatch errors must equal those of the
+   port's plain route on the CPU at ``--smoke`` width, on the same
+   stream (its repeats where the card stream's are), all five outcomes
+   must occur over two rungs or more, launches of the tier equal the
+   rung dispatches, and every answered dispatch agree with the plain
+   version on its buffer, permutation and rung plan.  Pass 2 runs on the measured dispatch times, as
+   a user's run does, and fails unless ``--check-outcomes`` holds,
+   launches of the tier equal the rung executors' dispatches (warm-up
+   included), every answered dispatch agrees with the plain version on
+   its buffer, permutation and rung plan, served scores are the exact
+   ones, every dispatch error was an injected one, and
+   ``tools/check_obs_artifacts.py`` passes on the metrics, trace and
+   flight artifacts.  It prints both passes' outcomes and seconds, pass
+   1's measured dispatch ms per rung, and pass 2's requests served per
+   rung, p50 / p95 / p99, throughput, lane use, executed pull fraction,
+   retries, failed batches, each launched rung's median measured
+   dispatch time, and the device memory allocated before the rungs were
+   built and at the stream's peak;
 6. store — the live-corpus ``DynamicTableStore`` on the vocab's 151,936
    live rows, widened to f32 as the JAX package's store takes them, at
    ``--capacity-slack 1.5`` (227,904 rows, 28,488 tiles):
@@ -273,7 +286,20 @@ Phases, one line each (any failure exits non-zero before the result):
    parameters and moments bitwise; each checkpoint's GB and write and
    read seconds printed; (d) the smoke configs of tinyllama-1.1b and
    qwen3-moe-30b-a3b in f32, 3 `train_step`s on the card against the
-   CPU from the same weights (`train_card_vs_cpu` states the rule);
+   CPU from the same weights (`train_card_vs_cpu` states the rule); (e)
+   the chain-sum kernel (the gradient of a bf16 bias, summed as XLA
+   sums the JAX package's: one bf16 add and rounding per element, in
+   XLA's CPU order) bitwise its plain version at `CHAIN_SHAPES` and on a
+   strided input, timed at the step's shape and at mamba2's ``D`` shape
+   (phase 17 (d)); then qwen1.5-0.5b at full
+   width with 2 of its 24 layers in bf16, one trainer step at B = 8, S =
+   128 on the card and one on a (4, 1) 'data' mesh simulated on it
+   (`train_bias_chain` states what is held: every q, k, v bias gradient
+   bitwise the plain chain of its own cotangent, on the mesh the ranks'
+   chains summed in f32 and rounded once; the kernel launched for every
+   bias, pass and rank); last the gradients of a bf16 embedding lookup
+   and of the MoE's sorted token gather (the program's bf16 scatter-adds)
+   on the card bitwise the CPU's; with the sub-phase's seconds;
 15. train sharded — multi-card training with the ranks of each mesh
    simulated on the one card (``LocalTensorMode``, `repro_torch.launch.
    mesh.simulated_mesh`; every rank's local tensors on the card), through
@@ -348,7 +374,10 @@ Phases, one line each (any failure exits non-zero before the result):
    then ``--full``: mamba2-130m at its published size (24 layers,
    d_model 768, bf16, remat), B = 8, S = 128, lr 3e-3, 20 steps, the
    checkpoint in a temporary directory; finite losses, the last below
-   the first; prints ms per step (median of steps 2 on), tokens a
+   the first; the launch counts set to 0 just before and read just
+   after: the chain kernel launched for each layer's bf16 ``D`` gradient
+   in every step, once a pass, step 0's 24 sums bitwise the plain
+   version's; prints ms per step (median of steps 2 on), tokens a
    second, peak card GB and the checkpoint's GB and seconds; (e) each
    script once as a user runs it, ``python examples_torch/<name>.py``
    in a subprocess under a time limit (``train_lm.py --full --steps
@@ -357,8 +386,8 @@ Phases, one line each (any failure exits non-zero before the result):
    cascade's launches are the serve, runtime, store, tenancy, decode,
    sharded, families, train, train sharded, mesh decode and examples
    phases'; its ``[bf16]`` entry times the decode head; the single-query
-   cascade's are the library API's and quickstart's), and last the
-   ``ok`` JSON line.
+   cascade's are the library API's and quickstart's; the chain sum's are
+   phase 14 (e)'s and 17 (d)'s), and last the ``ok`` JSON line.
 
 Agreement rule, kernel vs plain version: ids equal per query, or — a
 near-tie, counted and printed — every differing candidate's exact float64
@@ -401,6 +430,11 @@ TPU_KERNEL = "src/repro/kernels/fused_cascade.py:563"
 TPU_KERNEL_SINGLE = "src/repro/kernels/fused_cascade.py:451"
 TPU_GATHER = "src/repro/kernels/gather_dot.py:48"
 TPU_MATVEC = "src/repro/kernels/blocked_matvec.py:33"
+#: the chain sum replaces no TPU kernel: it is the bf16 ``reduce`` that
+#: XLA makes of the JAX package's bias gradients (this bias add's, and
+#: ``mlp``'s and whisper's ``enc_pos``)
+NOT_TPU_CHAIN = ("none: the bf16 reduce of the gradient of "
+                 "src/repro/models/layers.py:71's bias add")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = CSRC + "fused_cascade.cu"
 B, K, EPS, DELTA = 4, 4, 0.1, 0.1
@@ -580,10 +614,12 @@ def phase_build() -> dict:
     """Build every kernel, one nvcc per source, all started together;
     returns each source's ptxas report."""
     from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.kernels import blocked_matvec, fused_cascade, gather_dot
+    from repro_torch.kernels import (blocked_matvec, chain_sum,
+                                     fused_cascade, gather_dot)
     builds = {"fused_cascade": fused_cascade.build,
               "gather_dot": gather_dot.build,
-              "blocked_matvec": blocked_matvec.build}
+              "blocked_matvec": blocked_matvec.build,
+              "chain_sum": chain_sum.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builds.items()}
@@ -1195,32 +1231,176 @@ def serve_run(label, precision, adaptive, bound) -> dict:
     return res
 
 
-def runtime_run(label, precision, adaptive, bound) -> dict:
-    """Phase 5: ``--loop --runtime`` under overload and injected faults."""
+#: phase 5's fixed service time, ``tests/test_torch_runtime.py``'s DT:
+#: pass 1 reports it to the runtime's clock for every rung dispatch
+RUNTIME_DT = 6e-4
+#: the requests of phase 5's stream that carry poison queries
+RUNTIME_POISON = (5, 70, 140, 210)
+
+
+def runtime_queries(qs, N: int, like=None) -> list:
+    """Phase 5's queries: ``qs`` (`serve.build_loop`'s) with a NaN, an Inf
+    and two wrong-width queries at `RUNTIME_POISON`.  Given ``like``,
+    another width's stream of the same flags, the queries are drawn anew
+    at width ``N`` and each one that repeats an earlier one in ``like``
+    repeats the same one here: the two streams then hit the result cache
+    and the quarantine alike (`build_loop` draws its repeats after its
+    queries, from a generator whose state depends on the width)."""
+    qs = list(qs)
+    if like is not None:
+        fresh = np.random.default_rng(0).normal(size=(len(like), N))
+        first = {}
+        qs = [fresh[first.setdefault(np.asarray(q).tobytes(), i)].astype(
+            np.float32) for i, q in enumerate(like)]
+    for i, bad in zip(RUNTIME_POISON, (
+            np.full(N, np.nan, np.float32), np.full(N, np.inf, np.float32),
+            np.ones(N + 1, np.float32), np.ones(N - 3, np.float32))):
+        qs[i] = bad
+    return qs
+
+
+def hold_runtime_dispatches(label: str, what: str, execs, table,
+                            dispatches, adaptive: bool):
+    """Each recorded rung dispatch ``(rung, Qbuf, perm, out)`` of a
+    runtime stream against the plain version on its buffer, permutation
+    and rung plan (`compare`): ``(max_abs_err, near_tie_queries)``."""
     from repro_torch.core.boundedme_torch import decode_tiled
+    errs, ties = [0.0], 0
+    for rung, Qbuf, perm, out in dispatches:
+        ex = execs[rung]
+        Q = torch.from_numpy(Qbuf).cuda()
+        with plain_route():
+            ref = decode_tiled(ex.tiled_table, Q, perm, plan=ex.plan,
+                               final_exact=True, n_valid=ex.n_valid,
+                               quantized=ex.quantized, adaptive=adaptive)
+        got = [torch.from_numpy(t) for t in out[:3 if adaptive else 2]]
+        r = compare(table, Q, got, ref,
+                    what=f"runtime {label} {what}rung {rung} dispatch")
+        errs.append(r["max_abs_err"])
+        ties += r["near_tie_queries"]
+    return max(errs), ties
+
+
+def runtime_fixed_pass(argv, label: str, like=None, adaptive=None) -> dict:
+    """Pass 1 of phase 5: the ``--loop --runtime`` stream of ``argv`` with
+    every rung dispatch reporting `RUNTIME_DT` to the runtime's virtual
+    clock in place of its measured seconds (the runtime adds the
+    injected spikes and retry backoff itself, as in pass 2).  No count
+    then depends on the host's speed: the outcomes, the rungs launched
+    and the requests served per rung follow from the seeds alone.
+    ``like`` as in `runtime_queries`.  Given ``adaptive`` (the card's
+    pass), every dispatch after the warm-up is held against the plain
+    version (`hold_runtime_dispatches`).  Returns those counts
+    (``fixed``), the stream's raw queries, the launches of ``label``'s
+    tier and of the batched cascade in all, the rung dispatches (warm-ups
+    included) and those held, the holds' largest error and near-ties,
+    the measured dispatch seconds per rung and the wall seconds."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    args = serve.parse_args(argv)
+    engine, raw = serve.build_loop(args)
+    qs = runtime_queries(raw, engine.N, like)
+    kops.reset_launch_counts()
+    engine.warmup()
+    measured, dispatches = [], []
+    for rung, ex in enumerate(engine.executors):
+        def fixed(Qbuf, perm, rung=rung, real=ex.dispatch):
+            out = real(Qbuf, perm)
+            measured.append((rung, out[3]))
+            if adaptive is not None:
+                dispatches.append((rung, Qbuf.copy(), perm, out))
+            return (*out[:3], RUNTIME_DT)
+        ex.dispatch = fixed
+    stats = serve.serve_stream(args, engine, qs)
+    f = stats["faults"]
+    counts = kops.launch_counts()
+    execs = engine.executors
+    tag = tier_tag(label, execs[0].tiled_table)
+    err, ties = 0.0, 0
+    if adaptive is not None:
+        err, ties = hold_runtime_dispatches(
+            label, "pass 1 ", execs, untiled(execs[0], engine.n, engine.N),
+            dispatches, adaptive)
+    return {"fixed": {
+        "outcomes": dict(sorted(stats["outcomes"].items())),
+        "rungs_launched": sorted({r for r, _ in measured}),
+        "served_per_rung": stats["degradation"]["served_per_rung"],
+        "dispatches": stats["dispatches"],
+        "dispatch_errors": f["dispatch_errors"],
+        "injected_dispatch_errors": f["injected"]["dispatch_errors"]},
+        "queries": raw,
+        "launches": (counts[f"fused_cascade_batched[{tag}]"],
+                     counts["fused_cascade_batched"]),
+        "rung_dispatches": sum(ex.n_dispatches for ex in execs),
+        "executors": len(execs), "held": len(dispatches),
+        "max_abs_err": err, "near_ties": ties,
+        "measured": measured, "seconds": time.perf_counter() - t0}
+
+
+def runtime_run(label, precision, adaptive, bound) -> dict:
+    """Phase 5: ``--loop --runtime`` under overload and injected faults,
+    twice: pass 1 on `RUNTIME_DT` (`runtime_fixed_pass`), its counts
+    held equal to the port's on the CPU at ``--smoke`` width through the
+    plain route, all five outcomes and two rungs required, every
+    dispatch held against the plain version; pass 2 on the measured
+    dispatch times, every check that holds under any timing."""
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import serve
 
+    tier = ["--precision", precision, "--bound", bound] + (
+        ["--adaptive"] if adaptive else [])
+    card = runtime_fixed_pass(RUNTIME_ARGV + tier, label,
+                              adaptive=adaptive)
+    cpu = runtime_fixed_pass(RUNTIME_ARGV + tier
+                             + ["--smoke", "--device", "cpu"], label,
+                             like=card["queries"])
+    got, want = card["fixed"], cpu["fixed"]
+    check(got == want, f"runtime {label} pass 1 (service time "
+          f"{RUNTIME_DT * 1e3} ms): card {got} vs cpu {want}")
+    o = got["outcomes"]
+    check(all(o[s] > 0 for s in ("ok", "degraded", "overloaded",
+                                 "rejected", "failed")),
+          f"runtime {label} pass 1: an outcome is missing: {o}")
+    check(len(got["rungs_launched"]) >= 2,
+          f"runtime {label} pass 1: only rungs {got['rungs_launched']} "
+          f"launched")
+    check(card["launches"] == (card["rung_dispatches"],) * 2
+          and card["rung_dispatches"] == card["executors"] + card["held"],
+          f"runtime {label} pass 1: {card['launches']} launches of the "
+          f"tier and in all for {card['rung_dispatches']} rung dispatches, "
+          f"{card['held']} of them after warm-up held")
+    check(got["dispatch_errors"] == got["injected_dispatch_errors"],
+          f"runtime {label} pass 1: {got}")
+    fixed = {**got, "service_ms": RUNTIME_DT * 1e3,
+             "launches": card["launches"][0], "held": card["held"],
+             "max_abs_err": card["max_abs_err"],
+             "near_tie_queries": card["near_ties"],
+             "measured_dispatch_ms_median_per_rung": [
+                 statistics.median(s * 1e3 for r, s in card["measured"]
+                                   if r == rung)
+                 for rung in got["rungs_launched"]],
+             "card_s": card["seconds"], "cpu_reference_s": cpu["seconds"]}
+    say(f"runtime {label} pass 1: " + json.dumps(fixed))
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_pass = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
     art = {k: str(Path(tmp.name) / f"{k}.{ext}") for k, ext in
            (("metrics", "prom"), ("trace", "json"), ("flight", "json"))}
-    argv = RUNTIME_ARGV + [
-        "--precision", precision, "--bound", bound,
+    argv = RUNTIME_ARGV + tier + [
         "--metrics-out", art["metrics"], "--trace-out", art["trace"],
-        "--flight-recorder-path", art["flight"]] + (
-            ["--adaptive"] if adaptive else [])
+        "--flight-recorder-path", art["flight"]]
     args = serve.parse_args(argv)
     torch.cuda.synchronize()
     base_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     engine, qs = serve.build_loop(args)
     execs = engine.executors
-    qs = list(qs)
     N = engine.N
-    for i, bad in zip((5, 70, 140, 210), (
-            np.full(N, np.nan, np.float32), np.full(N, np.inf, np.float32),
-            np.ones(N + 1, np.float32), np.ones(N - 3, np.float32))):
-        qs[i] = bad
+    qs = runtime_queries(qs, N)
     say(f"runtime {label}: table=({engine.n},{N}) rungs "
         f"{engine.ladder.eps_values} rounds "
         f"{[len(ex.plan.schedule.rounds) for ex in execs]} lanes "
@@ -1252,29 +1432,14 @@ def runtime_run(label, precision, adaptive, bound) -> dict:
     except SystemExit as e:
         raise SmokeFailure(f"runtime {label}: {e}") from None
     o = stats["outcomes"]
-    check(all(o[s] > 0 for s in ("ok", "degraded", "overloaded",
-                                 "rejected", "failed")),
-          f"runtime {label}: an outcome is missing: {o}")
     rungs = sorted({r for r, *_ in dispatches})
-    check(len(rungs) >= 2, f"runtime {label}: only rungs {rungs} launched")
     f = stats["faults"]
     check(f["dispatch_errors"] == f["injected"]["dispatch_errors"],
           f"runtime {label}: {f['dispatch_errors']} dispatch errors, "
           f"{f['injected']['dispatch_errors']} of them injected")
     table = untiled(execs[0], engine.n, N)
-    errs, ties = [], 0
-    for rung, Qbuf, perm, out in dispatches:
-        ex = execs[rung]
-        Q = torch.from_numpy(Qbuf).cuda()
-        with plain_route():
-            ref = decode_tiled(ex.tiled_table, Q, perm, plan=ex.plan,
-                               final_exact=True, n_valid=ex.n_valid,
-                               quantized=ex.quantized, adaptive=adaptive)
-        got = [torch.from_numpy(t) for t in out[:3 if adaptive else 2]]
-        r = compare(table, Q, got, ref,
-                    what=f"runtime {label} rung {rung} dispatch")
-        errs.append(r["max_abs_err"])
-        ties += r["near_tie_queries"]
+    err, ties = hold_runtime_dispatches(label, "", execs, table, dispatches,
+                                        adaptive)
     answered = 0
     for rid in range(args.requests):
         res = engine.result(rid)
@@ -1292,8 +1457,12 @@ def runtime_run(label, precision, adaptive, bound) -> dict:
           f"{obs.stdout.strip()} {obs.stderr.strip()}")
     tmp.cleanup()
     lat, lanes = stats["latency_ms"], stats["lanes"]
-    res = {"launches": counts[name], "dispatches": stats["dispatches"],
-           "rungs_launched": rungs, "max_abs_err": max(errs),
+    res = {"launches": counts[name] + fixed["launches"],
+           "pass2_launches": counts[name],
+           "dispatches": stats["dispatches"],
+           "rungs_launched": rungs,
+           "max_abs_err": max(err, fixed["max_abs_err"]),
+           "pass2_max_abs_err": err,
            "near_tie_queries": ties, "answered": answered,
            "p50_ms": lat["p50"], "p95_ms": lat["p95"], "p99_ms": lat["p99"],
            "throughput_rps": stats["throughput_rps"],
@@ -1310,7 +1479,8 @@ def runtime_run(label, precision, adaptive, bound) -> dict:
                                  if r == rung) for rung in rungs],
            "speedup_per_rung": [ex.plan.schedule.speedup for ex in execs],
            "mem_before_gb": base_gb, "peak_mem_gb": peak_gb,
-           "warmup_s": warm_s, "wall_s": wall}
+           "warmup_s": warm_s, "wall_s": wall,
+           "pass2_s": time.perf_counter() - t_pass, "fixed": fixed}
     say(f"runtime {label}: " + json.dumps(res))
     return res
 
@@ -3722,6 +3892,233 @@ def train_card_vs_cpu() -> dict:
     return out
 
 
+#: phase 14 (e): qwen1.5-0.5b ([hf:Qwen/Qwen1.5-0.5B]) at full width,
+#: its qkv biases bf16, 2 of 24 layers, one step at the trainer's B = 8,
+#: S = 128, on one card and on a simulated 'data' mesh
+BIAS_ARCH, BIAS_LAYERS, BIAS_MESH = "qwen1.5-0.5b", 2, (4, 1)
+#: (leading dims, W) the chain kernel is held at against its plain
+#: version: the step's cotangent (1,024 rows of 1,024), whisper-medium's
+#: widths (its d_ff 4,096), one row, a width off a warp, four leading
+#: dimensions past XLA's window (two passes), mamba2-130m's ``D`` skip
+#: in phase 17 (d) (B, S and its head dim 64 summed, its 24 heads kept)
+CHAIN_SHAPES = (((8, 128), 1024), ((8, 128), 4096), ((1,), 1024),
+                ((8, 128), 1000), ((3, 45, 2, 5), 77), ((8, 128, 64), 24))
+
+
+def chain_apart(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want|`` of two chain sums, in f32 (0 where
+    they are bitwise)."""
+    return float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+
+
+def plain_chain(g: torch.Tensor, reduced) -> torch.Tensor:
+    """`_chain_grad`'s sum of ``g`` over its dimensions ``reduced`` by the
+    plain version (`ref.chain_sum_ref`), the others kept in order."""
+    from repro_torch.kernels import ref
+    kept = [d for d in range(g.dim()) if d not in reduced]
+    t = g.permute(*reduced, *kept)
+    lead = t.shape[:len(reduced)]
+    return ref.chain_sum_ref(t.reshape(*lead, -1).contiguous()).reshape(
+        t.shape[len(reduced):])
+
+
+def chain_kernel_hold() -> dict:
+    """Phase 14 (e), first part: the chain-sum kernel bitwise its plain
+    version at `CHAIN_SHAPES`, and on a strided input (the entry point
+    makes it contiguous; the wrapper refuses it); then timed back to back
+    (`time_back_to_back`: device time) at the step's shape and at
+    mamba2's ``D`` shape against its plain version, its bound (its bytes
+    over the card's memory rate) and ``torch.sum`` over the rows (a
+    yardstick only: it rounds once, another function)."""
+    from repro_torch.kernels import chain_sum as cs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(11)
+    apart = 0.0
+    for lead, W in CHAIN_SHAPES:
+        g = torch.from_numpy(rng.normal(size=(*lead, W)).astype(
+            np.float32)).to(DEV, torch.bfloat16)
+        got, want = kops.chain_sum(g), ref.chain_sum_ref(g)
+        apart = max(apart, chain_apart(got, want))
+        check(torch.equal(got, want),
+              f"chain_sum {lead} x {W}: the kernel is not its plain version")
+    g = torch.from_numpy(rng.normal(size=(1024, 768)).astype(
+        np.float32)).to(DEV, torch.bfloat16)
+    got, want = kops.chain_sum(g.t()), ref.chain_sum_ref(g.t().contiguous())
+    apart = max(apart, chain_apart(got, want))
+    check(torch.equal(got, want),
+          "chain_sum on a strided input is not the plain version's")
+    try:
+        cs.chain_sum_cuda(g.t())
+        check(False, "chain_sum_cuda took a strided input")
+    except ValueError:
+        pass
+    timed = {}
+    for what, (lead, W) in (("step", CHAIN_SHAPES[0]),
+                            ("mamba2_D", CHAIN_SHAPES[-1])):
+        g = torch.from_numpy(rng.normal(size=(*lead, W)).astype(
+            np.float32)).to(DEV, torch.bfloat16)
+        dims = tuple(range(len(lead)))
+        timed[what] = {
+            "shape": [*lead, W], "passes": len(cs.passes(lead)),
+            "ms": time_back_to_back(lambda: kops.chain_sum(g)),
+            "plain_ms": time_cuda(lambda: ref.chain_sum_ref(g), 3, 1),
+            "library_ms": time_back_to_back(lambda: torch.sum(g, dims)),
+            "bound_ms": (2 * g.numel() + 2 * W) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+    out = {**timed["step"], "dtype": "bfloat16", "mamba2_D": timed[
+        "mamba2_D"], "max_abs_err": apart, "held_shapes": [
+            [*lead_, W_] for lead_, W_ in CHAIN_SHAPES] + [[768, 1024]]}
+    say("train bias chain kernel: " + json.dumps(out))
+    return out
+
+
+def embed_scatter_hold() -> dict:
+    """Phase 14 (e), last: the audit's other bf16 accumulation (ROADMAP
+    3.5), the gradient of a bf16 gather, which the JAX package's program
+    runs as a bf16 scatter-add (one rounding per repeated index, in index
+    order; the port's CPU index backward is bitwise that): an embedding
+    lookup ``table[tokens]`` (8 x 128 tokens over 512 rows, many repeats)
+    and the MoE dispatch's sorted token gather (each of 16 tokens 4
+    times), on the card bitwise the CPU."""
+    rng = np.random.default_rng(12)
+    out = {}
+    for what, rows, index in (("embed", 512, (8, 128)),
+                              ("moe_token", 16, (64,))):
+        table = torch.from_numpy(rng.normal(size=(rows, 1024)).astype(
+            np.float32)).to(torch.bfloat16)
+        idx = rng.integers(0, rows, index)
+        if what == "moe_token":
+            idx = np.sort(idx)
+        cot = torch.from_numpy(rng.normal(size=(*index, 1024)).astype(
+            np.float32)).to(torch.bfloat16)
+        grads = []
+        for dev in ("cpu", DEV):
+            t = table.to(dev).requires_grad_(True)
+            (g,) = torch.autograd.grad(t[torch.from_numpy(idx).to(dev)],
+                                       [t], grad_outputs=[cot.to(dev)])
+            grads.append(g.float().cpu())
+        apart = int((grads[0] != grads[1]).sum())
+        check(apart == 0, f"train bias {what} gather's gradient: {apart} "
+              f"of {grads[0].numel()} apart from the CPU's")
+        out[what] = {"rows": rows, "index": list(index),
+                     "max_repeats": int(np.bincount(idx.ravel()).max())}
+    say("train bias gather transposes, card bitwise cpu: " + json.dumps(out))
+    return out
+
+
+def train_bias_chain() -> dict:
+    """Phase 14 (e): one trainer step of `BIAS_ARCH` at full width and
+    `BIAS_LAYERS` layers in bf16, on one card and on a `BIAS_MESH` mesh
+    simulated on the card, each with the launch counts set to 0 just
+    before and read just after.  Each bias's cotangent is recorded by a
+    hook on its `bias_add`'s output, keyed by the bias; every bias
+    gradient of the one-card step must be bitwise the plain version's
+    chain of its own cotangent over the whole batch (the step's sum is
+    the kernel's), every one of the mesh's bitwise the f32 sum of the
+    ranks' plain chains of their rows of its cotangent, rounded once;
+    the kernel launched once per pass for each bias, and for each
+    simulated rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import chain_sum as cs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import simulated_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import steps as ST
+    t_sub = time.perf_counter()
+    out = {"kernel": chain_kernel_hold(), "arch": BIAS_ARCH,
+           "layers": BIAS_LAYERS, "batch": 8, "seq": 128}
+    cfg = dataclasses.replace(get_config(BIAS_ARCH), n_layers=BIAS_LAYERS,
+                              dtype="bfloat16")
+    args = T.parse_args(["--arch", BIAS_ARCH, "--device", DEV, "--steps",
+                         "1", "--batch", "8", "--seq", "128"])
+    real = L._chain_grad, ST._as_param, L.bias_add
+    apart = 0.0
+    for where, shape in (("one_card", None), ("mesh", BIAS_MESH)):
+        t0 = time.perf_counter()
+        calls, cots, grads = [], {}, {}
+
+        def chain_grad(g, reduced):
+            check(reduced == (0, 1),
+                  f"train bias {where}: a chain over dims {reduced}")
+            calls.append(reduced)
+            return real[0](g, reduced)
+
+        def as_param(g, p):
+            o = real[1](g, p)
+            grads[id(p)] = o.detach()
+            return o
+
+        def bias_add(x, b):
+            y = real[2](x, b)
+            if y.requires_grad:
+                y.register_hook(lambda g, key=id(b): cots.setdefault(
+                    key, []).append(g.detach()))
+            return y
+        L._chain_grad, ST._as_param, L.bias_add = chain_grad, as_param, \
+            bias_add
+        ranks = 1 if shape is None else shape[0] * shape[1]
+        try:
+            ctx = (contextlib.nullcontext() if shape is None
+                   else simulated_mesh(shape, device=DEV))
+            with ctx as mesh:
+                kops.reset_launch_counts()
+                res = T.train(args, cfg=cfg, mesh=mesh)
+                launches = kops.launch_counts()["chain_sum"]
+                names = {id(p): n for n, p in res["model"].named_parameters()}
+                got = {names[i]: gathered(g) for i, g in grads.items()
+                       if names[i].rsplit(".", 1)[-1] in ("bq", "bk", "bv")}
+                fired = {names.get(i, str(i)): len(gs)
+                         for i, gs in cots.items()}
+                cot = {names[i]: gathered(gs[0]) for i, gs in cots.items()
+                       if i in names}
+                history, step_s = res["history"], res["step_s"]
+                del res
+        finally:
+            L._chain_grad, ST._as_param, L.bias_add = real
+        n_bias = 3 * BIAS_LAYERS
+        check(len(got) == n_bias == len(calls)
+              and sorted(cot) == sorted(got)
+              and set(fired.values()) == {1},
+              f"train bias {where}: {len(got)} bias gradients {sorted(got)}, "
+              f"{len(calls)} chain sums, cotangents {fired}, {n_bias} biases")
+        for name, g in cot.items():
+            rows = g.shape[0] // ranks
+            total = ref.chain_sum_ref(g[:rows]).float()
+            for r in range(1, ranks):
+                total = total + ref.chain_sum_ref(
+                    g[r * rows:(r + 1) * rows]).float()
+            want = total.to(g.dtype)
+            apart = max(apart, chain_apart(got[name], want))
+            check(torch.equal(got[name], want),
+                  f"train bias {where}: {name}'s gradient is not the f32 "
+                  f"sum of the ranks' chains of its cotangent "
+                  f"({chain_apart(got[name], want)} apart)")
+        local = (rows, *g.shape[1:-1])
+        passes = len(cs.passes(local))
+        check(launches == n_bias * passes * ranks,
+              f"train bias {where}: {launches} chain_sum launches for "
+              f"{n_bias} biases x {passes} passes x {ranks} ranks")
+        rec = {"launches": launches, "biases": n_bias, "ranks": ranks,
+               "passes": passes, "local_rows": list(local),
+               "loss": history[0]["loss"], "step_ms": step_s[0] * 1e3,
+               "seconds": time.perf_counter() - t0}
+        out[where] = rec
+        say(f"train bias {where}: " + json.dumps(rec))
+        del got, cot, cots, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = out["one_card"]["launches"] + out["mesh"]["launches"]
+    out["max_abs_err"] = max(apart, out["kernel"]["max_abs_err"])
+    out["gather_transposes"] = embed_scatter_hold()
+    out["seconds"] = time.perf_counter() - t_sub
+    say(f"train bias: sub-phase in {out['seconds']:.1f} s")
+    return out
+
+
 def phase_train() -> dict:
     """Phase 14: the trainer on the card — tinyllama-1.1b at full width and
     depth, then served with the bandit head; the resume; the card
@@ -3736,7 +4133,8 @@ def phase_train() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out = {"full": full, "serve": served, "resume": train_resume(),
-           "card_vs_cpu": train_card_vs_cpu()}
+           "card_vs_cpu": train_card_vs_cpu(),
+           "bias_chain": train_bias_chain()}
     say(f"train: phase in {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -4727,6 +5125,9 @@ FRANK_WOLFE_JAX = {"exact": ("0.1556", "1.00"),
 #: phase 17 (d): train_lm's --full run, and its 2-layer f32 twin held on
 #: the card against the CPU first
 EXAMPLE_TRAIN_STEPS, EXAMPLE_TWIN_LAYERS, EXAMPLE_TWIN_STEPS = 20, 2, 2
+#: phase 17 (d): the chain sums of the ``D`` gradient held against the
+#: plain version, those of step 0 (one a layer)
+EXAMPLE_CHAINS_HELD = 24
 #: phase 17 (e): (script, arguments, seconds allowed) as a user runs them
 EXAMPLE_SCRIPTS = (("quickstart", (), 240), ("serve_decode_mips", (), 240),
                    ("frank_wolfe_lmo", (), 240),
@@ -4910,10 +5311,26 @@ def example_train_full() -> dict:
     mamba2-130m at its published size (24 layers, d_model 768, state
     128, vocab 50,280, bf16, remat), B = 8, S = 128, lr 3e-3,
     `EXAMPLE_TRAIN_STEPS` steps, the checkpoint in a temporary directory
-    (removed after): finite losses, the last below the first."""
+    (removed after): finite losses, the last below the first.  The
+    launch counts are set to 0 just before and read just after: each
+    layer's bf16 ``D`` skip sums its gradient by the chain kernel in
+    every step (`layers.scale_mul`), once a pass; the first
+    `EXAMPLE_CHAINS_HELD` of those sums are held bitwise against the
+    plain version on the same cotangents."""
     import shutil
+    from repro_torch.kernels import chain_sum as cs
+    from repro_torch.kernels import ops as kops
     from repro_torch.launch import train as T
+    from repro_torch.models import layers as L
     tl = load_example("train_lm")
+    real_grad, calls, held = L._chain_grad, [], []
+
+    def chain_grad(g, reduced):
+        o = real_grad(g, reduced)
+        calls.append(tuple(g.shape[d] for d in reduced))
+        if len(held) < EXAMPLE_CHAINS_HELD:
+            held.append((g.detach(), reduced, o.detach()))
+        return o
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
     argv = tl.command(tl.parse_args(
         ["--full", "--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir", tmp,
@@ -4922,14 +5339,31 @@ def example_train_full() -> dict:
     torch.cuda.synchronize()
     base_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
+    L._chain_grad = chain_grad
     try:
         with timed_checkpoints() as io:
+            kops.reset_launch_counts()
             t0 = time.perf_counter()
             res = T.train(T.parse_args(argv[3:]))
             run_s = time.perf_counter() - t0
+            launches = kops.launch_counts()["chain_sum"]
     finally:
+        L._chain_grad = real_grad
         shutil.rmtree(tmp, ignore_errors=True)
     cfg, model, hist = res["cfg"], res["model"], res["history"]
+    passes = sum(len(cs.passes(lead)) for lead in calls)
+    check(len(calls) == cfg.n_layers * len(hist) and launches == passes
+          and len(held) == EXAMPLE_CHAINS_HELD,
+          f"train_lm --full: {launches} chain_sum launches, {len(calls)} "
+          f"chain sums over {sorted(set(calls))} ({passes} passes) for "
+          f"{cfg.n_layers} layers x {len(hist)} steps")
+    apart = 0.0
+    for g, reduced, o in held:
+        want = plain_chain(g, reduced)
+        apart = max(apart, chain_apart(o, want))
+        check(torch.equal(o, want), f"train_lm --full: a D chain over "
+              f"{tuple(g.shape)} dims {reduced} is not the plain version's")
+    del held
     losses = [h["loss"] for h in hist]
     check(len(hist) == EXAMPLE_TRAIN_STEPS and all(np.isfinite(losses)),
           f"train_lm --full: losses {losses}")
@@ -4957,6 +5391,9 @@ def example_train_full() -> dict:
                                   max(res["step_s"][2:]) * 1e3],
            "tokens_per_s": tokens / step_ms * 1e3,
            "checkpoint": {"gb": io[0][2], "write_s": io[0][1]},
+           "chain_sum": {"launches": launches, "sums": len(calls),
+                         "leads": [list(d) for d in sorted(set(calls))],
+                         "held": EXAMPLE_CHAINS_HELD, "max_abs_err": apart},
            "run_s": run_s, "mem_before_gb": base_gb,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     say("train_lm --full: " + json.dumps(out))
@@ -5030,7 +5467,11 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
     arch's head and the trained model's beside them.  The single-query
     cascade's launches are the library API's and quickstart's.  Times of
     a tier are phase 3's, row mode (coord beside them); the examples'
-    kernel times ride in sub-entries."""
+    kernel times ride in sub-entries.  The chain sum's launches are
+    phase 14 (e)'s two steps' and phase 17 (d)'s (mamba2's ``D``; the
+    subprocess of 17 (e) is not counted), its times phase 14 (e)'s at
+    the step's shape and at the ``D`` shape, its ``max_abs_err`` the
+    largest of every comparison with the plain version there."""
     none = {"launches": 0, "max_abs_err": 0.0}
     info = {t[0]: t[1:] for t in TIERS}
     info["bf16"] = info["fp32"]
@@ -5172,6 +5613,21 @@ def kernel_entries(kern, single, aux, served, runtime, stored, tenancy,
                           f"{tag}_share_of_bound":
                               aux[key]["share_of_bound"]})
         entries.append(entry)
+    bias = trained["bias_chain"]
+    k, d = bias["kernel"], examples["train_full"]["chain_sum"]
+    entries.append({
+        "name": "chain_sum", "route": "cuda", "source": CSRC + "chain_sum.cu",
+        "replaces": NOT_TPU_CHAIN,
+        "launches": bias["launches"] + d["launches"],
+        "max_abs_err": max(bias["max_abs_err"], d["max_abs_err"]),
+        "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": k["library_ms"], "shape": k["shape"],
+        "passes": k["passes"], "bias_launches": bias["launches"],
+        "mamba2_D": {key: k["mamba2_D"][key] for key in (
+            "shape", "passes", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} | {"launches": d["launches"]},
+        "held_against_plain": True})
     return entries
 
 

@@ -23,11 +23,15 @@ through what wraps a tensor: ``local_map`` hands it each rank's shard,
 tensors, and ``FakeTensorMode`` (the dry run) takes the fake
 implementation, where the ``ctypes`` call itself could reach none of
 them.  Each operator returns a list: ``[ids, vals]``, and
-``rounds_used`` third where ``cert`` turns early exit on.
+``rounds_used`` third where ``cert`` turns early exit on.  The chain
+sum (``torch.ops.repro_torch.chain_sum``, the backward of a bf16
+bias) is registered the same way, so that the dry run traces a train
+step through it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import torch
@@ -35,13 +39,15 @@ from torch import Tensor
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.blocked_matvec import blocked_matvec_cuda
+from repro_torch.kernels.chain_sum import chain_sum_cuda, check_operand
 from repro_torch.kernels.fused_cascade import (fused_cascade_batched_cuda,
                                                fused_cascade_cuda)
 from repro_torch.kernels.gather_dot import gather_block_dot_cuda
 from repro_torch.kernels.library import launch_counts, reset_launch_counts
 
 __all__ = ["on_cuda", "gather_block_dot", "fused_cascade",
-           "fused_cascade_batched", "blocked_matvec", "launch_counts",
+           "fused_cascade_batched", "blocked_matvec", "chain_sum",
+           "launch_counts",
            "reset_launch_counts"]
 
 
@@ -261,3 +267,40 @@ def blocked_matvec(W: torch.Tensor, q: torch.Tensor, *, tile_n: int = 256,
     if on_cuda(W, q):
         return blocked_matvec_cuda(W, q, tile_n=tile_n, tile_d=tile_d)
     return ref.blocked_matvec_ref(W, q, tile_n=tile_n, tile_d=tile_d)
+
+
+@torch.library.custom_op("repro_torch::chain_sum", mutates_args=(),
+                         device_types="cpu")
+def _chain_sum_op(g: Tensor) -> Tensor:
+    """The plain version (`ref.chain_sum_ref`)."""
+    return ref.chain_sum_ref(g)
+
+
+@_chain_sum_op.register_kernel("cuda")
+def _chain_sum_cuda(g):
+    """The CUDA kernel's launches (`chain_sum_cuda`)."""
+    return chain_sum_cuda(g)
+
+
+@_chain_sum_op.register_fake
+def _chain_sum_fake(g):
+    return g.new_empty(g.shape[-1:])
+
+
+def chain_sum(g: torch.Tensor, lead: Optional[int] = None) -> torch.Tensor:
+    """``g`` bf16 summed over its first ``lead`` dimensions (default all
+    but the last, at most four) in bf16: one add and one rounding per
+    element, in the order of XLA's CPU ``reduce``
+    (`repro_torch.kernels.chain_sum.passes`: a chain in row-major order,
+    or windows of 32 where a dimension is longer).  That is the program
+    of the JAX package's gradient of a bf16 bias, where PyTorch's sums
+    round once.  Returns ``g.shape[lead:]``; ``g`` is made contiguous
+    first."""
+    lead = g.dim() - 1 if lead is None else int(lead)
+    if not 1 <= lead <= g.dim():
+        raise ValueError(f"lead {lead} for a rank-{g.dim()} tensor")
+    on_cuda(g)
+    rest = g.shape[lead:]
+    flat = g.reshape(*g.shape[:lead], math.prod(rest)).contiguous()
+    check_operand(flat)
+    return _chain_sum_op(flat).reshape(rest)

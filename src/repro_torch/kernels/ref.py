@@ -5,6 +5,12 @@
 products of f32 or bf16 operands, each tile's or row's sum taken over its
 blocks or slabs in order.
 
+`chain_sum_ref` computes what ``csrc/chain_sum.cu`` computes: a bf16
+tensor summed over its leading dimensions in bf16, in the order of XLA's
+CPU reduce (`repro_torch.kernels.chain_sum.passes`), a loop of tensor
+adds (PyTorch adds two bf16 tensors in f32 and rounds once, as the
+kernel does).
+
 `fused_cascade_batched_ref` computes what the fused cascade kernel
 (``csrc/fused_cascade.cu``) computes, with the same operands and outputs,
 and shares no code with it; `fused_cascade_ref` is its single-query
@@ -36,6 +42,7 @@ The CPU tests use it as the port's implementation on CPU tensors, and
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -43,11 +50,11 @@ import torch
 
 from repro_torch.core.quantize import pq_lut, unpack_int4
 from repro_torch.core.schedule import END_BIT, PULL_BIT, SLOT_MASK
-from repro_torch.kernels import blocked_matvec, gather_dot
+from repro_torch.kernels import blocked_matvec, chain_sum, gather_dot
 from repro_torch.kernels.fused_cascade import resolve_tier
 
 __all__ = ["fused_cascade_batched_ref", "fused_cascade_ref",
-           "gather_block_dot_ref", "blocked_matvec_ref"]
+           "gather_block_dot_ref", "blocked_matvec_ref", "chain_sum_ref"]
 
 #: gathered elements per chunk: bounds the round-1 working set
 _CHUNK_ELEMS = 1 << 26
@@ -350,3 +357,27 @@ def blocked_matvec_ref(W: torch.Tensor, q: torch.Tensor, tile_n: int = 256,
     for j in range(0, d, tile_d):
         out = out + W[:, j:j + tile_d].float() @ q[j:j + tile_d].float()
     return out
+
+
+def chain_sum_ref(g: torch.Tensor) -> torch.Tensor:
+    """``g (d_0, ..., d_{k-1}, W)`` bf16 summed over its leading
+    dimensions in bf16, ``(W,)``: each pass of
+    `chain_sum.passes` pads its grid with zeros, cuts it into windows
+    and adds each window's elements in row-major order from a zero init,
+    one rounding per add, all windows at once."""
+    chain_sum.check_operand(g)
+    W, k = g.shape[-1], g.dim() - 1
+    x = g
+    for ps in chain_sum.passes(g.shape[:-1]):
+        pad = []
+        for d in reversed(range(k)):
+            pad += [ps.pad[d], ps.n[d] * ps.w[d] - ps.G[d] - ps.pad[d]]
+        x = torch.nn.functional.pad(x, [0, 0] + pad)
+        x = x.reshape(*[e for d in range(k) for e in (ps.n[d], ps.w[d])], W)
+        x = x.permute(*range(0, 2 * k, 2), *range(1, 2 * k, 2), 2 * k)
+        x = x.reshape(math.prod(ps.n), math.prod(ps.w), W)
+        acc = torch.zeros((x.shape[0], W), dtype=g.dtype, device=g.device)
+        for t in range(x.shape[1]):
+            acc = acc + x[:, t]
+        x = acc.reshape(*ps.n, W)
+    return x.reshape(W)

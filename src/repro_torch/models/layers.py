@@ -60,9 +60,10 @@ from repro_torch.distributed.sharding import (axis_sizes, current_mesh,
                                               placements, redistribute,
                                               shard, shard_map_compat,
                                               spec_of)
+from repro_torch.kernels.ops import chain_sum
 
-__all__ = ["rms_norm", "layer_norm", "norm", "rope", "attention", "mlp",
-           "moe_layer", "mamba2_layer"]
+__all__ = ["rms_norm", "layer_norm", "norm", "bias_add", "scale_mul",
+           "rope", "attention", "mlp", "moe_layer", "mamba2_layer"]
 
 Params = Mapping[str, torch.Tensor]
 
@@ -100,6 +101,100 @@ def norm(x: torch.Tensor, p: Params, cfg: ArchConfig, name: str
     h = (layer_norm(x, p[f"{name}_w"], p[f"{name}_b"]) if cfg.norm == "ln"
          else rms_norm(x, p[f"{name}_w"]))
     return fan_out(h, 1)[0]
+
+
+def _reduced_dims(x: torch.Tensor, b: torch.Tensor) -> Tuple[int, ...]:
+    """The dimensions of ``x`` that ``b``'s broadcast spans: those ``b``
+    lacks (leading) and those it holds at size 1 where ``x`` does not."""
+    lead = x.dim() - b.dim()
+    return tuple(d for d in range(x.dim()) if d < lead or (
+        b.shape[d - lead] == 1 and x.shape[d] != 1))
+
+
+def _chain_grad(g: torch.Tensor, reduced: Tuple[int, ...]) -> torch.Tensor:
+    """``g`` summed over its dimensions ``reduced`` (in their order), the
+    others kept in order, by `chain_sum`; a DTensor's on each rank's
+    local block under ``local_map``: a partial sum over the mesh axes
+    that split the summed dimensions (reduced in f32 by the train step's
+    `_as_param`, as XLA all-reduces its ranks' sums), split as ``g``'s
+    kept dimensions are."""
+    kept = [d for d in range(g.dim()) if d not in reduced]
+
+    def local(t):
+        return chain_sum(t.permute(*reduced, *kept), len(reduced))
+    if not is_dtensor(g):
+        return local(g)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = g.device_mesh
+    if any(p.is_partial() for p in g.placements):
+        g = redistribute(g, mesh, [Replicate() if p.is_partial() else p
+                                   for p in g.placements])
+    out = [Replicate() if not p.is_shard() else
+           Partial() if p.dim in reduced else Shard(kept.index(p.dim))
+           for p in g.placements]
+    return shard_map_compat(local, mesh=mesh, in_specs=(list(g.placements),),
+                            out_specs=out)(g)
+
+
+class _Broadcast(torch.autograd.Function):
+    """``x + b`` or ``x * b``, ``b`` broadcast over ``x``, with the
+    gradient of a bf16 ``b`` summed as the JAX package's program sums it
+    (`bias_add`, `scale_mul`)."""
+
+    @staticmethod
+    def forward(ctx, x, b, mul):
+        ctx.reduced, ctx.shape, ctx.mul = _reduced_dims(x, b), b.shape, mul
+        if not mul:
+            return x + b
+        ctx.save_for_backward(x, b)
+        return x * b
+
+    @staticmethod
+    def backward(ctx, g):
+        gx = gb = None
+        if ctx.mul:
+            x, b = ctx.saved_tensors
+            if ctx.needs_input_grad[0]:
+                gx = g * b
+            if ctx.needs_input_grad[1]:
+                gb = _chain_grad(g * x, ctx.reduced).reshape(ctx.shape)
+        else:
+            gx = g
+            if ctx.needs_input_grad[1]:
+                gb = _chain_grad(g, ctx.reduced).reshape(ctx.shape)
+        return gx, gb, None
+
+
+def _chains(x: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``b``'s gradient takes the chain sum: a bf16 ``b`` of
+    ``x``'s type, being differentiated.  An f16 ``b`` keeps autograd's
+    sum: XLA's CPU f16 order departs from the chain past 32 rows, and no
+    model trains in f16."""
+    return (b.dtype == x.dtype == torch.bfloat16 and b.requires_grad
+            and torch.is_grad_enabled())
+
+
+def bias_add(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x + b``, ``b`` broadcast over ``x``'s leading dimensions.
+
+    The value is ``x + b``.  A bf16 ``b`` added to a bf16 ``x`` gets the
+    gradient the JAX package's program computes: XLA transposes
+    the broadcast into a bf16 ``reduce`` (one add and one rounding per
+    row), where autograd's sum accumulates in f32 and rounds once.  The
+    port sums it with `repro_torch.kernels.ops.chain_sum`, in XLA's CPU
+    order; on a DTensor each rank sums its own rows and the ranks' sums
+    are reduced in f32 (`_chain_grad`).  Any other ``b`` is added as it
+    is."""
+    return _Broadcast.apply(x, b, False) if _chains(x, b) else x + b
+
+
+def scale_mul(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``x * s``, ``s`` of ``x``'s rank broadcast over its size-1
+    dimensions; a bf16 ``s``'s gradient, ``g * x`` rounded to bf16 and
+    summed over those dimensions, is summed as `bias_add` sums (the
+    JAX package's bf16 ``reduce``: mamba2's ``D`` skip, the MoE combine's
+    gate weights).  Any other ``s`` is multiplied as it is."""
+    return _Broadcast.apply(x, s, True) if _chains(x, s) else x * s
 
 
 def _freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
@@ -150,8 +245,9 @@ def _qkv(x: torch.Tensor, p: Params, cfg: ArchConfig, prefix: str = ""
     k = xk @ p[f"{prefix}wk"]
     v = xv @ p[f"{prefix}wv"]
     if cfg.qkv_bias:
-        q, k, v = (q + p[f"{prefix}bq"], k + p[f"{prefix}bk"],
-                   v + p[f"{prefix}bv"])
+        q, k, v = (bias_add(q, p[f"{prefix}bq"]),
+                   bias_add(k, p[f"{prefix}bk"]),
+                   bias_add(v, p[f"{prefix}bv"]))
     # the heads' placement before the split too: DTensor cannot split a
     # dimension sharded otherwise (FSDP's 'data' may leave k on 'model')
     q = shard(q, "batch", "seq", "heads").reshape(B, S, H, D)
@@ -450,14 +546,46 @@ def _silu(g: torch.Tensor) -> torch.Tensor:
     return g * (1 / (1 + torch.exp(-g)))
 
 
+def _gelu_tanh(h: torch.Tensor):
+    """``(c, k, tanh(c * (h + k * h^3)))`` of `_gelu`, the constants
+    ``sqrt(2 / pi)`` and ``0.044715`` in ``h``'s type."""
+    c, k = (torch.tensor(v, dtype=h.dtype, device=h.device)
+            for v in (math.sqrt(2 / math.pi), 0.044715))
+    return c, k, torch.tanh(c * (h + k * (h * (h * h))))
+
+
+class _Gelu(torch.autograd.Function):
+    """`_gelu` whose backward is the JAX package's, op for op: the
+    transpose of ``jax.nn.gelu``'s JVP, each product and sum rounding to
+    ``h``'s type in its order (``3 h^2`` from ``integer_pow``, the tanh
+    rule ``v + v * tanh``), where autograd's derivative of the written-
+    out forward rounds elsewhere (in bf16 it moved most of whisper's
+    ``b_up`` gradient)."""
+
+    @staticmethod
+    def forward(ctx, h):
+        ctx.save_for_backward(h)
+        return h * (0.5 * (1.0 + _gelu_tanh(h)[2]))
+
+    @staticmethod
+    def backward(ctx, r):
+        (a,) = ctx.saved_tensors
+        c, k, i = _gelu_tanh(a)
+        t = r * (0.5 * (1.0 + i))
+        v = (0.5 * (a * r)) * (1.0 - i)
+        y = c * (v + v * i)
+        return (t + y) + (k * y) * (3.0 * (a * a))
+
+
 def _gelu(h: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation (torch's default
     is the erf form), written out as the JAX package computes it: ``h *
     (0.5 * (1 + tanh(c * (h + 0.044715 * h^3))))`` with the constants in
-    ``h``'s type and each op rounding to it, as for `_silu`."""
-    c, k = (torch.tensor(v, dtype=h.dtype, device=h.device)
-            for v in (math.sqrt(2 / math.pi), 0.044715))
-    return h * (0.5 * (1.0 + torch.tanh(c * (h + k * (h * (h * h))))))
+    ``h``'s type and each op rounding to it, as for `_silu`; its gradient
+    as the JAX package's (`_Gelu`)."""
+    if torch.is_grad_enabled() and h.requires_grad:
+        return _Gelu.apply(h)
+    return h * (0.5 * (1.0 + _gelu_tanh(h)[2]))
 
 
 def mlp(x: torch.Tensor, p: Params, cfg: ArchConfig, prefix: str = ""
@@ -469,10 +597,10 @@ def mlp(x: torch.Tensor, p: Params, cfg: ArchConfig, prefix: str = ""
     the residual add, where DTensor would carry a partial sum into the
     residual stream and then gather the head's table to meet it."""
     if cfg.norm == "ln":
-        h = shard(_gelu(x @ p[f"{prefix}w_up"] + p[f"{prefix}b_up"]),
-                  "batch", "seq", "ff")
+        h = shard(_gelu(bias_add(x @ p[f"{prefix}w_up"],
+                                 p[f"{prefix}b_up"])), "batch", "seq", "ff")
         y = shard(h @ p[f"{prefix}w_down"], "batch", "seq", None)
-        return (y + p[f"{prefix}b_down"]).to(x.dtype)
+        return bias_add(y, p[f"{prefix}b_down"]).to(x.dtype)
     g = x @ p[f"{prefix}w_gate"]
     u = x @ p[f"{prefix}w_up"]
     h = shard(_silu(g) * u, "batch", "seq", "ff")
@@ -544,7 +672,7 @@ def _moe_rows(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
     w = torch.gather(gates, 2, by_expert).to(out.dtype)
     flat = torch.cat([out.reshape(R, E_loc * cap, d),
                       out.new_zeros((R, 1, d))], dim=1)
-    vals = flat[rows[:, :, None], slot] * w[..., None]       # (R, T, k, d)
+    vals = scale_mul(flat[rows[:, :, None], slot], w[..., None])  # R,T,k,d
     y = vals[:, :, 0]
     for j in range(1, k):
         y = y + vals[:, :, j]
@@ -739,7 +867,7 @@ def mamba2_layer(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
             ys.append(torch.einsum("bn,bhnp->bhp", C_t, h))
         y = torch.stack(ys, dim=1).to(x.dtype)
         new_cache = {"h": h}
-    y = y + xh * p["D"][None, None, :, None].to(x.dtype)
+    y = y + scale_mul(xh, p["D"][None, None, :, None].to(x.dtype))
     y = shard(y.reshape(B, S, di), "batch", "seq", "dinner")
     y = rms_norm(y * _silu(z.to(f32)).to(y.dtype), p["norm_w"])
     return shard(y @ p["out_proj"], "batch", "seq", None).to(x.dtype), \

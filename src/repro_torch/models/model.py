@@ -554,8 +554,8 @@ class EncDecLM(LM):
     def encode(self, enc_frames: torch.Tensor, dtype: torch.dtype
                ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Each decoder layer's cross keys and values of ``enc_frames``."""
-        e = shard(enc_frames.to(dtype) + self.enc_pos[None], "batch", "seq",
-                  None)
+        e = shard(L.bias_add(enc_frames.to(dtype), self.enc_pos), "batch",
+                  "seq", None)
         B, S_e, _ = e.shape
         epos = torch.arange(S_e, device=e.device)[None].expand(B, S_e)
         remat = self._remat()

@@ -18,7 +18,9 @@ gathered tile-dot and the blocked
 matvec agree with their plain versions to rtol 1e-5 and atol 1e-5 *
 max|out| in f32 and bf16: the products are exact in f32 and only the
 order of the sums within a block or slab differs.  The fp32 tier on a
-bf16 table is bitwise the fp32 launch on the table widened to f32.
+bf16 table is bitwise the fp32 launch on the table widened to f32.  The
+chain sum (the gradient of a 16-bit bias) is bitwise its plain version
+in bf16 and f16: the same adds in the same order, each rounded once.
 """
 
 import numpy as np
@@ -797,3 +799,38 @@ def test_new_wrappers_check_operands(card):
     out = gd.gather_block_dot_cuda(V4, bad, cols, q)
     torch.cuda.synchronize()
     assert not bool(out[0].isnan().any()) and bool(out[1].isnan().all())
+
+
+# (leading dims, W): rows 1, a chain, XLA's windows (one and two passes),
+# widths off a warp, four leading dims, mamba2-130m's ``D`` (two windowed
+# dimensions)
+CHAIN_SHAPES = [((1,), 1024), ((32,), 128), ((8, 128), 1024),
+                ((8, 128), 4096), ((2, 16), 1000), ((4096,), 33),
+                ((3, 45, 2, 5), 77), ((0,), 64), ((8, 128, 64), 24)]
+
+
+@pytest.mark.parametrize("lead,W", CHAIN_SHAPES)
+def test_chain_sum_kernel_bitwise_plain_version(card, lead, W):
+    """The chain-sum kernel bitwise its plain version, one launch per pass
+    of XLA's CPU order; a non-contiguous input is made contiguous by the
+    entry point and refused by the wrapper; an f16 input is refused."""
+    from repro_torch.kernels import chain_sum as cs
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(len(lead) * W)
+    g = torch.from_numpy(rng.normal(size=(*lead, W)).astype(
+        np.float32)).to(torch.bfloat16)
+    want = ref.chain_sum_ref(g)
+    ops.reset_launch_counts()
+    got = ops.chain_sum(g.to(card))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["chain_sum"] == len(cs.passes(lead))
+    assert got.dtype == torch.bfloat16 and got.shape == (W,)
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cs.chain_sum_cuda(g.to(card, torch.float16))
+    if len(lead) == 1 and lead[0] > 1:
+        gt = g.to(card).t()                 # (W, rows) strided
+        assert torch.equal(ops.chain_sum(gt).cpu(),
+                           ref.chain_sum_ref(gt.cpu().contiguous()))
+        with pytest.raises(ValueError, match="contiguous"):
+            cs.chain_sum_cuda(gt)

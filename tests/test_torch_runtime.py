@@ -474,3 +474,45 @@ def test_check_outcomes_fails_the_run(outcomes, requests, p99, message):
              "latency_ms": {"p99": p99}}
     with pytest.raises(SystemExit, match=message):
         serve.check_outcomes(args, stats)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports torch and numpy only at
+    its top)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("label,tier", [
+    ("fp32", ["--precision", "fp32"]),
+    ("int8+adaptive", ["--precision", "int8", "--adaptive", "--bound",
+                       "bernstein"])])
+def test_phase5_fixed_service_time_counts(label, tier, monkeypatch):
+    """``chip_smoke.py`` phase 5's pass 1 on the CPU: with every rung
+    dispatch reporting the fixed ``RUNTIME_DT``, both of its tiers' streams
+    give all five outcomes over two rungs or more, and the outcome
+    counts, rungs launched and requests served per rung are the same at
+    ``--smoke`` width and on a table twice as wide and tall (its
+    queries repeating where the smoke stream's do): what the card's pass
+    is held to does not depend on the table's size, nor on the host."""
+    import dataclasses
+    cs = _chip_smoke()
+    assert cs.RUNTIME_DT == DT
+    argv = cs.RUNTIME_ARGV + tier + ["--device", "cpu"]
+    small = cs.runtime_fixed_pass(argv + ["--smoke"], label)
+    fixed = small["fixed"]
+    o = fixed["outcomes"]
+    assert all(o[s] > 0 for s in ("ok", "degraded", "overloaded",
+                                  "rejected", "failed")), o
+    assert len(fixed["rungs_launched"]) >= 2
+    assert sum(o.values()) == 256
+    real = serve.get_config
+    monkeypatch.setattr(serve, "get_config", lambda arch: (
+        dataclasses.replace(real(arch).smoke(), d_model=256, vocab=1024)))
+    wide = cs.runtime_fixed_pass(argv, label, like=small["queries"])
+    assert np.shape(wide["queries"]) == (256, 256)
+    assert wide["fixed"] == fixed

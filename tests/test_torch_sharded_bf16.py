@@ -22,7 +22,7 @@ port's ranks are simulated on the CPU (`simulated_mesh`).
 * Data-parallel bf16 gradients, reduced by the train step's
   `_as_param`, against JAX's jitted ``grad``: a matmul weight, the
   training head's table (a bf16 operand of an f32 product, `widen`)
-  and a bias, whose per-rank sum is the open remainder.
+  and a bias (`bias_add`: each rank's bf16 chain, then f32).
 * `fan_out`: a partial-sum gradient and a whole one of one input,
   summed in f32 and rounded once.
 * No bf16 or f16 all-reduce or reduce-scatter is left in a bf16 train
@@ -387,14 +387,14 @@ def test_bf16_expert_parallel_moe_bitwise_jax(cases):
 def _dp_f(name):
     """The port's ``f(param, x)`` of a data-parallel gradient case, in f32:
     a matmul weight, the training head's table (`logits_from_hidden`),
-    a bias (the attention's ``q + bq``)."""
+    a bias (the attention's ``q + bq``, `bias_add`)."""
     from types import SimpleNamespace
     from repro_torch.models.model import logits_from_hidden
     if name == "head":
         return lambda p, x: logits_from_hidden(SimpleNamespace(
             head_table=p), _head_config(), x)
     if name == "bias":
-        return lambda p, x: (x + p).float()
+        return lambda p, x: TL.bias_add(x, p).float()
     return lambda p, x: (x @ p).float()
 
 
@@ -412,12 +412,13 @@ def test_bf16_data_parallel_gradient_matches_jax_grad(name, cases):
       output unrounded, and so does the port (`widen`): bitwise JAX's,
       where parts rounded to bf16 first are not (measured: 26,345 of
       the 65,536 outputs apart).
-    * bias: the remainder (ROADMAP queue 3, 3.5).  XLA's CPU program
-      sums each rank's bf16 cotangent with a bf16 add, one rounding each
-      (bitwise that chain here), then all-reduces in f32; the port's
-      rank sums it in f32 and rounds once.  Within one bf16 ulp of the
-      sum of the cotangent's magnitudes (measured: 104 of the 128
-      outputs apart, the largest 0.625 of that ulp)."""
+    * bias: XLA's CPU program sums each rank's bf16 cotangent with a
+      bf16 add, one rounding each (32 rows a rank: a chain in row-major
+      order), then all-reduces in f32; so does the port (`bias_add`:
+      `chain_sum` on each rank's rows, then `_as_param`'s f32
+      reduction): bitwise JAX's, where each rank's sum taken in f32 and
+      rounded once, autograd's, was 104 of the 128 outputs apart
+      (ROADMAP 3.5, closed)."""
     a, out, _ = cases
     p = torch.from_numpy(a[f"{name}_p"]).to(torch.bfloat16)
     x = torch.from_numpy(a[f"{name}_x"]).to(torch.bfloat16)
@@ -464,7 +465,12 @@ def test_bf16_data_parallel_gradient_matches_jax_grad(name, cases):
     chains = [_bf16_chain(list(cb[rr].reshape(-1, cb.shape[-1])))
               for rr in rows]
     np.testing.assert_array_equal(want, _bf16(_f32_sum(chains)))
-    assert (diff <= _ulp(np.abs(cb).sum(axis=(0, 1)))).all()
+    np.testing.assert_array_equal(got, want)
+    # the check can see the rounding: each rank's rows summed in f32 and
+    # rounded once are not JAX's result
+    once = [_bf16(cb[rr].reshape(-1, cb.shape[-1]).astype(np.float64)
+                  .sum(axis=0)) for rr in rows]
+    assert (_bf16(_f32_sum(once)) != want).any()
 
 
 def test_fan_out_sums_partial_and_whole_gradients_in_f32():

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time kernels 3 and 4 of a checkout of the port, back to back.
+"""Time kernels 3 and 4 and the chain sum of a checkout of the port, back
+to back.
 
     python3 tools/torch_kernel_time.py [SRC]     # SRC: a tree's src/ dir
 
@@ -8,8 +9,11 @@ so two commits can be compared in one call on one card (parent, change,
 change, parent).  At the qwen1.5-0.5b table's geometry (N(0, 0.02),
 torch seed 0) it times ``gather_block_dot`` (row (19200, 2, 8, 512) and
 coord (19200, 8, 8, 128)) and ``blocked_matvec`` ((153600, 1024)) in f32
-and bf16, and ``torch.matmul`` on the matvec's operands, with
-``chip_smoke.py``'s timer: 20 launches back to back between two CUDA
+and bf16, and ``torch.matmul`` on the matvec's operands; where the
+checkout has it, the chain sum (``ops.chain_sum``, bf16 N(0, 1)) at the
+bias step's cotangent (8, 128, 1024) and at mamba2-130m's ``D``
+cotangent (8, 128, 64, 24), and ``torch.sum`` over the same rows; all
+with ``chip_smoke.py``'s timer: 20 calls back to back between two CUDA
 events, median of 5.  Prints one JSON line.
 """
 
@@ -54,6 +58,15 @@ def main() -> int:
             out[f"gather_block_dot {mode} {tag}"] = back_to_back(
                 lambda: ops.gather_block_dot(V4, idx, cols, qsel))
             del V4
+    if hasattr(ops, "chain_sum"):
+        for lead, W in (((8, 128), 1024), ((8, 128, 64), 24)):
+            x = torch.randn(*lead, W, generator=g, device=dev).to(
+                torch.bfloat16)
+            dims = tuple(range(len(lead)))
+            name = "x".join(map(str, (*lead, W)))
+            out[f"chain_sum {name}"] = back_to_back(lambda: ops.chain_sum(x))
+            out[f"torch.sum {name}"] = back_to_back(
+                lambda: torch.sum(x, dims))
     print(json.dumps(out), flush=True)
     return 0
 
