@@ -299,7 +299,17 @@ Phases, one line each (any failure exits non-zero before the result):
    chains summed in f32 and rounded once; the kernel launched for every
    bias, pass and rank); last the gradients of a bf16 embedding lookup
    and of the MoE's sorted token gather (the program's bf16 scatter-adds)
-   on the card bitwise the CPU's; with the sub-phase's seconds;
+   on the card bitwise the CPU's; with the sub-phase's seconds; (f) the
+   autograd Functions whose backward is the JAX package's op for op
+   (`BACKWARD_FUNCTIONS`: SwiGLU's silu at tinyllama-1.1b's step shape,
+   8 x 128 x 5,632, in bf16; mamba2-130m's f32 gate; the MoE's gate
+   renormalization at qwen3-moe-30b-a3b's k = 8), forward and backward
+   on the card against the CPU from the same inputs and cotangent: in
+   bf16 bitwise the CPU's on the card's sigmoid values (only ``exp``
+   may differ between the two), the elements apart from the CPU's own,
+   those past one bf16 ulp and the most printed; in f32 every element
+   within 2^-20 of the gradient's largest; each timed beside autograd's
+   derivative (`train_backward_functions`);
 15. train sharded — multi-card training with the ranks of each mesh
    simulated on the one card (``LocalTensorMode``, `repro_torch.launch.
    mesh.simulated_mesh`; every rank's local tensors on the card), through
@@ -4119,6 +4129,103 @@ def train_bias_chain() -> dict:
     return out
 
 
+#: phase 14 (f): the autograd Functions whose backward is the JAX
+#: package's op for op, at the shapes the trainer hands them: SwiGLU's
+#: silu at tinyllama-1.1b's step (B = 8, S = 128, its d_ff 5,632) in bf16,
+#: mamba2-130m's f32 gate (its d_inner 1,536), and the MoE's top-k gate
+#: renormalization at qwen3-moe-30b-a3b's (k = 8 of 128 experts)
+BACKWARD_FUNCTIONS = (("silu", (8, 128, 5632), "bfloat16"),
+                      ("silu", (8, 128, 1536), "float32"),
+                      ("renorm", (8, 128, 8), "float32"))
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Each element's distance in bf16 ulps of two bf16 tensors."""
+    def key(x):
+        i = x.float().view(torch.int32).to(torch.int64) >> 16
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
+def train_backward_functions() -> dict:
+    """Phase 14 (f): each Function of `BACKWARD_FUNCTIONS` (`_Silu`,
+    `_Renorm` in `repro_torch.models.layers`), forward and backward on
+    the card against the same Function on the CPU, from the same seeded
+    inputs and cotangent.  Every op of these backwards but ``exp`` is
+    correctly rounded on both (products, sums, quotients, each rounding
+    to the type), so in bf16 the card's silu gradient must be bitwise the
+    CPU's computed on the card's sigmoid values (`_sigmoid` handed the
+    card's result); how far it is from the CPU's own (the two ``exp``
+    differ by an f32 ulp at times, which a bf16 rounding can turn into
+    one bf16 ulp of the sigmoid and more of the gradient) is printed:
+    the elements whose sigmoid differs, the elements apart, those more
+    than one bf16 ulp apart and the most.  In f32 the rule is every
+    element within 2^-20 of the gradient's largest (8 ulps there): the
+    card's ``exp``, its summation order and whether its ``addcmul`` fuses
+    its multiply-add are its own; whether the f32 silu is bitwise on the
+    card's sigmoid is printed.  Each Function's forward and backward is
+    timed on the card (`time_back_to_back`) beside autograd's derivative
+    of the same forward."""
+    from repro_torch.models import layers as L
+    t_sub = time.perf_counter()
+    rng = np.random.default_rng(14)
+    out = {}
+    for name, shape, dtype in BACKWARD_FUNCTIONS:
+        dt = getattr(torch, dtype)
+        a = rng.normal(size=shape)
+        a = 0.3 * np.abs(a) if name == "renorm" else 2 * a
+        a = torch.from_numpy(a.astype(np.float32)).to(dt)
+        b = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dt)
+        fn = L._silu if name == "silu" else L._renorm
+
+        def plain(x, name=name):
+            return (x * (1 / (1 + torch.exp(-x))) if name == "silu"
+                    else x / torch.clamp(x.sum(-1, keepdim=True), min=1e-9))
+
+        def grad(x, cot, f=fn):
+            x = x.detach().requires_grad_(True)
+            return torch.autograd.grad(f(x), [x], [cot])[0]
+        card = grad(a.to(DEV), b.to(DEV)).cpu()
+        want = grad(a, b)
+        rec = {"function": "_Silu" if name == "silu" else "_Renorm",
+               "shape": list(shape), "dtype": dtype,
+               "apart": int((card != want).sum())}
+        if name == "silu":
+            sig = L._sigmoid(a.to(DEV)).cpu()
+            real = L._sigmoid
+            L._sigmoid = lambda x, sig=sig: sig
+            try:
+                given = grad(a, b)
+            finally:
+                L._sigmoid = real
+            rec["sigmoid_apart"] = int((sig != real(a)).sum())
+            rec["bitwise_on_card_sigmoid"] = bool(torch.equal(card, given))
+        if dtype == "bfloat16":
+            u = bf16_ulps(card, want)
+            rec.update(past_one_ulp=int((u > 1).sum()), max_ulps=int(u.max()))
+            check(rec["bitwise_on_card_sigmoid"],
+                  f"train backward {name} {dtype}: the card's gradient is "
+                  f"not the CPU's on the card's sigmoid values "
+                  f"({int((card != given).sum())} apart)")
+        else:
+            gap = float((card - want).abs().max())
+            rec["max_abs_err"] = gap
+            check(gap <= 2.0 ** -20 * float(want.abs().max()),
+                  f"train backward {name} {dtype}: {gap} from the CPU's, "
+                  f"past 2^-20 of its largest {float(want.abs().max())}")
+        x, cot = a.to(DEV), b.to(DEV)
+        rec["ms"] = time_back_to_back(lambda: grad(x, cot), n=10, reps=3)
+        rec["autograd_ms"] = time_back_to_back(lambda: grad(x, cot, plain),
+                                               n=10, reps=3)
+        out[f"{name}_{dtype}"] = rec
+        say(f"train backward {name} {dtype}: " + json.dumps(rec))
+        del a, b, card, want, x, cot
+    out["seconds"] = time.perf_counter() - t_sub
+    say(f"train backward: sub-phase in {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train() -> dict:
     """Phase 14: the trainer on the card — tinyllama-1.1b at full width and
     depth, then served with the bandit head; the resume; the card
@@ -4134,7 +4241,8 @@ def phase_train() -> dict:
     torch.cuda.empty_cache()
     out = {"full": full, "serve": served, "resume": train_resume(),
            "card_vs_cpu": train_card_vs_cpu(),
-           "bias_chain": train_bias_chain()}
+           "bias_chain": train_bias_chain(),
+           "backward_functions": train_backward_functions()}
     say(f"train: phase in {time.perf_counter() - t_phase:.1f} s")
     return out
 

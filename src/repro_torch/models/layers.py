@@ -538,12 +538,46 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int
         out_specs=pl)(cache, new, seq)
 
 
+def _sigmoid(a: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-a))``, ``jax.nn.sigmoid`` (``logistic``) as XLA
+    expands it on the CPU, each op rounding to ``a``'s type."""
+    return 1 / (1 + torch.exp(-a))
+
+
+class _Silu(torch.autograd.Function):
+    """`_silu` whose backward is the JAX package's, op for op: the
+    transpose of ``jax.nn.silu``'s JVP, ``d = logistic(a)``, ``c = d * (1
+    - d)``, ``b * d + (a * b) * c`` for the cotangent ``b``, each product
+    and sum rounding to ``a``'s type, where autograd's derivative of the
+    written-out forward rounds elsewhere (in bf16 it moved about a third
+    of SwiGLU's gate gradients).  In f32 XLA's CPU build contracts the
+    last sum into a fused multiply-add, ``fma(b, d, (a * b) * c)``, which
+    ``addcmul`` is; XLA's f32 ``exp`` is its own approximation, so the f32
+    form stays an ulp from XLA's where ``d`` is."""
+
+    @staticmethod
+    def forward(ctx, g):
+        ctx.save_for_backward(g)
+        return g * _sigmoid(g)
+
+    @staticmethod
+    def backward(ctx, b):
+        (a,) = ctx.saved_tensors
+        d = _sigmoid(a)
+        i = (a * b) * (d * (1 - d))
+        if a.dtype == torch.float32:
+            return torch.addcmul(i, b, d)
+        return b * d + i
+
+
 def _silu(g: torch.Tensor) -> torch.Tensor:
     """silu written out as XLA expands ``jax.nn.silu`` on the CPU: ``g * 1
     / (1 + exp(-g))``.  In bf16 each of those ops rounds, where a fused
     silu or sigmoid rounds once and differs in about a third of the
-    elements."""
-    return g * (1 / (1 + torch.exp(-g)))
+    elements.  Its gradient is the JAX package's (`_Silu`)."""
+    if torch.is_grad_enabled() and g.requires_grad:
+        return _Silu.apply(g)
+    return g * _sigmoid(g)
 
 
 def _gelu_tanh(h: torch.Tensor):
@@ -615,6 +649,43 @@ def moe_capacity(cfg: ArchConfig, S: int) -> int:
     return min(cap, S * k)
 
 
+class _Renorm(torch.autograd.Function):
+    """`_renorm` whose backward is the JAX package's, op for op: the
+    transpose of ``g / max(sum(g, -1), 1e-9)``'s JVP, ``b / e - sum(b *
+    (1 / (e * e)) * g, -1) * n`` (``e`` the clamped sum, ``n`` the max's
+    weight: 1 above the floor, 1/2 on it, 0 below), the last sum a chain
+    over the k gates in index order whose products XLA's CPU build
+    contracts into fused multiply-adds (``addcmul``); autograd's
+    ``-b * g / (e * e)`` rounds elsewhere (3,573 of 8,192 seeded
+    gradients apart at k = 2)."""
+
+    @staticmethod
+    def forward(ctx, g):
+        s = g.sum(-1, keepdim=True)
+        ctx.save_for_backward(g, s)
+        return g / torch.clamp(s, min=1e-9)
+
+    @staticmethod
+    def backward(ctx, b):
+        g, s = ctx.saved_tensors
+        e = torch.clamp(s, min=1e-9)
+        p = b * (1 / (e * e))
+        r = p[..., 0] * g[..., 0]
+        for j in range(1, g.shape[-1]):
+            r = torch.addcmul(r, p[..., j], g[..., j])
+        n = torch.where(s > 1e-9, 1.0, torch.where(s == 1e-9, 0.5, 0.0))
+        return b / e + (-r[..., None]) * n
+
+
+def _renorm(gates: torch.Tensor) -> torch.Tensor:
+    """The top-k gates over their sum (floored at 1e-9), f32, as the JAX
+    package renormalizes them; its gradient as the JAX package's
+    (`_Renorm`)."""
+    if torch.is_grad_enabled() and gates.requires_grad:
+        return _Renorm.apply(gates)
+    return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+
 def _moe_rows(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
               wu: torch.Tensor, wd: torch.Tensor, cfg: ArchConfig,
               cap: int, e_lo: Optional[torch.Tensor] = None
@@ -642,7 +713,7 @@ def _moe_rows(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
     probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)
     gates, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eidx = gates[..., :k], eidx[..., :k]                # (R, T, k)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    gates = _renorm(gates)
 
     flat_e = eidx.reshape(R, T * k)
     if e_lo is not None:                      # the shard's own experts
