@@ -50,6 +50,7 @@ from repro_torch.core.quantize import (measured_quant_err, pq_encode,
 from repro_torch.core.schedule import (Schedule, cert_coeffs,
                                        flatten_schedule, make_schedule)
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import span
 
 __all__ = ["BlockedPlan", "make_plan", "choose_pull_mode", "resolve_device",
            "as_kept", "tile_table", "quantize_table",
@@ -544,20 +545,23 @@ def _check_perm(perm, n_blocks: int, device: torch.device) -> torch.Tensor:
     """``perm`` as int64 on ``device``: one permutation of
     ``range(n_blocks)`` or a ``(B, n_blocks)`` stack of them.  Its values
     are read on the host once per tensor (and again after an in-place
-    write); a perm `draw_perms` made, or a fake one, only by shape."""
-    p = torch.as_tensor(perm)
-    shape_ok = p.dim() in (1, 2) and p.shape[-1] == n_blocks
-    if shape_ok and not (_in_fake_mode() or _known_perm(p)):
-        host = p.detach().cpu().numpy()
-        shape_ok = bool((np.sort(host, axis=-1)
-                         == np.arange(n_blocks)).all())
-        if shape_ok:
-            _remember_perm(p)
-    if not shape_ok:
-        raise ValueError(f"perm must be a permutation of range({n_blocks}) "
-                         f"or a (B, {n_blocks}) stack of them, got shape "
-                         f"{tuple(p.shape)}")
-    return p.to(device=device, dtype=torch.int64)
+    write); a perm `draw_perms` made, or a fake one, only by shape.  Span
+    ``cascade.perm``, counting its host reads (``host_reads``)."""
+    with span("cascade.perm") as sp:
+        p = torch.as_tensor(perm)
+        shape_ok = p.dim() in (1, 2) and p.shape[-1] == n_blocks
+        if shape_ok and not (_in_fake_mode() or _known_perm(p)):
+            sp.count("host_reads", 1)
+            host = p.detach().cpu().numpy()
+            shape_ok = bool((np.sort(host, axis=-1)
+                             == np.arange(n_blocks)).all())
+            if shape_ok:
+                _remember_perm(p)
+        if not shape_ok:
+            raise ValueError(f"perm must be a permutation of "
+                             f"range({n_blocks}) or a (B, {n_blocks}) stack "
+                             f"of them, got shape {tuple(p.shape)}")
+        return p.to(device=device, dtype=torch.int64)
 
 
 def draw_perms(n_blocks: int, B: Optional[int] = None,
@@ -611,19 +615,22 @@ def _fused_call(Vq: torch.Tensor, Qin: torch.Tensor, perm: torch.Tensor, *,
     1 — or per-query ``perm (B, n_blocks)``; else one query ``Qin (n_blocks,
     C)`` and ``perm (n_blocks,)`` through `fused_cascade`.  See
     `decode_operands` for what ``final_exact`` does inside the cascade.
+    Span ``cascade.launch``.
     """
-    slotcode, rmeta, bpos, t_final, n_final, cert = decode_operands(
-        plan, final_exact=final_exact, adaptive=adaptive, device=Vq.device)
-    cols = perm[..., bpos].to(torch.int32).contiguous()
-    if batched and cols.dim() == 1:
-        cols = cols.expand(Qin.shape[0], -1)
-    fn = ops.fused_cascade_batched if batched else ops.fused_cascade
-    return fn(Vq, Qin, slotcode, rmeta, cols, n_arms=plan.n,
-              K=plan.K, t_final=t_final, n_final=n_final, k_out=k_out,
-              n_valid=n_valid, vscale=vscale, qscale=qscale,
-              codebook=codebook, packed_int4=plan.precision == "int4",
-              cert=cert, k_cert=plan.K,
-              track_var=adaptive and plan.schedule.bound == "bernstein")
+    with span("cascade.launch"):
+        slotcode, rmeta, bpos, t_final, n_final, cert = decode_operands(
+            plan, final_exact=final_exact, adaptive=adaptive,
+            device=Vq.device)
+        cols = perm[..., bpos].to(torch.int32).contiguous()
+        if batched and cols.dim() == 1:
+            cols = cols.expand(Qin.shape[0], -1)
+        fn = ops.fused_cascade_batched if batched else ops.fused_cascade
+        return fn(Vq, Qin, slotcode, rmeta, cols, n_arms=plan.n,
+                  K=plan.K, t_final=t_final, n_final=n_final, k_out=k_out,
+                  n_valid=n_valid, vscale=vscale, qscale=qscale,
+                  codebook=codebook, packed_int4=plan.precision == "int4",
+                  cert=cert, k_cert=plan.K,
+                  track_var=adaptive and plan.schedule.bound == "bernstein")
 
 
 def _rescore_rows(V4: torch.Tensor, Qp: torch.Tensor, ids: torch.Tensor,
@@ -693,7 +700,8 @@ def cascade_tiled(V4: torch.Tensor, Qp: torch.Tensor, perm: torch.Tensor, *,
     (`_check_perm`) already on ``V4``'s device.  Nothing here waits for
     the device, so a caller may issue it on several devices (or several
     times on one) before it synchronizes
-    (`repro_torch.distributed.sharding.sharded_decode_tiled`)."""
+    (`repro_torch.distributed.sharding.sharded_decode_tiled`).  The
+    rescore or the padding rescale runs in the span ``cascade.rescale``."""
     Qb = Qp.reshape(*Qp.shape[:-1], plan.n_blocks, plan.block).contiguous()
     quantized_plan = plan.precision != "fp32"
     if quantized is not None:
@@ -710,14 +718,15 @@ def cascade_tiled(V4: torch.Tensor, Qp: torch.Tensor, perm: torch.Tensor, *,
     else:
         out = _fused_call(V4, Qb.float(), perm, **kw)
     ids, vals = out[0], out[1]
-    if final_exact and (quantized_plan or adaptive):
-        ids, vals = _rescore_rows(V4, Qp, ids, n_valid, plan, batched)
-    else:
-        # undo the zero-padding rescale so scores estimate (q . v)/N (an
-        # f32 multiply by the f32-rounded factor; a scalar needs no copy
-        # to the card, which would wait for it)
-        vals = vals * float(np.float32((plan.n_blocks * plan.block)
-                                       / plan.N))
+    with span("cascade.rescale"):
+        if final_exact and (quantized_plan or adaptive):
+            ids, vals = _rescore_rows(V4, Qp, ids, n_valid, plan, batched)
+        else:
+            # undo the zero-padding rescale so scores estimate (q . v)/N
+            # (an f32 multiply by the f32-rounded factor; a scalar needs no
+            # copy to the card, which would wait for it)
+            vals = vals * float(np.float32((plan.n_blocks * plan.block)
+                                           / plan.N))
     return (ids, vals, out[2]) if adaptive else (ids, vals)
 
 
@@ -733,17 +742,20 @@ def decode_tiled(V4: torch.Tensor, Q, perm, *, plan: BlockedPlan,
     tier).  ``perm`` is one ``(n_blocks,)`` permutation shared by the
     batch or ``(B, n_blocks)``, one per query.  On a quantized plan
     without ``quantized`` the table is quantized here, at every call
-    (`quantize_table`).
+    (`quantize_table`).  The queries' copy and padding run in the span
+    ``cascade.queries``.
     """
     k_out = plan.K if k_out is None else int(k_out)
     if not plan.K <= k_out <= plan.k_out_cap:
         raise ValueError(f"k_out={k_out} outside [K={plan.K}, "
                          f"k_out_cap={plan.k_out_cap}]")
     n_valid = plan.n if n_valid is None else int(n_valid)
-    Q = as_kept(Q, V4.device)
-    if Q.dim() != 2 or Q.shape[1] != plan.N:
-        raise ValueError(f"Q must be (B, {plan.N}), got {tuple(Q.shape)}")
-    _, Qp = _pad_operands(None, Q, plan)
+    with span("cascade.queries"):
+        Q = as_kept(Q, V4.device)
+        if Q.dim() != 2 or Q.shape[1] != plan.N:
+            raise ValueError(f"Q must be (B, {plan.N}), got "
+                             f"{tuple(Q.shape)}")
+        _, Qp = _pad_operands(None, Q, plan)
     return _run_tiled(V4, Qp, perm, plan=plan, batched=True,
                       final_exact=final_exact, k_out=k_out, n_valid=n_valid,
                       quantized=quantized, adaptive=adaptive)

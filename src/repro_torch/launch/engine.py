@@ -66,6 +66,7 @@ from repro_torch.launch.admission import (AdmissionController,
                                           ServeResult, Ticket)
 from repro_torch.obs.metrics import (PULL_FRAC_BUCKETS, MetricsRegistry,
                                      summarize_latencies)
+from repro_torch.obs.trace import span
 from repro_torch.store import (DynamicTableStore, ShardedTableStore,
                                StoreFlushError)
 
@@ -505,27 +506,34 @@ class CascadeExecutor:
         (``rounds_used`` is None unless adaptive, ``(B,)`` on one device
         and ``(B, shards)`` under a mesh; ids are table slots, see
         `external_ids`); ``seconds`` is the measured blocking time, which
-        virtual-clock loops add to their clock.
+        virtual-clock loops add to their clock.  Spans (`repro_torch.obs.
+        trace.span`): ``executor.dispatch`` with ``executor.sync`` and
+        ``executor.d2h``.
         """
-        t0 = time.perf_counter()
-        if self.mesh is None:
-            out = decode_tiled(self.tiled_table, Qbuf, perm, plan=self.plan,
-                               final_exact=True, n_valid=self.n_valid,
-                               quantized=self.quantized,
-                               adaptive=self.adaptive)
-        else:
-            shards, quant, nv = self.shard_operands()
-            out = sharded_decode_tiled(
-                shards, Qbuf, perm, mesh=self.mesh, plan=self.plan,
-                K=self.K, k_out=self._k_out, n_valid=nv, final_exact=True,
-                quantized=quant, adaptive=self.adaptive)
-            out = (out[0], out[1], out[3]) if self.adaptive else out[:2]
-        self._synchronize()
-        dt = time.perf_counter() - t0
-        self._c_dispatch.inc(**self._mlabels)
-        self._h_dispatch.observe(dt * 1e3, **self._mlabels)
-        rounds = out[2].cpu().numpy() if self.adaptive else None
-        return out[0].cpu().numpy(), out[1].cpu().numpy(), rounds, dt
+        with span("executor.dispatch"):
+            t0 = time.perf_counter()
+            if self.mesh is None:
+                out = decode_tiled(self.tiled_table, Qbuf, perm,
+                                   plan=self.plan, final_exact=True,
+                                   n_valid=self.n_valid,
+                                   quantized=self.quantized,
+                                   adaptive=self.adaptive)
+            else:
+                shards, quant, nv = self.shard_operands()
+                out = sharded_decode_tiled(
+                    shards, Qbuf, perm, mesh=self.mesh, plan=self.plan,
+                    K=self.K, k_out=self._k_out, n_valid=nv,
+                    final_exact=True, quantized=quant,
+                    adaptive=self.adaptive)
+                out = (out[0], out[1], out[3]) if self.adaptive else out[:2]
+            with span("executor.sync"):
+                self._synchronize()
+            dt = time.perf_counter() - t0
+            self._c_dispatch.inc(**self._mlabels)
+            self._h_dispatch.observe(dt * 1e3, **self._mlabels)
+            with span("executor.d2h"):
+                rounds = out[2].cpu().numpy() if self.adaptive else None
+                return out[0].cpu().numpy(), out[1].cpu().numpy(), rounds, dt
 
     def recall_of(self, q: np.ndarray, got_slots: np.ndarray) -> float:
         """Exact-top-K overlap of a served answer: an exhaustive rescore
@@ -742,28 +750,32 @@ class MIPSServeEngine:
         next micro-batch.  ``now`` (seconds, any monotonic origin) defaults
         to wall clock — pass a virtual clock for simulation.  Staged store
         mutations are drained first: a query submitted after an upsert is
-        never answered from a pre-upsert cache line or table.
+        never answered from a pre-upsert cache line or table.  Spans:
+        ``engine.submit`` with ``engine.submit.cache`` (the LRU key and
+        lookup).
         """
-        q = np.asarray(q, np.float32)
-        if q.shape != (self.N,):
-            raise ValueError(f"query shape {q.shape} != ({self.N},)")
-        self.apply_updates()
-        now = time.perf_counter() if now is None else now
-        rid = self._next_id
-        self._next_id += 1
-        self._c_requests.inc()
-        # lookups are salted with the current (table version, K)
-        ck = self.cache.key(q) if self.cache.capacity > 0 else None
-        if ck is not None:
-            hit = self.cache.get(self._salted(ck))
+        with span("engine.submit"):
+            q = np.asarray(q, np.float32)
+            if q.shape != (self.N,):
+                raise ValueError(f"query shape {q.shape} != ({self.N},)")
+            self.apply_updates()
+            now = time.perf_counter() if now is None else now
+            rid = self._next_id
+            self._next_id += 1
+            self._c_requests.inc()
+            # lookups are salted with the current (table version, K)
+            with span("engine.submit.cache"):
+                ck = self.cache.key(q) if self.cache.capacity > 0 else None
+                hit = (self.cache.get(self._salted(ck)) if ck is not None
+                       else None)
             if hit is not None:
                 self._results[rid] = hit
                 self._c_cache_hits.inc()
                 self._lat.append(0.0)
                 self._h_latency.observe(0.0)
                 return rid
-        self._pending.append(_Pending(rid, q, now, ck))
-        return rid
+            self._pending.append(_Pending(rid, q, now, ck))
+            return rid
 
     def _salted(self, base_key: bytes) -> bytes:
         """Prefix an LRU base key with the live (version, K) salt."""
@@ -776,22 +788,24 @@ class MIPSServeEngine:
         oldest pending request older than the batch deadline (deadline
         flush).  ``busy_s`` is the wall time spent in compute, so virtual-
         clock drivers can advance time by it.  Staged store mutations are
-        drained first (`apply_updates`).
+        drained first (`apply_updates`).  Span: ``engine.poll``, each
+        flush inside it an ``engine.flush``.
         """
-        now = time.perf_counter() if now is None else now
-        self.apply_updates()
-        done: List[int] = []
-        busy = 0.0
-        while self._pending:
-            full = len(self._pending) >= self.batch_size
-            aged = now - self._pending[0].t_submit >= self.deadline_s
-            if not (full or aged):
-                break
-            self._c_batches.inc(trigger="full" if full else "deadline")
-            ids, dt = self._flush(now + busy)
-            done.extend(ids)
-            busy += dt
-        return done, busy
+        with span("engine.poll"):
+            now = time.perf_counter() if now is None else now
+            self.apply_updates()
+            done: List[int] = []
+            busy = 0.0
+            while self._pending:
+                full = len(self._pending) >= self.batch_size
+                aged = now - self._pending[0].t_submit >= self.deadline_s
+                if not (full or aged):
+                    break
+                self._c_batches.inc(trigger="full" if full else "deadline")
+                ids, dt = self._flush(now + busy)
+                done.extend(ids)
+                busy += dt
+            return done, busy
 
     def drain(self, now: Optional[float] = None) -> Tuple[List[int], float]:
         """Flush everything pending regardless of triggers (shutdown);
@@ -808,8 +822,10 @@ class MIPSServeEngine:
         return done, busy
 
     def result(self, req_id: int):
-        """Pop the (ids, scores) result for a completed request, or None."""
-        return self._results.pop(req_id, None)
+        """Pop the (ids, scores) result for a completed request, or None
+        (span ``engine.result``)."""
+        with span("engine.result"):
+            return self._results.pop(req_id, None)
 
     def apply_updates(self) -> int:
         """Drain the store's staged mutations; returns rows applied.
@@ -841,13 +857,27 @@ class MIPSServeEngine:
         return applied
 
     def _flush(self, now: float) -> Tuple[List[int], float]:
-        batch = self._pending[:self.batch_size]
-        self._pending = self._pending[len(batch):]
-        Qbuf = np.zeros((self.batch_size, self.N), np.float32)
-        for i, p in enumerate(batch):
-            Qbuf[i] = p.q
-        perm = self._perm_source(self._batch_seq)
-        ids, scores, rounds, dt = self._exec.dispatch(Qbuf, perm)
+        """Serve the first ``batch_size`` pending requests in one dispatch
+        and file their results (spans ``engine.flush``, with
+        ``engine.flush.pack`` for the lane buffer and ``engine.flush.file``
+        for the results, LRU puts and latency bookkeeping)."""
+        with span("engine.flush"):
+            with span("engine.flush.pack"):
+                batch = self._pending[:self.batch_size]
+                self._pending = self._pending[len(batch):]
+                Qbuf = np.zeros((self.batch_size, self.N), np.float32)
+                for i, p in enumerate(batch):
+                    Qbuf[i] = p.q
+            perm = self._perm_source(self._batch_seq)
+            ids, scores, rounds, dt = self._exec.dispatch(Qbuf, perm)
+            with span("engine.flush.file"):
+                return self._file(batch, ids, scores, rounds, now, dt), dt
+
+    def _file(self, batch: List[_Pending], ids: np.ndarray,
+              scores: np.ndarray, rounds: Optional[np.ndarray], now: float,
+              dt: float) -> List[int]:
+        """File a dispatch's answers: results, LRU puts, latency, recall
+        and occupancy bookkeeping; returns the answered request ids."""
         ids = ids[:len(batch)]
         scores = scores[:len(batch)]
         if rounds is not None:
@@ -880,7 +910,7 @@ class MIPSServeEngine:
             self._recalls = self._recalls[-10_000:]
         if len(self._rounds) > 100_000:
             self._rounds = self._rounds[-10_000:]
-        return done, dt
+        return done
 
     def _adaptive_stats(self) -> dict:
         """Early-exit telemetry: rounds_used histogram + mean pull frac."""

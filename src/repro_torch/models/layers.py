@@ -61,6 +61,7 @@ from repro_torch.distributed.sharding import (axis_sizes, current_mesh,
                                               shard, shard_map_compat,
                                               spec_of)
 from repro_torch.kernels.ops import chain_sum
+from repro_torch.obs.trace import span
 
 __all__ = ["rms_norm", "layer_norm", "norm", "bias_add", "scale_mul",
            "rope", "attention", "mlp", "moe_layer", "mamba2_layer"]
@@ -454,46 +455,69 @@ def attention(x: torch.Tensor, p: Params, cfg: ArchConfig, *,
     * cross-attention: ``kv_override=(k, v)`` ``(B, S_e, H, D)`` from the
       encoder -> ``(y, None)``: queries ``x @ {prefix}wq`` with no bias
       and no RoPE, non-causal over every key.
+
+    Spans (`repro_torch.obs.trace.span`): ``layer.attention``, with
+    ``layer.attention.sdpa`` around the softmax attention (device time
+    too; counter ``kv_bytes``, `_sdpa`).
     """
-    B, S, _ = x.shape
-    H, D = cfg.n_heads, cfg.head_dim
-    if kv_override is not None:
-        q = (x @ p[f"{prefix}wq"]).reshape(B, S, H, D)
-        o = _sdpa_chunked(q, *kv_override, causal=False, chunk=chunk)
-        y = shard(o.reshape(B, S, H * D) @ p[f"{prefix}wo"], "batch", "seq",
-                  None)
-        return y.to(x.dtype), None
-    q, k, v = _qkv(x, p, cfg, prefix)
-    if rope_on:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    new_cache = None
-    if cache is None and cache_len is None:               # train
-        o = _sdpa_chunked(q, k, v, causal=causal, chunk=chunk)
-    elif cache_len is not None:                           # prefill
-        kf = shard(_pad_seq(k, cache_len - S), "batch", "kvseq",
-                   "kv_heads", None)
-        vf = shard(_pad_seq(v, cache_len - S), "batch", "kvseq",
-                   "kv_heads", None)
-        new_cache = {"k": kf, "v": vf}
-        o = _sdpa_chunked(q, k, v, causal=causal, chunk=chunk)
-    else:                                                 # decode
-        pos = int(pos)
-        if is_dtensor(cache["k"]):
-            new_cache = {n: shard(_cache_write(cache[n], t, pos), "batch",
-                                  "kvseq", "kv_heads", None)
-                         for n, t in (("k", k), ("v", v))}
-        else:
-            cache["k"][:, pos:pos + S] = k
-            cache["v"][:, pos:pos + S] = v
-            new_cache = cache
-        if is_dtensor(new_cache["k"]) and _seq_split(new_cache["k"]):
-            o = _sdpa_split_kv(q, new_cache["k"], new_cache["v"], pos)
-        else:
-            o = _sdpa_chunked(q, new_cache["k"], new_cache["v"],
-                              causal=True, q_offset=pos, chunk=chunk)
-    y = o.reshape(B, S, H * D) @ p[f"{prefix}wo"]
-    return shard(y, "batch", "seq", None).to(x.dtype), new_cache
+    with span("layer.attention"):
+        B, S, _ = x.shape
+        H, D = cfg.n_heads, cfg.head_dim
+        if kv_override is not None:
+            q = (x @ p[f"{prefix}wq"]).reshape(B, S, H, D)
+            k, v = kv_override
+            o = _sdpa(q, k, v, k.shape[1], causal=False, chunk=chunk)
+            y = shard(o.reshape(B, S, H * D) @ p[f"{prefix}wo"], "batch",
+                      "seq", None)
+            return y.to(x.dtype), None
+        q, k, v = _qkv(x, p, cfg, prefix)
+        if rope_on:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        new_cache = None
+        if cache is None and cache_len is None:               # train
+            o = _sdpa(q, k, v, S, causal=causal, chunk=chunk)
+        elif cache_len is not None:                           # prefill
+            kf = shard(_pad_seq(k, cache_len - S), "batch", "kvseq",
+                       "kv_heads", None)
+            vf = shard(_pad_seq(v, cache_len - S), "batch", "kvseq",
+                       "kv_heads", None)
+            new_cache = {"k": kf, "v": vf}
+            o = _sdpa(q, k, v, S, causal=causal, chunk=chunk)
+        else:                                                 # decode
+            pos = int(pos)
+            if is_dtensor(cache["k"]):
+                new_cache = {n: shard(_cache_write(cache[n], t, pos),
+                                      "batch", "kvseq", "kv_heads", None)
+                             for n, t in (("k", k), ("v", v))}
+            else:
+                cache["k"][:, pos:pos + S] = k
+                cache["v"][:, pos:pos + S] = v
+                new_cache = cache
+            o = _sdpa(q, new_cache["k"], new_cache["v"], pos + S,
+                      causal=True, q_offset=pos, chunk=chunk,
+                      split_kv=(is_dtensor(new_cache["k"])
+                                and _seq_split(new_cache["k"])))
+        y = o.reshape(B, S, H * D) @ p[f"{prefix}wo"]
+        return shard(y, "batch", "seq", None).to(x.dtype), new_cache
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attended: int,
+          causal: bool, q_offset: int = 0, chunk: int = 512,
+          split_kv: bool = False) -> torch.Tensor:
+    """`_sdpa_chunked` (with ``split_kv``, `_sdpa_split_kv`: a decode
+    cache whose sequence is split) in the span ``layer.attention.sdpa``,
+    which counts the key and value bytes the step needs, ``kv_bytes``:
+    those of the ``attended`` positions, not what the implementation
+    reads."""
+    with span("layer.attention.sdpa", device=q.device) as sp:
+        if sp:
+            sp.count("kv_bytes", 2 * k.shape[0] * attended * k.shape[2]
+                     * k.shape[3] * k.element_size())
+        if split_kv:
+            return _sdpa_split_kv(q, k, v, q_offset)
+        return _sdpa_chunked(q, k, v, causal=causal, q_offset=q_offset,
+                             chunk=chunk)
 
 
 def _pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -629,16 +653,20 @@ def mlp(x: torch.Tensor, p: Params, cfg: ArchConfig, prefix: str = ""
     b_down``.  The output's annotation is the port's (as the cross
     attention's): the JAX compiler reduces the 'ff'-split product before
     the residual add, where DTensor would carry a partial sum into the
-    residual stream and then gather the head's table to meet it."""
-    if cfg.norm == "ln":
-        h = shard(_gelu(bias_add(x @ p[f"{prefix}w_up"],
-                                 p[f"{prefix}b_up"])), "batch", "seq", "ff")
-        y = shard(h @ p[f"{prefix}w_down"], "batch", "seq", None)
-        return bias_add(y, p[f"{prefix}b_down"]).to(x.dtype)
-    g = x @ p[f"{prefix}w_gate"]
-    u = x @ p[f"{prefix}w_up"]
-    h = shard(_silu(g) * u, "batch", "seq", "ff")
-    return shard(h @ p[f"{prefix}w_down"], "batch", "seq", None).to(x.dtype)
+    residual stream and then gather the head's table to meet it.  Span
+    ``layer.mlp`` (`repro_torch.obs.trace.span`)."""
+    with span("layer.mlp"):
+        if cfg.norm == "ln":
+            h = shard(_gelu(bias_add(x @ p[f"{prefix}w_up"],
+                                     p[f"{prefix}b_up"])),
+                      "batch", "seq", "ff")
+            y = shard(h @ p[f"{prefix}w_down"], "batch", "seq", None)
+            return bias_add(y, p[f"{prefix}b_down"]).to(x.dtype)
+        g = x @ p[f"{prefix}w_gate"]
+        u = x @ p[f"{prefix}w_up"]
+        h = shard(_silu(g) * u, "batch", "seq", "ff")
+        return shard(h @ p[f"{prefix}w_down"], "batch", "seq",
+                     None).to(x.dtype)
 
 
 def moe_capacity(cfg: ArchConfig, S: int) -> int:

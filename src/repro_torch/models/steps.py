@@ -56,6 +56,7 @@ from repro_torch.distributed.sharding import (MeshShards, PartitionSpec,
 from repro_torch.distributed.specs import serving_table_sharding
 from repro_torch.models.model import (LM, Caches, logits_from_hidden,
                                       masked_logits)
+from repro_torch.obs.trace import span
 from repro_torch.optim.adamw import (AdamWConfig, OptState, apply_updates,
                                      compress_grads)
 
@@ -433,10 +434,22 @@ def decode_step(model: LM, cfg: ArchConfig, caches: Caches,
     batch split as the bound rules' 'batch' axis (``spec_of``), and the
     next tokens a DTensor split the same way.  The step, and the heads'
     tables built from the model's, are outside autograd, whether or not
-    the parameters require grad.
+    the parameters require grad.  Spans (`repro_torch.obs.trace.span`):
+    ``decode_step``, with ``decode_step.body`` (the model) and
+    ``decode_step.head``.
     """
-    h, caches = model(tokens, caches=caches, pos=pos)
-    hid = h[:, -1]
+    with span("decode_step"):
+        with span("decode_step.body"):
+            h, caches = model(tokens, caches=caches, pos=pos)
+            hid = h[:, -1]
+        with span("decode_step.head"):
+            return _decode_head(model, cfg, hid, perm, mesh), caches
+
+
+def _decode_head(model: LM, cfg: ArchConfig, hid: torch.Tensor, perm,
+                 mesh) -> torch.Tensor:
+    """`decode_step`'s next tokens ``(B,) int32`` from the final hidden
+    states ``hid (B, d)``."""
     if is_dtensor(hid):
         with dtensor_context(hid):
             if cfg.mips_mode == "boundedme":
@@ -444,11 +457,11 @@ def decode_step(model: LM, cfg: ArchConfig, caches: Caches,
                 if perm is None:
                     perm = draw_perms(head.plan.n_blocks)
                 ids = head(hid, perm, spec_of("batch")[0])
-                return ids[:, 0].to(torch.int32), caches
+                return ids[:, 0].to(torch.int32)
             if cfg.mips_mode != "exact":
                 raise ValueError(f"unknown mips_mode {cfg.mips_mode!r}")
             logits = masked_logits(cfg, model.head_table, hid)
-            return _sharded_argmax(logits).to(torch.int32), caches
+            return _sharded_argmax(logits).to(torch.int32)
     if cfg.mips_mode == "boundedme" and mesh is not None \
             and len(mesh.devices) > 1:
         head = sharded_mips_head(model, cfg, mesh)
@@ -467,4 +480,4 @@ def decode_step(model: LM, cfg: ArchConfig, caches: Caches,
                                 dim=-1)
     else:
         raise ValueError(f"unknown mips_mode {cfg.mips_mode!r}")
-    return next_tok.to(torch.int32), caches
+    return next_tok.to(torch.int32)

@@ -4,7 +4,9 @@
     (`Counter`, `Gauge`, `Histogram`), JSON snapshots and Prometheus
     text exposition;
   * :mod:`repro_torch.obs.trace` — per-request span tracing on the
-    serving stack's virtual clock, exported as Chrome trace-event JSON;
+    serving stack's virtual clock, exported as Chrome trace-event JSON,
+    and the port's host spans (`span`, `span_stats`), recorded while a
+    ``torch.profiler`` profile is recording;
   * :mod:`repro_torch.obs.flight` — the crash flight recorder, a ring of
     structured events dumped to JSON when a request fails.
 """

@@ -8,11 +8,13 @@ the default serve mode) at full width in bf16 on the card with the bandit
 head (eps = delta = 0.1), weights from seed 0 and depth cut to
 ``--layers``: once with 2 tokens to build the model and the head and warm
 up, then with 8 tokens under ``torch.profiler`` (CPU and CUDA
-activities), each of its decode steps in a ``record_function`` span.
-The demo ends its prefill in ``torch.cuda.synchronize()`` before its
-first decode step, and its decode loop in another after its last: the
-CUDA kernels that start from the first step's span to the end of that
-second synchronization are the decode steps'.  Prints one JSON line: the demo's own ms per token (host clock, under the profiler),
+activities), where each decode step records the program's own host span
+``decode_step`` (`repro_torch.obs.trace.span`, which has no device-side
+mirror).  The demo ends its prefill in ``torch.cuda.synchronize()``
+before its first decode step, and its decode loop in another after its
+last: the CUDA kernels that start from the first step's span to the end
+of that second synchronization are the decode steps'.  Prints one JSON
+line: the demo's own ms per token (host clock, under the profiler),
 device-busy ms per step (the union of the decode kernels' intervals) and
 the device's idle share, CUDA kernel launches per step, and the top
 kernels by device time with their shares.
@@ -53,7 +55,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
 
     def demo_args(tokens: int):
@@ -66,20 +68,9 @@ def main() -> int:
         cfg = dataclasses.replace(cfg, n_layers=a.layers)
     model = serve.run_decode_demo(demo_args(2), cfg=cfg)["model"]
     torch.cuda.synchronize()
-    step = serve.decode_step
-
-    def spanned_step(*args, **kw):
-        with record_function("decode_step"):
-            return step(*args, **kw)
-
-    serve.decode_step = spanned_step
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            res = serve.run_decode_demo(demo_args(STEPS), cfg=cfg,
-                                        model=model)
-    finally:
-        serve.decode_step = step
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = serve.run_decode_demo(demo_args(STEPS), cfg=cfg, model=model)
     events = prof.events()
     spans = [e.time_range for e in events if e.name == "decode_step"
              and e.device_type == torch.autograd.DeviceType.CPU]
@@ -93,8 +84,9 @@ def main() -> int:
         raise SystemExit("no torch.cuda.synchronize() after the last step")
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name != "decode_step"     # the span's device mirror
                and t0 <= e.time_range.start < t1]
+    if any(e.name == "decode_step" for e in kernels):
+        raise SystemExit("the decode_step span has a device-side mirror")
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
